@@ -1,0 +1,454 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``dsi_tpu_torch``).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the last line is printed):
+
+1. device: require CUDA, print the card's name and power limit, build the
+   kernels from ``dsi_tpu_torch/csrc`` (``kernels/build.py``);
+2. kernels against their plain PyTorch versions, on the card, on the same
+   device tensors: the slice shape (the bench corpus), 8-word keys at
+   max_word_len 64 with ties, an empty buffer, non-ASCII bytes, a token
+   longer than 64, n_tokens > t_cap at frac 4 and n_unique > u_cap; exact
+   equality required; each kernel timed with CUDA events beside its plain
+   version, its bound and (for the sort) a library yardstick;
+3. the slice at full size: the bench corpus (8 files x (2 MiB - 64),
+   seed 1234) through ``corpus_wordcount`` + ``write_corpus_output`` with
+   ``sort mr-out-*`` byte-equal to the sequential oracle; the same corpus
+   with a 40-letter word appended (forces the max_word_len 64 rung); and
+   ``count_words_host_result`` on one file against the oracle's counts.
+   Launch counts are zeroed just before each path and read just after.
+
+The second-to-last lines are the ``kernels`` JSON line and the card's
+``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
+Imports nothing of JAX or of the ``dsi_tpu`` package.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+N_FILES, FILE_SIZE, SEED, N_REDUCE = 8, (2 << 20) - 64, 1234, 10
+CORPUS_U_CAP, SPLIT_U_CAP, MWL = 1 << 18, 1 << 17, 16
+KERNELS = {
+    # name: (source, TPU-side program it replaces)
+    "tokenize": ("dsi_tpu_torch/csrc/tokenize.cu",
+                 "dsi_tpu/ops/wordcount.py:350"),
+    "radix_sort": ("dsi_tpu_torch/csrc/radix_sort.cu",
+                   "dsi_tpu/ops/wordcount.py:401"),
+    "group": ("dsi_tpu_torch/csrc/group.cu",
+              "dsi_tpu/ops/wordcount.py:161"),
+    "fnv": ("dsi_tpu_torch/csrc/fnv.cu", "dsi_tpu/ops/wordcount.py:104"),
+}
+
+
+def log(obj) -> None:
+    print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
+
+
+def sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+# ── phase 2: every kernel against its plain version ──────────────────────
+
+
+def _text_chunk(parts, size=None):
+    import numpy as np
+
+    data = b"".join(parts)
+    n = size or max(256, 1 << len(data).bit_length())
+    buf = np.zeros(n, np.uint8)
+    buf[:len(data)] = np.frombuffer(data, np.uint8)
+    return buf
+
+
+def kernel_cases(corpus_buf):
+    """(name, chunk, max_word_len, t_cap_frac, u_cap) per case."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz"
+                            b"ABCDEFGHIJKLMNOPQRSTUVWXYZ", np.uint8)
+
+    def word(lo, hi):
+        return letters[rng.integers(0, len(letters),
+                                    int(rng.integers(lo, hi)))].tobytes()
+
+    vocab = [word(1, 80) for _ in range(400)]
+    # Ties at max_word_len 64: words that share their first 64 letters and
+    # differ after, so equal keys carry different payloads (stability).
+    stem = word(64, 65)
+    vocab += [stem + word(1, 9) for _ in range(20)]
+    picks = rng.integers(0, len(vocab), 20000)
+    seps = [b" ", b", ", b"\n", b"123 "]
+    wide = [vocab[i] + seps[i % 4] for i in picks]
+    return [
+        ("bench_corpus", corpus_buf, MWL, 4, CORPUS_U_CAP),
+        ("mwl64_ties", _text_chunk(wide), 64, 4, 1 << 12),
+        ("empty", _text_chunk([]), MWL, 4, 16),
+        ("non_ascii", _text_chunk([b"caf", "é".encode(), b" na",
+                                   "ï".encode(), b"ve word"] * 50),
+         MWL, 4, 64),
+        ("long_token", _text_chunk([b"short ", b"q" * 100, b" tail"]),
+         64, 4, 16),
+        ("token_overflow", _text_chunk([b"a b c "] * 2000), MWL, 4, 64),
+        ("unique_overflow", _text_chunk(wide[:3000]), MWL, 2, 100),
+    ]
+
+
+def _diff(a, b) -> int:
+    """Max |a - b| over two integer tensors; -1 when shapes or types differ."""
+    import torch
+
+    if a is None and b is None:
+        return 0
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return -1
+    if a.numel() == 0:
+        return 0
+    d = (a.to(torch.int64) - b.to(torch.int64)).abs().max()
+    return int(d)
+
+
+def check_kernels(cases):
+    """Run every kernel and its plain version on each case; return
+    {kernel: max_abs_err} (-1 marks a shape/type mismatch)."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    err = {k: 0 for k in KERNELS}
+
+    def worst(name, got, want):
+        for g, p in zip(got, want):
+            d = _diff(g, p)
+            err[name] = -1 if d < 0 or err[name] < 0 else max(err[name], d)
+
+    for name, buf, mwl, frac, u_cap in cases:
+        chunk = torch.from_numpy(buf).to(DEVICE)
+        t_cap = len(buf) // frac + 1
+        tok = w.tokenize(chunk, max_word_len=mwl, t_cap=t_cap,
+                         with_poslen=True)
+        tok_p = w.tokenize_plain(chunk, max_word_len=mwl, t_cap=t_cap,
+                                 with_poslen=True)
+        worst("tokenize", tok, tok_p)
+        srt = w.radix_sort(tok_p[0])
+        srt_p = w.radix_sort_plain(tok_p[0])
+        worst("radix_sort", srt, srt_p)
+        ones = torch.ones(t_cap, dtype=torch.int64, device=DEVICE)
+        groups = []
+        for payload in (tok_p[1], tok_p[2]):  # lengths, poslen
+            grp = w.group_sorted(srt_p[0], ones, u_cap, payload, srt_p[1])
+            grp_p = w.group_sorted_plain(srt_p[0], ones, u_cap, payload,
+                                         srt_p[1])
+            worst("group", grp, grp_p)
+            groups.append(grp_p)
+        keys_u, len_u = groups[0][0], groups[0][3]
+        worst("fnv", (w.fnv1a32_packed(keys_u, len_u, mwl),),
+              (w.fnv1a32_packed_plain(keys_u, len_u, mwl),))
+        sync()
+        log({"case": name, "bytes": len(buf), "max_word_len": mwl,
+             "t_cap": t_cap, "u_cap": u_cap,
+             "n_tokens": int(tok_p[3][0]), "max_len": int(tok_p[3][1]),
+             "has_high": int(tok_p[3][2]),
+             "n_unique": int(groups[0][4]),
+             "max_abs_err": dict(err)})
+    return err
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card, from CUDA events around
+    ``reps`` calls after one warm-up call."""
+    import torch
+
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / reps
+
+
+def time_kernels(corpus_buf, split_buf):
+    """Time each kernel, its plain version and its yardstick at the shapes
+    the main path gives it: A, B, C on the bench corpus (corpus path, rung
+    0), D on one file's uniques (count_words_host_result, rung 0).
+    Returns {kernel: {ms, plain_ms, library_ms, bound_ms, ...}}."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    out = {}
+    n = len(corpus_buf)
+    chunk = torch.from_numpy(corpus_buf).to(DEVICE)
+    t = n // 4 + 1
+    u = w.rung0_cap(n, CORPUS_U_CAP)
+    k64 = (MWL // 4 + 1) // 2
+    keys, lengths, poslen, sc = w.tokenize(chunk, max_word_len=MWL, t_cap=t,
+                                           with_poslen=True)
+    skeys, perm = w.radix_sort(keys)
+    ones = torch.ones(t, dtype=torch.int64, device=DEVICE)
+    grp = w.group_sorted(skeys, ones, u, poslen, perm)
+    nu = min(int(grp[4]), u)
+
+    a_bytes = n + t * (8 * k64 + 4 + 4) + 16
+    out["tokenize"] = {
+        "ms": cuda_ms(lambda: w.tokenize(chunk, max_word_len=MWL, t_cap=t,
+                                         with_poslen=True), 20),
+        "plain_ms": cuda_ms(lambda: w.tokenize_plain(
+            chunk, max_word_len=MWL, t_cap=t, with_poslen=True), 3),
+        "library_ms": None, "bytes": a_bytes,
+        "shape": f"n={n} t_cap={t} k64={k64}"}
+    b_bytes = t * 8 * k64 * 2 + 4 * t
+    word0 = keys[0].clone()
+    out["radix_sort"] = {
+        "ms": cuda_ms(lambda: w.radix_sort(keys), 10),
+        "plain_ms": cuda_ms(lambda: w.radix_sort_plain(keys), 3),
+        # One stable torch.sort of ONE int64 key word with its indices:
+        # the library yardstick; the port never calls it.
+        "library_ms": cuda_ms(lambda: torch.sort(word0, stable=True), 10),
+        "bytes": b_bytes,
+        "radix_bytes": 8 * k64 * (8 + 4) * 2 * t,
+        "shape": f"t={t} k64={k64}"}
+    c_bytes = t * (8 * k64 + 8) + nu * 8 + u * (8 * k64 + 8 + 4 + 4) + 4
+    out["group"] = {
+        "ms": cuda_ms(lambda: w.group_sorted(skeys, ones, u, poslen, perm),
+                      20),
+        "plain_ms": cuda_ms(lambda: w.group_sorted_plain(
+            skeys, ones, u, poslen, perm), 3),
+        "library_ms": None, "bytes": c_bytes,
+        "shape": f"t={t} u_cap={u} n_unique={int(grp[4])}"}
+
+    # D at the per-split path's shape: one file, max_word_len 16, rung 0.
+    s_chunk = torch.from_numpy(split_buf).to(DEVICE)
+    st = len(split_buf) // 4 + 1
+    su = w.rung0_cap(len(split_buf), SPLIT_U_CAP)
+    s_keys, s_len, _, _ = w.tokenize(s_chunk, max_word_len=MWL, t_cap=st)
+    s_sk, s_perm = w.radix_sort(s_keys)
+    s_grp = w.group_sorted(
+        s_sk, torch.ones(st, dtype=torch.int64, device=DEVICE), su, s_len,
+        s_perm)
+    keys_u, len_u = s_grp[0], s_grp[3]
+    out["fnv"] = {
+        "ms": cuda_ms(lambda: w.fnv1a32_packed(keys_u, len_u, MWL), 50),
+        "plain_ms": cuda_ms(lambda: w.fnv1a32_packed_plain(
+            keys_u, len_u, MWL), 5),
+        "library_ms": None, "bytes": su * (8 * k64 + 4 + 4),
+        "shape": f"u_cap={su} k64={k64}"}
+    for v in out.values():
+        v["bound_ms"] = v["bytes"] / HBM_BYTES_PER_S * 1e3
+        if "radix_bytes" in v:
+            v["radix_bound_ms"] = v["radix_bytes"] / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+# ── phase 3: the slice at full size ──────────────────────────────────────
+
+
+def sorted_lines(paths) -> list:
+    """``sort mr-out-* | grep .`` as a list of byte lines."""
+    lines = []
+    for p in paths:
+        with open(p, "rb") as f:
+            lines.extend(x for x in f.read().split(b"\n") if x)
+    return sorted(lines)
+
+
+def run_oracle(files, workdir) -> list:
+    from dsi_tpu_torch.apps.wc import Map, Reduce
+    from dsi_tpu_torch.mr.sequential import run_sequential
+
+    out = run_sequential(Map, Reduce, files,
+                         os.path.join(workdir, "mr-correct.txt"))
+    return sorted_lines([out])
+
+
+def corpus_path(files, workdir, tag):
+    """Read -> corpus_wordcount -> write_corpus_output, phase by phase;
+    returns (sorted output lines, phase seconds, launches)."""
+    import glob
+
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.ops.corpus_wc import (corpus_wordcount,
+                                             write_corpus_output)
+
+    outdir = os.path.join(workdir, tag)
+    os.makedirs(outdir, exist_ok=True)
+    w.reset_launches()
+    t0 = time.perf_counter()
+    raws = []
+    for p in files:
+        with open(p, "rb") as f:
+            raws.append(f.read())
+    t1 = time.perf_counter()
+    res = corpus_wordcount(raws, device=DEVICE)
+    sync()
+    t2 = time.perf_counter()
+    if res is None:
+        raise RuntimeError(f"{tag}: corpus_wordcount fell back to the host")
+    write_corpus_output(res, N_REDUCE, outdir)
+    t3 = time.perf_counter()
+    launches = dict(w.LAUNCHES)
+    phases = {"read_s": t1 - t0, "kernel_s": t2 - t1, "write_s": t3 - t2}
+    lines = sorted_lines(sorted(glob.glob(os.path.join(outdir, "mr-out-*"))))
+    return lines, phases, launches, sum(len(r) for r in raws)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from dsi_tpu_torch.apps.wc import tokenize as host_tokenize
+    from dsi_tpu_torch.kernels import build
+    from dsi_tpu_torch.mr.sequential import ihash
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.ops.corpus_wc import _resolve_pieces
+    from dsi_tpu_torch.utils.corpus import ensure_corpus
+
+    gpu = gpu_line()
+    log(f"gpu: {gpu}")
+    t0 = time.perf_counter()
+    build.library()
+    log({"build_s": time.perf_counter() - t0,
+         "ptxas": [ln.strip() for ln in build.build_log.splitlines()
+                   if "registers" in ln or ln.startswith("==")]})
+
+    failures = []
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as work:
+        t0 = time.perf_counter()
+        files = ensure_corpus(os.path.join(work, "corpus"), N_FILES,
+                              FILE_SIZE, SEED)
+        raws = []
+        for p in files:
+            with open(p, "rb") as f:
+                raws.append(f.read())
+        corpus_buf, _, _ = _resolve_pieces(raws, None)
+        split_buf = w._pad_pow2(raws[0])
+        log({"corpus_s": time.perf_counter() - t0,
+             "corpus_bytes": sum(len(r) for r in raws),
+             "padded_bytes": len(corpus_buf)})
+
+        # Phase 2: kernels against their plain versions, then their times.
+        err = check_kernels(kernel_cases(corpus_buf))
+        failures += [f"{k} differs from its plain version"
+                     for k, e in err.items() if e != 0]
+        times = time_kernels(corpus_buf, split_buf)
+
+        # Phase 3: the slice at full size.
+        t0 = time.perf_counter()
+        oracle = run_oracle(files, work)
+        oracle_s = time.perf_counter() - t0
+        corpus_path(files, work, "warm")  # first use: allocator, context
+        lines, phases, launch_main, nbytes = corpus_path(files, work, "main")
+        if lines != oracle:
+            failures.append("mr-out-* differ from the oracle")
+
+        rng = np.random.default_rng(SEED)
+        long_word = bytes(rng.integers(97, 123, 40).astype(np.uint8))
+        dir64 = os.path.join(work, "corpus64")
+        os.makedirs(dir64)
+        files64 = []
+        for i, raw in enumerate(raws):
+            p = os.path.join(dir64, os.path.basename(files[i]))
+            with open(p, "wb") as f:
+                f.write(raw + (b" " + long_word if i == len(raws) - 1
+                               else b""))
+            files64.append(p)
+        oracle64 = run_oracle(files64, dir64)
+        lines64, phases64, launch64, _ = corpus_path(files64, work, "mwl64")
+        if lines64 != oracle64:
+            failures.append("mwl-64 mr-out-* differ from the oracle")
+        if launch64["tokenize"] < 2:
+            failures.append("the 40-letter word did not force a second rung")
+
+        w.reset_launches()
+        t0 = time.perf_counter()
+        got = w.count_words_host_result(raws[0], device=DEVICE)
+        split_s = time.perf_counter() - t0
+        launch_split = dict(w.LAUNCHES)
+        want = collections.Counter(host_tokenize(raws[0].decode("ascii")))
+        if got != {word: (c, ihash(word)) for word, c in want.items()}:
+            failures.append("count_words_host_result differs from oracle")
+
+    for name in ("tokenize", "radix_sort", "group"):
+        if launch_main[name] < 1:
+            failures.append(f"{name} never launched on the corpus path")
+    for name in KERNELS:
+        if launch_split[name] < 1:
+            failures.append(f"{name} never launched on the per-split path")
+    total_s = sum(phases.values())
+    log({"slice": {
+        "gpu": gpu, "input_bytes": nbytes, "mb_per_s": nbytes / total_s / 1e6,
+        **phases, "oracle_s": oracle_s, "parity": lines == oracle,
+        "mwl64": {**phases64, "parity": lines64 == oracle64,
+                  "launches": launch64},
+        "split": {"seconds": split_s, "bytes": len(raws[0]),
+                  "launches": launch_split},
+        "launches_main": launch_main}})
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        tm = times[name]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": (launch_main[name] + launch64[name]
+                            + launch_split[name]),
+               "max_abs_err": err[name], "match": err[name] == 0,
+               "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+               "bound_ms": tm["bound_ms"], "bound_by": "bytes",
+               "library_ms": tm["library_ms"], "shape": tm["shape"],
+               "launches_by_path": {"corpus": launch_main[name],
+                                    "corpus_mwl64": launch64[name],
+                                    "split": launch_split[name]}}
+        if "radix_bound_ms" in tm:
+            row["radix_bound_ms"] = tm["radix_bound_ms"]
+        kernels.append(row)
+    log({"kernels": kernels})
+    if failures:
+        for f in failures:
+            print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
+        return 1
+    log(gpu)
+    log({"ok": True, "device": {"platform": "gpu",
+                                "kind": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:  # any phase's fault ends the run non-zero
+        traceback.print_exc()
+        sys.exit(1)

@@ -1,0 +1,491 @@
+"""Word count per split: tokenize + sort + group + count on the card.
+
+Port of ``dsi_tpu/ops/wordcount.py`` (the sort grouper only).  Same
+contract as the JAX program: tokens are maximal runs of ASCII letters,
+grouped by their exact first ``max_word_len`` bytes, packed big-endian into
+u32 lanes and pairwise into u64 key words; any byte >= 0x80, a word longer
+than the window, more uniques than ``u_cap`` or more tokens than the token
+buffer is reported so the host wrapper retries wider or falls back
+(``exactness_retry``), so the result is always exact.
+
+Four device steps, each a hand-written CUDA kernel (``csrc/``) with its
+plain PyTorch version beside it:
+
+* ``tokenize``       — ``csrc/tokenize.cu``   (K1+K2, K6 front end)
+* ``radix_sort``     — ``csrc/radix_sort.cu`` (K3 sort)
+* ``group_sorted``   — ``csrc/group.cu``      (K3 group)
+* ``fnv1a32_packed`` — ``csrc/fnv.cu``        (K4)
+
+A wrapper given a CUDA tensor launches its kernel (adding one to its
+count in ``LAUNCHES``) or raises; given a CPU tensor it runs the plain
+version.  There is no other path.
+
+torch lacks unsigned shifts on the CPU, so in tensors u32 lanes, u32
+outputs and u64 key words are held as the same bits in int32/int64.  The
+plain versions flip the sign bit where order matters, so the pad key
+(all ones) sorts last as it does unsigned; the CUDA code reads the same
+storage as uint32_t/uint64_t.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+_FNV_OFFSET = 0x811C9DC5
+_FNV_PRIME = 0x01000193
+_PAD_KEY = 0xFFFFFFFF  # u32 lane of a pad row; sorts after every real word
+_PAD_KEY32 = -1        # the same lane as int32 bits
+_PAD_KEY64 = -1        # a pad row's u64 key word (all ones) as int64 bits
+_SIGN64 = torch.iinfo(torch.int64).min  # 1 << 63 as int64 bits
+# u32 mask keeping the first `keep` (0..4) big-endian bytes, by `keep`.
+_BYTE_MASKS = (0, 0xFF000000, 0xFFFF0000, 0xFFFFFF00, 0xFFFFFFFF)
+
+# Launches of each kernel in this process; a plain-version call adds none.
+LAUNCHES: Dict[str, int] = {"tokenize": 0, "radix_sort": 0, "group": 0,
+                            "fnv": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means ``cuda``, which
+    raises when CUDA is absent; the CPU only when asked for."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                               "run the plain PyTorch versions")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload a uint8 host buffer: one pinned staging copy and one
+    ``non_blocking`` host-to-device transfer on the card."""
+    if device.type == "cpu":
+        return torch.from_numpy(np.ascontiguousarray(buf))
+    staging = torch.empty(len(buf), dtype=torch.uint8, pin_memory=True)
+    staging.numpy()[:] = buf
+    return staging.to(device, non_blocking=True)
+
+
+# ── bit helpers (u32/u64 carried in int32/int64) ─────────────────────────
+
+
+def _u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 tensor of the same 32 bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def _u32_value(x: torch.Tensor) -> torch.Tensor:
+    """int32 bits -> int64 values in [0, 2**32)."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def pack_key_lanes(cols: tuple) -> tuple:
+    """Pack u32 key lanes (int32 bits) pairwise into u64 key words (int64
+    bits): lane j is the high word, lane j+1 the low; a missing odd tail
+    lane is the PAD constant, so a pad row stays all ones and real rows
+    keep their lexicographic order (``dsi_tpu`` ``pack_key_lanes``)."""
+    out = []
+    for j in range(0, len(cols), 2):
+        hi = cols[j]
+        lo = (cols[j + 1] if j + 1 < len(cols)
+              else torch.full_like(hi, _PAD_KEY32))
+        out.append(torch.stack([lo, hi], dim=-1).view(torch.int64)[..., 0])
+    return tuple(out)
+
+
+def unpack_key_lanes(cols64, k: int) -> tuple:
+    """Inverse of :func:`pack_key_lanes`: k u32 lanes (int32 bits) back out
+    of the packed u64 key words."""
+    halves = [w.contiguous().view(torch.int32).view(*w.shape, 2)
+              for w in cols64]
+    return tuple(halves[j // 2][..., 1 - j % 2] for j in range(k))
+
+
+def unpack_key_rows(rows64: torch.Tensor, k: int) -> torch.Tensor:
+    """[n, ceil(k/2)] packed u64 key rows -> [n, k] u32 lane rows."""
+    cols = unpack_key_lanes(
+        tuple(rows64[:, j] for j in range(rows64.shape[1])), k)
+    return torch.stack(cols, dim=1)
+
+
+def _compact(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """Positions of the set entries of ``mask``, in order, cut or padded
+    with ``fill`` to ``size`` (``jnp.nonzero(size=, fill_value=)``)."""
+    pos = torch.nonzero(mask).squeeze(1)[:size]
+    out = torch.full((size,), fill, dtype=torch.int64, device=mask.device)
+    out[:pos.numel()] = pos
+    return out
+
+
+# ── kernel plumbing ──────────────────────────────────────────────────────
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def _launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require(t: torch.Tensor, dtype: torch.dtype, ndim: int,
+             what: str) -> None:
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{what}: want a contiguous {ndim}-D {dtype} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+
+
+def _lib():
+    from dsi_tpu_torch.kernels.build import library
+
+    return library()
+
+
+# ── A: tokenize ──────────────────────────────────────────────────────────
+
+
+def tokenize_plain(chunk: torch.Tensor, *, max_word_len: int, t_cap: int,
+                   with_poslen: bool = False):
+    """Plain version of kernel A.  Returns (keys [k64, t_cap] int64,
+    lengths [t_cap] int32, poslen [t_cap] int32 or None, scalars [4] int32:
+    n_tokens, max_len, has_high, 0)."""
+    n = chunk.shape[0]
+    k = max_word_len // 4
+    dev = chunk.device
+    c = chunk.to(torch.int64)
+    letter = ((c >= 65) & (c <= 90)) | ((c >= 97) & (c <= 122))
+    no = torch.zeros(1, dtype=torch.bool, device=dev)
+    starts = letter & ~torch.cat([no, letter[:-1]])
+    ends = letter & ~torch.cat([letter[1:], no])
+    n_tokens = starts.sum()
+    start_pos = _compact(starts, t_cap, n - 1)
+    end_pos = _compact(ends, t_cap, n - 1)
+    valid = torch.arange(t_cap, device=dev) < n_tokens
+    lengths = torch.where(valid, end_pos - start_pos + 1, 0)
+    max_len = lengths.max()
+    cz = torch.cat([c, torch.zeros(3, dtype=torch.int64, device=dev)])
+    b32 = (cz[:-3] << 24) | (cz[1:-2] << 16) | (cz[2:-1] << 8) | cz[3:]
+    masks = torch.tensor(_BYTE_MASKS, dtype=torch.int64, device=dev)
+    lanes = []
+    for j in range(k):
+        lane = (b32[(start_pos + 4 * j).clamp(max=n - 1)]
+                & masks[(lengths - 4 * j).clamp(0, 4)])
+        lanes.append(_u32_bits(torch.where(valid, lane, _PAD_KEY)))
+    keys = torch.stack(pack_key_lanes(tuple(lanes)))
+    poslen = None
+    if with_poslen:
+        poslen = _u32_bits(torch.where(valid, (start_pos << 7) | lengths, 0))
+    has_high = (c >= 128).any()
+    scalars = torch.stack([n_tokens, max_len, has_high.to(torch.int64),
+                           torch.zeros((), dtype=torch.int64, device=dev)])
+    return keys, lengths.to(torch.int32), poslen, scalars.to(torch.int32)
+
+
+def tokenize(chunk: torch.Tensor, *, max_word_len: int, t_cap: int,
+             with_poslen: bool = False):
+    """Kernel A (``csrc/tokenize.cu``); see :func:`tokenize_plain`."""
+    _require(chunk, torch.uint8, 1, "tokenize chunk")
+    n = chunk.shape[0]
+    if n < 1 or t_cap < 1 or max_word_len < 4 or max_word_len % 4:
+        raise ValueError(f"tokenize: bad shape n={n} t_cap={t_cap} "
+                         f"max_word_len={max_word_len}")
+    if not _on_cuda(chunk):
+        return tokenize_plain(chunk, max_word_len=max_word_len, t_cap=t_cap,
+                              with_poslen=with_poslen)
+    lib = _lib()
+    k = max_word_len // 4
+    opts = {"device": chunk.device}
+    keys = torch.empty(((k + 1) // 2, t_cap), dtype=torch.int64, **opts)
+    lengths = torch.empty(t_cap, dtype=torch.int32, **opts)
+    poslen = (torch.empty(t_cap, dtype=torch.int32, **opts)
+              if with_poslen else None)
+    scalars = torch.zeros(4, dtype=torch.int32, **opts)
+    scratch = torch.empty(lib.dsi_tokenize_scratch_bytes(n),
+                          dtype=torch.uint8, **opts)
+    with torch.cuda.device(chunk.device):
+        _launch("tokenize", lib.dsi_tokenize(
+            _ptr(chunk), n, k, t_cap, _ptr(keys), _ptr(lengths),
+            _ptr(poslen), _ptr(scalars), _ptr(scratch), _stream(chunk)))
+    return keys, lengths, poslen, scalars
+
+
+# ── B: radix sort ────────────────────────────────────────────────────────
+
+
+def radix_sort_plain(keys: torch.Tensor):
+    """Plain version of kernel B: stable lexicographic sort of the u64 key
+    words ``keys`` [k64, t] (int64 bits).  Returns (sorted keys, perm
+    int32) with ``sorted[w][i] == keys[w][perm[i]]``, ties in input order."""
+    perm = torch.arange(keys.shape[1], device=keys.device)
+    for w in reversed(range(keys.shape[0])):
+        word = keys[w][perm] ^ _SIGN64  # unsigned order as signed order
+        perm = perm[torch.sort(word, stable=True).indices]
+    return keys[:, perm], perm.to(torch.int32)
+
+
+def radix_sort(keys: torch.Tensor):
+    """Kernel B (``csrc/radix_sort.cu``); see :func:`radix_sort_plain`."""
+    _require(keys, torch.int64, 2, "radix_sort keys")
+    k64, t = keys.shape
+    if k64 < 1 or t < 1 or t >= 1 << 31:
+        raise ValueError(f"radix_sort: bad shape {tuple(keys.shape)}")
+    if not _on_cuda(keys):
+        return radix_sort_plain(keys)
+    lib = _lib()
+    sorted_keys = torch.empty_like(keys)
+    perm = torch.empty(t, dtype=torch.int32, device=keys.device)
+    scratch = torch.empty(lib.dsi_radix_sort_scratch_bytes(t),
+                          dtype=torch.uint8, device=keys.device)
+    with torch.cuda.device(keys.device):
+        _launch("radix_sort", lib.dsi_radix_sort(
+            _ptr(keys), k64, t, _ptr(sorted_keys), _ptr(perm),
+            _ptr(scratch), _stream(keys)))
+    return sorted_keys, perm
+
+
+# ── C: group runs ────────────────────────────────────────────────────────
+
+
+def group_sorted_plain(skeys: torch.Tensor, counts: torch.Tensor,
+                       u_cap: int, payload: Optional[torch.Tensor] = None,
+                       perm: Optional[torch.Tensor] = None):
+    """Plain version of kernel C: group adjacent equal rows of sorted key
+    words ``skeys`` [k64, t] (pad rows, all ones, last).
+
+    ``counts`` [t] int64 per sorted row; ``payload`` [t] int32 in pre-sort
+    row order, read through ``perm`` at each run head.  Returns (keys_u
+    [k64, u_cap] int64, totals [u_cap] int64, upos [u_cap] int32,
+    payload_u [u_cap] int32, n_unique int32 scalar); rows past n_unique
+    are 0 (upos t-1)."""
+    k64, t = skeys.shape
+    dev = skeys.device
+    valid = skeys[0] != _PAD_KEY64
+    prev = torch.cat([torch.full((k64, 1), _PAD_KEY64, dtype=torch.int64,
+                                 device=dev), skeys[:, :-1]], dim=1)
+    is_new = (skeys != prev).any(dim=0) & valid
+    n_unique = is_new.sum()
+    uid = torch.cumsum(is_new.to(torch.int64), 0) - 1
+    seg = torch.where(valid & (uid < u_cap), uid, u_cap)
+    totals = torch.zeros(u_cap + 1, dtype=torch.int64, device=dev)
+    totals = totals.index_add_(0, seg, torch.where(valid, counts, 0))[:u_cap]
+    upos = _compact(is_new, u_cap, t - 1)
+    ovalid = torch.arange(u_cap, device=dev) < n_unique
+    keys_u = torch.where(ovalid, skeys[:, upos], 0)
+    payload_u = torch.zeros(u_cap, dtype=torch.int32, device=dev)
+    if payload is not None:
+        payload_u = torch.where(ovalid, payload[perm[upos].long()], 0)
+    return (keys_u, totals, upos.to(torch.int32), payload_u.to(torch.int32),
+            n_unique.to(torch.int32))
+
+
+def group_sorted(skeys: torch.Tensor, counts: torch.Tensor, u_cap: int,
+                 payload: Optional[torch.Tensor] = None,
+                 perm: Optional[torch.Tensor] = None):
+    """Kernel C (``csrc/group.cu``); see :func:`group_sorted_plain`."""
+    _require(skeys, torch.int64, 2, "group keys")
+    k64, t = skeys.shape
+    _require(counts, torch.int64, 1, "group counts")
+    if (payload is None) != (perm is None):
+        raise ValueError("group: payload and perm go together")
+    if payload is not None:
+        _require(payload, torch.int32, 1, "group payload")
+        _require(perm, torch.int32, 1, "group perm")
+    if (t < 1 or u_cap < 1 or counts.shape[0] != t
+            or (payload is not None and payload.shape[0] != t)):
+        raise ValueError(f"group: bad shapes t={t} u_cap={u_cap}")
+    if not _on_cuda(skeys):
+        return group_sorted_plain(skeys, counts, u_cap, payload, perm)
+    lib = _lib()
+    opts = {"device": skeys.device}
+    keys_u = torch.empty((k64, u_cap), dtype=torch.int64, **opts)
+    totals = torch.empty(u_cap, dtype=torch.int64, **opts)
+    upos = torch.empty(u_cap, dtype=torch.int32, **opts)
+    payload_u = torch.empty(u_cap, dtype=torch.int32, **opts)
+    n_unique = torch.empty(1, dtype=torch.int32, **opts)
+    scratch = torch.empty(lib.dsi_group_scratch_bytes(t, u_cap),
+                          dtype=torch.uint8, **opts)
+    with torch.cuda.device(skeys.device):
+        _launch("group", lib.dsi_group(
+            _ptr(skeys), k64, t, _ptr(counts), _ptr(payload), _ptr(perm),
+            u_cap, _ptr(keys_u), _ptr(totals), _ptr(upos), _ptr(payload_u),
+            _ptr(n_unique), _ptr(scratch), _stream(skeys)))
+    return keys_u, totals, upos, payload_u, n_unique[0]
+
+
+# ── D: FNV-1a ────────────────────────────────────────────────────────────
+
+
+def fnv1a32_packed_plain(keys_u: torch.Tensor, len_u: torch.Tensor,
+                         max_word_len: int) -> torch.Tensor:
+    """Plain version of kernel D: FNV-1a 32 (Go hash/fnv.New32a,
+    mr/worker.go:33-37) over the first min(len, max_word_len) bytes of
+    each row of the u64 key words ``keys_u`` [k64, u]; int32 bits."""
+    h = torch.full((keys_u.shape[1],), _FNV_OFFSET, dtype=torch.int64,
+                   device=keys_u.device)
+    for j in range(max_word_len):
+        b = (keys_u[j // 8] >> (56 - 8 * (j % 8))) & 0xFF
+        h = torch.where(j < len_u, ((h ^ b) * _FNV_PRIME) & 0xFFFFFFFF, h)
+    return _u32_bits(h)
+
+
+def fnv1a32_packed(keys_u: torch.Tensor, len_u: torch.Tensor,
+                   max_word_len: int) -> torch.Tensor:
+    """Kernel D (``csrc/fnv.cu``); see :func:`fnv1a32_packed_plain`."""
+    _require(keys_u, torch.int64, 2, "fnv keys")
+    _require(len_u, torch.int32, 1, "fnv lengths")
+    k64, u = keys_u.shape
+    if len_u.shape[0] != u or 8 * k64 < max_word_len:
+        raise ValueError(f"fnv: bad shapes {tuple(keys_u.shape)} "
+                         f"{tuple(len_u.shape)} mwl={max_word_len}")
+    if not _on_cuda(keys_u):
+        return fnv1a32_packed_plain(keys_u, len_u, max_word_len)
+    lib = _lib()
+    out = torch.empty(u, dtype=torch.int32, device=keys_u.device)
+    with torch.cuda.device(keys_u.device):
+        _launch("fnv", lib.dsi_fnv(_ptr(keys_u), u, _ptr(len_u),
+                                   max_word_len, _ptr(out),
+                                   _stream(keys_u)))
+    return out
+
+
+# ── the per-split program and its host wrapper ───────────────────────────
+
+
+def tokenize_group_core(chunk: torch.Tensor, *, max_word_len: int = 16,
+                        u_cap: int = 1 << 17, t_cap_frac: int = 4,
+                        grouper: str = "sort"):
+    """Exact unique-word counts over one uint8 chunk (zero-padded tail);
+    runs where ``chunk`` lies.
+
+    Returns (packed_u [u_cap, K] u32 bits, len_u [u_cap] i32, cnt_u
+    [u_cap] i32, fnv_u [u_cap] u32 bits, n_unique i32, max_len i32,
+    has_high bool, token_overflow bool) — the outputs of
+    ``dsi_tpu.ops.wordcount.tokenize_group_core`` with ``grouper="sort"``.
+    """
+    if grouper != "sort":
+        raise NotImplementedError(
+            f"grouper={grouper!r}: only the sort grouper is ported")
+    n = chunk.shape[0]
+    k = max_word_len // 4
+    t_cap = n // t_cap_frac + 1
+    keys, lengths, _, sc = tokenize(chunk, max_word_len=max_word_len,
+                                    t_cap=t_cap)
+    skeys, perm = radix_sort(keys)
+    ones = torch.ones(t_cap, dtype=torch.int64, device=chunk.device)
+    keys_u, totals, _, len_u, n_unique = group_sorted(
+        skeys, ones, u_cap, payload=lengths, perm=perm)
+    packed_u = unpack_key_rows(keys_u.T, k)
+    fnv_u = fnv1a32_packed(keys_u, len_u, max_word_len)
+    return (packed_u, len_u, totals.to(torch.int32), fnv_u, n_unique,
+            sc[1], sc[2] != 0, sc[0] > t_cap)
+
+
+def _pad_pow2(data: bytes, min_size: int = 256) -> np.ndarray:
+    """Zero-pad to the next power of two so a few shapes recur.  Zero bytes
+    are non-letters, so padding can't create or extend tokens."""
+    n = max(min_size, len(data) + 1)
+    size = 1 << (n - 1).bit_length()
+    buf = np.zeros(size, dtype=np.uint8)
+    buf[:len(data)] = np.frombuffer(data, dtype=np.uint8)
+    return buf
+
+
+def decode_packed(packed_u: np.ndarray, len_u: np.ndarray,
+                  n_unique: int) -> list:
+    """Host detokenization: packed big-endian u32 rows -> word strings."""
+    nu = int(n_unique)
+    rows = np.ascontiguousarray(np.asarray(packed_u[:nu])).astype(">u4")
+    buf = rows.tobytes()
+    stride = rows.shape[1] * 4
+    lens = np.asarray(len_u[:nu]).tolist()
+    return [buf[i * stride:i * stride + lens[i]].decode("ascii")
+            for i in range(nu)]
+
+
+def rung0_cap(shard_len: int, u_cap: int) -> int:
+    """exactness_retry's starting capacity: ``u_cap`` bounded by the
+    token-count hard cap for this shard length (n//2+1, pow2-rounded),
+    floored at 1 (a zero start could never widen)."""
+    hard_cap = 1 << (shard_len // 2).bit_length()
+    return max(1, min(u_cap, hard_cap))
+
+
+def exactness_retry(run, shard_len: int, max_word_len: int, u_cap: int):
+    """Shared overflow/retry discipline (``dsi_tpu`` ``exactness_retry``).
+
+    ``run(mwl, cap)`` returns ``(has_high, n_unique, max_len, payload)``.
+    Retries with ``cap*4`` while uniques overflow, then with a 64-byte word
+    window if a word overflowed the packed window.  Returns the payload, or
+    None when the input needs the host path (non-ASCII bytes, or words
+    longer than 64)."""
+    ladder = (max_word_len, 64) if max_word_len < 64 else (max_word_len,)
+    for mwl in ladder:
+        cap = rung0_cap(shard_len, u_cap)
+        while True:
+            has_high, n_unique_max, max_len, payload = run(mwl, cap)
+            if has_high:
+                return None
+            if n_unique_max > cap:
+                cap *= 4
+                continue
+            break
+        if max_len > mwl:
+            continue  # a word overflowed the packed window: widen kernel
+        return payload
+    return None
+
+
+def count_words_host_result(
+        data: bytes, *, max_word_len: int = 16, u_cap: int = 1 << 17,
+        device=None) -> Optional[Dict[str, tuple]]:
+    """Run the per-split program (retrying wider on overflow) and return
+    ``{word: (count, ihash)}``, or None if and only if the text needs the
+    host path (non-ASCII bytes, or words longer than 64 bytes)."""
+    chunk = to_device(_pad_pow2(data), resolve_device(device))
+
+    def run(mwl: int, cap: int):
+        for frac in (4, 2):  # exact token bound is n//2+1
+            out = tokenize_group_core(chunk, max_word_len=mwl, u_cap=cap,
+                                      t_cap_frac=frac)
+            nu, max_len, has_high, tok_of = torch.stack(
+                [out[4], out[5], out[6].to(torch.int32),
+                 out[7].to(torch.int32)]).tolist()
+            if not tok_of:
+                break
+
+        def payload():
+            packed_u, len_u, cnt_u, fnv_u = (x[:nu].cpu().numpy()
+                                             for x in out[:4])
+            words = decode_packed(packed_u.view(np.uint32), len_u, nu)
+            hashes = fnv_u.view(np.uint32) & 0x7FFFFFFF
+            return {w: (int(cnt_u[i]), int(hashes[i]))
+                    for i, w in enumerate(words)}
+
+        return bool(has_high), nu, max_len, payload
+
+    payload = exactness_retry(run, chunk.shape[0], max_word_len, u_cap)
+    return None if payload is None else payload()

@@ -1,0 +1,137 @@
+"""Where the time of the port's word-count slice goes, on the card.
+
+    python -m dsi_tpu_torch.slice_profile [--baseline-csrc DIR]
+
+On the bench corpus (8 files x (2 MiB - 64), seed 1234) it prints JSON
+lines:
+
+* ``corpus_profile``: one warm ``corpus_wordcount`` call under
+  ``torch.profiler``: wall seconds, the sum of device kernel time, and
+  the busiest device kernels by total time;
+* ``sort_profile``: the same for one ``radix_sort`` of the corpus keys,
+  split by sub-kernel (histogram, scans, scatter, gathers);
+* with ``--baseline-csrc``: kernel B built from that directory (for
+  example the parent commit's ``dsi_tpu_torch/csrc``, unpacked with
+  ``git archive``) timed in turns with this tree's (baseline, change,
+  change, baseline), both checked against the plain version.
+
+Needs one CUDA card; the card's name and power limit head the output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+from dsi_tpu_torch.kernels import build
+from dsi_tpu_torch.ops import wordcount as w
+from dsi_tpu_torch.ops.corpus_wc import _resolve_pieces, corpus_wordcount
+from dsi_tpu_torch.utils.corpus import ensure_corpus
+
+
+def _ms(fn, reps: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0.0)))
+
+
+def _profile(fn, top: int = 12) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=_device_us, reverse=True)
+    return {"wall_s": wall,
+            "device_s": sum(_device_us(e) for e in kernels) / 1e6,
+            "top": [{"name": e.key[:80], "calls": e.count,
+                     "device_ms": _device_us(e) / 1e3} for e in kernels[:top]]}
+
+
+def _sort_with(lib, keys: torch.Tensor):
+    """Kernel B from ``lib`` (same C interface as the package's)."""
+    k64, t = keys.shape
+    out = torch.empty_like(keys)
+    perm = torch.empty(t, dtype=torch.int32, device=keys.device)
+    scratch = torch.empty(lib.dsi_radix_sort_scratch_bytes(t),
+                          dtype=torch.uint8, device=keys.device)
+    rc = lib.dsi_radix_sort(keys.data_ptr(), k64, t, out.data_ptr(),
+                            perm.data_ptr(), scratch.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"radix_sort launch failed: CUDA error {rc}")
+    return out, perm
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline-csrc", type=Path, default=None,
+                    help="csrc directory of the kernel version to compare")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("slice_profile: needs a CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    w.resolve_device("cuda")
+    build.library()
+    with tempfile.TemporaryDirectory() as work:
+        files = ensure_corpus(os.path.join(work, "c"), 8, (2 << 20) - 64,
+                              1234)
+        raws = [Path(p).read_bytes() for p in files]
+    buf, _, _ = _resolve_pieces(raws, None)
+    print(json.dumps({"corpus_profile": _profile(
+        lambda: corpus_wordcount(raws, device="cuda"))}), flush=True)
+
+    chunk = torch.from_numpy(buf).cuda()
+    keys = w.tokenize(chunk, max_word_len=16, t_cap=len(buf) // 4 + 1)[0]
+    print(json.dumps({"sort_profile": _profile(lambda: w.radix_sort(keys),
+                                               top=8)}), flush=True)
+    if args.baseline_csrc is not None:
+        base = build.load(build.build(
+            args.baseline_csrc, build.BUILD_DIR / "baseline"))
+        new = build.library()
+        want = w.radix_sort_plain(keys)
+        same = {}
+        for name, lib in (("baseline", base), ("change", new)):
+            got = _sort_with(lib, keys)
+            same[name] = all(torch.equal(g, x) for g, x in zip(got, want))
+        turns = []
+        for name, lib in (("baseline", base), ("change", new),
+                          ("change", new), ("baseline", base)):
+            turns.append([name, _ms(lambda: _sort_with(lib, keys))])
+        print(json.dumps({"sort_ab": {"equal_to_plain": same,
+                                      "ms_in_turns": turns,
+                                      "shape": list(keys.shape)}}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,63 @@
+"""Import hygiene of the port: no JAX and nothing of ``dsi_tpu``.
+
+Every ``dsi_tpu_torch`` module and ``chip_smoke.py`` are imported, one
+after another, in ONE fresh interpreter; after each import the test reads
+``sys.modules`` for ``jax`` and for ``dsi_tpu``/``dsi_tpu.*``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    import dsi_tpu_torch
+
+    names = ["dsi_tpu_torch"]
+    for m in pkgutil.walk_packages(dsi_tpu_torch.__path__, "dsi_tpu_torch."):
+        names.append(m.name)
+    return sorted(names) + ["chip_smoke"]
+
+
+MODULES = _port_modules()
+
+_PROBE = """
+import importlib, json, sys
+out = {}
+for name in json.loads(sys.argv[1]):
+    importlib.import_module(name)
+    out[name] = sorted(m for m in sys.modules
+                       if m == "jax" or m.startswith("jax.")
+                       or m == "dsi_tpu" or m.startswith("dsi_tpu."))
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def loaded():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", _PROBE, json.dumps(MODULES)],
+                         capture_output=True, text=True, cwd=REPO, env=env,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_every_module_is_listed():
+    assert {"dsi_tpu_torch.ops.wordcount", "dsi_tpu_torch.ops.corpus_wc",
+            "dsi_tpu_torch.kernels.build", "dsi_tpu_torch.interop",
+            "chip_smoke"} <= set(MODULES)
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_module_imports_no_jax_and_no_dsi_tpu(loaded, name):
+    assert loaded[name] == [], f"{name} pulled in {loaded[name]}"
