@@ -19,8 +19,20 @@ Phases (any failure exits non-zero before the last line is printed):
    seed 1234) through ``corpus_wordcount`` + ``write_corpus_output`` with
    ``sort mr-out-*`` byte-equal to the sequential oracle; the same corpus
    with a 40-letter word appended (forces the max_word_len 64 rung); and
-   ``count_words_host_result`` on one file against the oracle's counts.
-   Launch counts are zeroed just before each path and read just after.
+   ``count_words_host_result`` on one file against the oracle's counts;
+4. kernel E (the shuffle) against its plain version at the stream shape
+   and at 8 virtual shards, with all rows bound for one shard and with no
+   valid row; kernels B and C at the reduce shape;
+5. the streaming SPMD word count: ``wordcount_sharded`` over the bench
+   corpus at 1 and 8 virtual shards to ``mr-out-*`` parity, then the
+   bench's stream row at full width (the corpus cycled to 64 MB, 2 MiB
+   chunks, u_cap 2^15, 10 partitions, depth 2, sync every 8, one shard)
+   through ``wordcount_streaming`` with the device table off and on (the
+   call alone timed, so the two modes share one window), then through
+   the ``wcstream`` CLI in-process with the table on, each holding every
+   count to the oracle's times the cycles; kernels B and C held against
+   their plain versions at the reduce and fold shapes of that stream.
+Launch counts are zeroed just before each path and read just after.
 
 The second-to-last lines are the ``kernels`` JSON line and the card's
 ``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
@@ -43,6 +55,9 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 N_FILES, FILE_SIZE, SEED, N_REDUCE = 8, (2 << 20) - 64, 1234, 10
 CORPUS_U_CAP, SPLIT_U_CAP, MWL = 1 << 18, 1 << 17, 16
+# The stream row of bench.py (:158-159, :612-613) and the one-shot step.
+STREAM_MB, STREAM_CHUNK, STREAM_U_CAP, SHARDED_U_CAP = 64.0, 1 << 21, \
+    1 << 15, 1 << 15
 KERNELS = {
     # name: (source, TPU-side program it replaces)
     "tokenize": ("dsi_tpu_torch/csrc/tokenize.cu",
@@ -52,6 +67,8 @@ KERNELS = {
     "group": ("dsi_tpu_torch/csrc/group.cu",
               "dsi_tpu/ops/wordcount.py:161"),
     "fnv": ("dsi_tpu_torch/csrc/fnv.cu", "dsi_tpu/ops/wordcount.py:104"),
+    "route": ("dsi_tpu_torch/csrc/route.cu",
+              "dsi_tpu/parallel/shuffle.py:68"),
 }
 
 
@@ -133,6 +150,19 @@ def _diff(a, b) -> int:
     return int(d)
 
 
+def _merge_err(a: int, b: int) -> int:
+    """Worse of two max_abs_err values; -1 (a mismatch) wins."""
+    return -1 if a < 0 or b < 0 else max(a, b)
+
+
+def _worst(pairs) -> int:
+    """max_abs_err over (kernel output, plain output) pairs."""
+    err = 0
+    for got, want in pairs:
+        err = _merge_err(err, _diff(got, want))
+    return err
+
+
 def check_kernels(cases):
     """Run every kernel and its plain version on each case; return
     {kernel: max_abs_err} (-1 marks a shape/type mismatch)."""
@@ -142,9 +172,7 @@ def check_kernels(cases):
     err = {k: 0 for k in KERNELS}
 
     def worst(name, got, want):
-        for g, p in zip(got, want):
-            d = _diff(g, p)
-            err[name] = -1 if d < 0 or err[name] < 0 else max(err[name], d)
+        err[name] = _merge_err(err[name], _worst(zip(got, want)))
 
     for name, buf, mwl, frac, u_cap in cases:
         chunk = torch.from_numpy(buf).to(DEVICE)
@@ -236,12 +264,17 @@ def time_kernels(corpus_buf, split_buf):
         "radix_bytes": 8 * k64 * (8 + 4) * 2 * t,
         "shape": f"t={t} k64={k64}"}
     c_bytes = t * (8 * k64 + 8) + nu * 8 + u * (8 * k64 + 8 + 4 + 4) + 4
+    sk_rows = skeys.T
     out["group"] = {
         "ms": cuda_ms(lambda: w.group_sorted(skeys, ones, u, poslen, perm),
                       20),
         "plain_ms": cuda_ms(lambda: w.group_sorted_plain(
             skeys, ones, u, poslen, perm), 3),
-        "library_ms": None, "bytes": c_bytes,
+        # Run heads and counts over the sorted rows in one call; it leaves
+        # out the u_cap compaction and the payload gather.
+        "library_ms": cuda_ms(lambda: torch.unique_consecutive(
+            sk_rows, dim=0, return_counts=True), 10),
+        "bytes": c_bytes,
         "shape": f"t={t} u_cap={u} n_unique={int(grp[4])}"}
 
     # D at the per-split path's shape: one file, max_word_len 16, rung 0.
@@ -318,6 +351,300 @@ def corpus_path(files, workdir, tag):
     phases = {"read_s": t1 - t0, "kernel_s": t2 - t1, "write_s": t3 - t2}
     lines = sorted_lines(sorted(glob.glob(os.path.join(outdir, "mr-out-*"))))
     return lines, phases, launches, sum(len(r) for r in raws)
+
+# ── phase 4: kernel E, and B / C at the stream's shapes ──────────────────
+
+
+def stream_step_rows(raw: bytes):
+    """The map rows and destinations of one full-width stream step (one
+    shard, one 2 MiB chunk holding ``raw``): kernel E's main-path input."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.parallel.shuffle import map_prologue
+
+    buf = np.zeros(STREAM_CHUNK, np.uint8)
+    buf[:len(raw)] = np.frombuffer(raw, np.uint8)
+    packed_u, len_u, cnt_u, part, dest, _ = map_prologue(
+        torch.from_numpy(buf).to(DEVICE), n_dev=1, n_reduce=N_REDUCE,
+        max_word_len=MWL, u_cap=STREAM_U_CAP, t_cap_frac=4)
+    rows = torch.cat([packed_u, len_u[:, None], cnt_u[:, None],
+                      part[:, None]], dim=1)
+    return rows[None].contiguous(), dest[None].contiguous()
+
+
+def route_cases(rows1, dest1):
+    """(name, rows, dest, n_dev, k) per case for kernel E."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+
+    def rows(n_dev, r, w):
+        return dev(rng.integers(-(1 << 31), 1 << 31, (n_dev, r, w))
+                   .astype(np.int32))
+
+    r8 = rows(8, 4096, 7)
+    return [
+        ("stream_shape", rows1, dest1, 1, MWL // 4),
+        ("parked_n1", rows1, torch.ones_like(dest1), 1, MWL // 4),
+        ("random_n8", r8, dev(rng.integers(0, 9, (8, 4096))
+                              .astype(np.int32)), 8, 4),
+        ("one_dest_n8", r8, dev(np.full((8, 4096), 3, np.int32)), 8, 4),
+        ("parked_n8", r8, dev(np.full((8, 4096), 8, np.int32)), 8, 4),
+        ("wide_n8", rows(8, 1024, 19),
+         dev(rng.integers(0, 9, (8, 1024)).astype(np.int32)), 8, 16),
+    ]
+
+
+def check_route(cases) -> int:
+    """Kernel E against its plain version on every case; max_abs_err."""
+    from dsi_tpu_torch.ops.wordcount import shuffle_rows, shuffle_rows_plain
+
+    err = 0
+    for name, rows, dest, n_dev, k in cases:
+        got = shuffle_rows(rows, dest, n_dev=n_dev, k=k)
+        want = shuffle_rows_plain(rows, dest, n_dev=n_dev, k=k)
+        d = _diff(got, want)
+        err = _merge_err(err, d)
+        sync()
+        log({"route_case": name, "shape": list(rows.shape), "k": k,
+             "valid_rows": int(((dest >= 0) & (dest < n_dev)).sum()),
+             "max_abs_err": d})
+    return err
+
+
+def time_route(rows1, dest1):
+    from dsi_tpu_torch.ops.wordcount import shuffle_rows, shuffle_rows_plain
+
+    n_dev, r, w = rows1.shape
+    nbytes = 4 * (n_dev * r * w + n_dev * r + n_dev * n_dev * r * w)
+    return {"ms": cuda_ms(lambda: shuffle_rows(rows1, dest1, n_dev=1,
+                                               k=MWL // 4), 50),
+            "plain_ms": cuda_ms(lambda: shuffle_rows_plain(
+                rows1, dest1, n_dev=1, k=MWL // 4), 5),
+            # No one PyTorch call routes rows to shards.
+            "library_ms": None, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "shape": f"n_dev={n_dev} r={r} w={w}"}
+
+
+def time_sort_group(keys64, counts, payload, u_cap: int, tag: str):
+    """B and C on one shape of the stream path, held against their plain
+    versions on the same device tensors and timed beside them and their
+    yardsticks: ``keys64`` [k64, t] unsorted key words, ``counts`` [t]
+    int64 and ``payload`` [t] int32 in pre-sort order.  Each kernel's
+    entry carries its ``max_abs_err`` at this shape (-1 marks a
+    shape/type mismatch)."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    k64, t = keys64.shape
+    skeys, perm = w.radix_sort(keys64)
+    b_err = _worst(zip((skeys, perm), w.radix_sort_plain(keys64)))
+    scounts = counts[perm.long()]
+    grp = w.group_sorted(skeys, scounts, u_cap, payload, perm)
+    c_err = _worst(zip(grp, w.group_sorted_plain(skeys, scounts, u_cap,
+                                                 payload, perm)))
+    nu = int(grp[4])
+    word0 = keys64[0].clone()
+    b_bytes = 2 * 8 * k64 * t + 4 * t
+    c_bytes = (t * (8 * k64 + 8) + 8 * min(nu, u_cap)
+               + u_cap * (8 * k64 + 8 + 4 + 4) + 4)
+    sk_rows = skeys.T
+    return {
+        "radix_sort": {
+            "max_abs_err": b_err,
+            "ms": cuda_ms(lambda: w.radix_sort(keys64), 20),
+            "plain_ms": cuda_ms(lambda: w.radix_sort_plain(keys64), 5),
+            "library_ms": cuda_ms(lambda: torch.sort(word0, stable=True),
+                                  20),
+            "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3,
+            "shape": f"{tag}: t={t} k64={k64}"},
+        "group": {
+            "max_abs_err": c_err,
+            "ms": cuda_ms(lambda: w.group_sorted(skeys, scounts, u_cap,
+                                                 payload, perm), 20),
+            "plain_ms": cuda_ms(lambda: w.group_sorted_plain(
+                skeys, scounts, u_cap, payload, perm), 5),
+            # Run heads and counts over the sorted rows in one call; it
+            # leaves out the u_cap compaction and the payload gather.
+            "library_ms": cuda_ms(lambda: torch.unique_consecutive(
+                sk_rows, dim=0, return_counts=True), 20),
+            "bound_ms": c_bytes / HBM_BYTES_PER_S * 1e3,
+            "shape": f"{tag}: t={t} u_cap={u_cap} n_unique={nu}"}}
+
+
+def reduce_shape_times(rows1, dest1):
+    """B and C as the step's reduce half runs them (K9)."""
+    from dsi_tpu_torch.ops.wordcount import (_u32_value, pack_key_lanes,
+                                             shuffle_rows)
+
+    import torch
+
+    k = MWL // 4
+    recv = shuffle_rows(rows1, dest1, n_dev=1, k=k)[0]
+    keys64 = torch.stack(pack_key_lanes(tuple(recv[:, j]
+                                              for j in range(k))))
+    return time_sort_group(keys64, _u32_value(recv[:, k + 1]),
+                           recv[:, k].contiguous(), recv.shape[0], "reduce")
+
+
+def fold_shape_times(raws, cap: int):
+    """B and C as the fold runs them (K10) once the table has reached
+    ``cap`` rows: a table holding the first files' steps, and the next
+    file's step."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.device import table as dt
+    from dsi_tpu_torch.parallel.shuffle import _slice_pack, mapreduce_step
+
+    k = MWL // 4
+    opts = {"device": DEVICE}
+    state = (torch.full((1, cap, k), -1, dtype=torch.int32, **opts),
+             torch.zeros((1, cap), dtype=torch.int32, **opts),
+             torch.zeros((1, cap), dtype=torch.int64, **opts),
+             torch.zeros((1, cap), dtype=torch.int32, **opts),
+             torch.zeros(1, dtype=torch.int32, **opts))
+    steps = []
+    for raw in raws[:5]:
+        buf = np.zeros(STREAM_CHUNK, np.uint8)
+        buf[:len(raw)] = np.frombuffer(raw, np.uint8)
+        out = mapreduce_step(torch.from_numpy(buf).to(DEVICE)[None],
+                             n_dev=1, n_reduce=N_REDUCE, max_word_len=MWL,
+                             u_cap=STREAM_U_CAP)
+        steps.append((_slice_pack(*out[:4], mp=out[0].shape[1]), out[4]))
+    for packed, scal in steps[:-1]:
+        state = dt.fold_step(*state, packed, scal)[:5]
+    packed, scal = steps[-1]
+    keys64, cnts, lens, _ = dt._fold_operands(
+        state[0][0], state[1][0], state[2][0], state[3][0], packed[0],
+        scal[0], k)
+    return time_sort_group(keys64, cnts, lens, cap, "fold")
+
+
+# ── phase 5: the streaming SPMD word count ───────────────────────────────
+
+
+def oracle_counts(lines) -> dict:
+    out = {}
+    for ln in lines:
+        word, _, c = ln.decode().rpartition(" ")
+        out[word] = int(c)
+    return out
+
+
+def sharded_path(data: bytes, n_dev: int, workdir: str, oracle):
+    """wordcount_sharded -> write_partitioned_output; (parity, seconds,
+    launches)."""
+    import glob
+
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.parallel.shuffle import (wordcount_sharded,
+                                                write_partitioned_output)
+
+    outdir = os.path.join(workdir, f"sharded-{n_dev}")
+    os.makedirs(outdir)
+    w.reset_launches()
+    t0 = time.perf_counter()
+    res = wordcount_sharded(data, n_dev=n_dev, n_reduce=N_REDUCE,
+                            u_cap=SHARDED_U_CAP, device=DEVICE)
+    sync()
+    kernel_s = time.perf_counter() - t0
+    launches = dict(w.LAUNCHES)
+    if res is None:
+        raise RuntimeError(f"wordcount_sharded n_dev={n_dev} returned None")
+    write_partitioned_output(res, N_REDUCE, outdir)
+    lines = sorted_lines(sorted(glob.glob(os.path.join(outdir, "mr-out-*"))))
+    return lines == oracle, kernel_s, launches
+
+
+def stream_parity(counts: dict, want: dict, cycles: int) -> bool:
+    return (len(counts) == len(want)
+            and all(counts.get(w_, 0) == c * cycles
+                    for w_, c in want.items()))
+
+
+def stream_path(files, cycles: int, want: dict, device_accumulate: bool):
+    """The stream row through ``wordcount_streaming``, the bench's input
+    (``cycle_files``) and window: the call alone, so the table off and on
+    are timed alike; (parity, seconds, stats, launches)."""
+    from dsi_tpu_torch.mr.sequential import ihash
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.parallel.streaming import (cycle_files,
+                                                  wordcount_streaming)
+
+    stats: dict = {}
+    w.reset_launches()
+    t0 = time.perf_counter()
+    res = wordcount_streaming(cycle_files(files, cycles), n_dev=1,
+                              n_reduce=N_REDUCE, chunk_bytes=STREAM_CHUNK,
+                              u_cap=STREAM_U_CAP,
+                              device_accumulate=device_accumulate,
+                              pipeline_stats=stats, device=DEVICE)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = dict(w.LAUNCHES)
+    if res is None:
+        raise RuntimeError("the stream returned None (host path)")
+    parity = (stream_parity({k: c for k, (c, _) in res.items()}, want,
+                            cycles)
+              and all(p == ihash(k) % N_REDUCE
+                      for k, (_, p) in res.items()))
+    return parity, seconds, stats, launches
+
+
+def stream_cli_path(files, cycles: int, want: dict, workdir: str):
+    """The stream row with the device table on, through the ``wcstream``
+    CLI in-process (argument parsing, reading, the stream and writing
+    ``mr-out-*``); (parity, seconds, stats, launches)."""
+    import ast
+    import contextlib
+    import io
+
+    from dsi_tpu_torch.cli import wcstream
+    from dsi_tpu_torch.mr.sequential import ihash
+    from dsi_tpu_torch.ops import wordcount as w
+
+    outdir = os.path.join(workdir, "stream-cli")
+    err = io.StringIO()
+    w.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = wcstream.main(
+            ["--device-accumulate", "--chunk-bytes", str(STREAM_CHUNK),
+             "--u-cap", str(STREAM_U_CAP), "--nreduce", str(N_REDUCE),
+             "--workdir", outdir, "--stats", "--device", DEVICE]
+            + list(files) * cycles)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = dict(w.LAUNCHES)
+    text = err.getvalue()
+    if rc != 0 or "host path" in text:
+        raise RuntimeError(f"wcstream rc={rc}: {text[-2000:]}")
+    stats = ast.literal_eval(
+        text.split("pipeline_stats=", 1)[1].splitlines()[0])
+    counts, parts_ok = {}, True
+    for r in range(N_REDUCE):
+        with open(os.path.join(outdir, f"mr-out-{r}"), "rb") as f:
+            for ln in f.read().split(b"\n"):
+                if ln:
+                    word, _, c = ln.decode().rpartition(" ")
+                    counts[word] = int(c)
+                    parts_ok = parts_ok and ihash(word) % N_REDUCE == r
+    return (stream_parity(counts, want, cycles) and parts_ok, seconds,
+            stats, launches)
+
+
+STREAM_PHASES = ("batch_s", "batch_wait_s", "upload_s", "dispatch_s",
+                 "kernel_s", "pull_s", "merge_s", "replay_s", "fold_s",
+                 "sync_s", "widen_s", "finalize_s",
+                 "steps", "replays", "step_pulls", "folds",
+                 "fold_overflows", "sync_pulls", "widens", "table_cap",
+                 "max_inflight_chunks", "batch_allocs")
+
 
 
 def main() -> int:
@@ -401,10 +728,69 @@ def main() -> int:
         if got != {word: (c, ihash(word)) for word, c in want.items()}:
             failures.append("count_words_host_result differs from oracle")
 
+        # Phase 4: kernel E against its plain version, its time, and B / C
+        # at the reduce shape.
+        rows1, dest1 = stream_step_rows(raws[0])
+        err["route"] = check_route(route_cases(rows1, dest1))
+        if err["route"] != 0:
+            failures.append("route differs from its plain version")
+        times["route"] = time_route(rows1, dest1)
+        shapes = {"reduce": reduce_shape_times(rows1, dest1)}
+
+        # Phase 5: the streaming SPMD word count.
+        data = b"\n".join(raws)
+        sharded = {}
+        for n_dev in (1, 8):
+            parity, secs, launches = sharded_path(data, n_dev, work, oracle)
+            sharded[n_dev] = {"parity": parity, "seconds": secs,
+                              "launches": launches}
+            if not parity:
+                failures.append(f"wordcount_sharded n_dev={n_dev} mr-out-* "
+                                "differ from the oracle")
+            failures += [f"{name} never launched on the sharded n_dev="
+                         f"{n_dev} path" for name in KERNELS
+                         if launches[name] < 1]
+        want_counts = oracle_counts(oracle)
+        cycles = max(1, round(STREAM_MB * 1e6 / len(data)))
+        stream = {}
+        for tag, run in (("stream", lambda: stream_path(
+                files, cycles, want_counts, False)),
+                         ("stream_acc", lambda: stream_path(
+                             files, cycles, want_counts, True)),
+                         ("stream_cli", lambda: stream_cli_path(
+                             files, cycles, want_counts, work))):
+            parity, secs, stats, launches = run()
+            stream[tag] = {"parity": parity, "seconds": secs,
+                           "mb_per_s": len(data) * cycles / secs / 1e6,
+                           "launches": launches,
+                           "pipeline_stats": {k: stats[k]
+                                              for k in STREAM_PHASES
+                                              if k in stats}}
+            log({tag: {**stream[tag], "gpu": gpu, "cycles": cycles,
+                       "input_bytes": len(data) * cycles}})
+            if not parity:
+                failures.append(f"{tag}: counts differ from the oracle's "
+                                f"times {cycles}")
+            failures += [f"{name} never launched on the {tag} path"
+                         for name in KERNELS if launches[name] < 1]
+            if tag != "stream" and stream[tag]["pipeline_stats"].get(
+                    "folds", 0) < 1:
+                failures.append(f"{tag}: no fold ran with the device table "
+                                "on")
+        shapes["fold"] = fold_shape_times(
+            raws, stream["stream_acc"]["pipeline_stats"]["table_cap"])
+        log({"sort_group_shapes": shapes, "gpu": gpu})
+        for name in ("radix_sort", "group"):
+            for shape, v in shapes.items():
+                err[name] = _merge_err(err[name], v[name]["max_abs_err"])
+                if v[name]["max_abs_err"] != 0:
+                    failures.append(f"{name} differs from its plain version "
+                                    f"at the {shape} shape")
+
     for name in ("tokenize", "radix_sort", "group"):
         if launch_main[name] < 1:
             failures.append(f"{name} never launched on the corpus path")
-    for name in KERNELS:
+    for name in ("tokenize", "radix_sort", "group", "fnv"):
         if launch_split[name] < 1:
             failures.append(f"{name} never launched on the per-split path")
     total_s = sum(phases.values())
@@ -415,24 +801,30 @@ def main() -> int:
                   "launches": launch64},
         "split": {"seconds": split_s, "bytes": len(raws[0]),
                   "launches": launch_split},
+        "sharded": sharded,
         "launches_main": launch_main}})
 
+    by_path = {"corpus": launch_main, "corpus_mwl64": launch64,
+               "split": launch_split, "sharded": sharded[1]["launches"],
+               "sharded_n8": sharded[8]["launches"],
+               "stream": stream["stream"]["launches"],
+               "stream_acc": stream["stream_acc"]["launches"],
+               "stream_cli": stream["stream_cli"]["launches"]}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         tm = times[name]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
-               "launches": (launch_main[name] + launch64[name]
-                            + launch_split[name]),
+               "launches": sum(p[name] for p in by_path.values()),
                "max_abs_err": err[name], "match": err[name] == 0,
                "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                "bound_ms": tm["bound_ms"], "bound_by": "bytes",
                "library_ms": tm["library_ms"], "shape": tm["shape"],
-               "launches_by_path": {"corpus": launch_main[name],
-                                    "corpus_mwl64": launch64[name],
-                                    "split": launch_split[name]}}
+               "launches_by_path": {k: p[name] for k, p in by_path.items()}}
         if "radix_bound_ms" in tm:
             row["radix_bound_ms"] = tm["radix_bound_ms"]
+        if name in ("radix_sort", "group"):
+            row["at_shapes"] = {k: v[name] for k, v in shapes.items()}
         kernels.append(row)
     log({"kernels": kernels})
     if failures:

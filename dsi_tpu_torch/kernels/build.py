@@ -38,6 +38,8 @@ SIGNATURES = {
     "dsi_group": (_INT, [_P, _INT, _I64, _P, _P, _P, _I64, _P, _P, _P, _P,
                          _P, _P, _P]),
     "dsi_fnv": (_INT, [_P, _I64, _P, _INT, _P, _P]),
+    "dsi_route_scratch_bytes": (_I64, [_INT, _I64]),
+    "dsi_route": (_INT, [_P, _P, _INT, _I64, _INT, _INT, _P, _P, _P]),
 }
 
 _lib: Optional[ctypes.CDLL] = None

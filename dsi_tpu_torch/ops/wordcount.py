@@ -8,13 +8,18 @@ than the window, more uniques than ``u_cap`` or more tokens than the token
 buffer is reported so the host wrapper retries wider or falls back
 (``exactness_retry``), so the result is always exact.
 
-Four device steps, each a hand-written CUDA kernel (``csrc/``) with its
-plain PyTorch version beside it:
+Every hand-written CUDA kernel of the port (``csrc/``) is launched from
+this module, each with its plain PyTorch version beside it.  The four
+steps of the word count:
 
 * ``tokenize``       — ``csrc/tokenize.cu``   (K1+K2, K6 front end)
 * ``radix_sort``     — ``csrc/radix_sort.cu`` (K3 sort)
 * ``group_sorted``   — ``csrc/group.cu``      (K3 group)
 * ``fnv1a32_packed`` — ``csrc/fnv.cu``        (K4)
+
+and the shuffle of the streaming SPMD step (``parallel/shuffle.py``):
+
+* ``shuffle_rows``   — ``csrc/route.cu``      (K8)
 
 A wrapper given a CUDA tensor launches its kernel (adding one to its
 count in ``LAUNCHES``) or raises; given a CPU tensor it runs the plain
@@ -45,7 +50,7 @@ _BYTE_MASKS = (0, 0xFF000000, 0xFFFF0000, 0xFFFFFF00, 0xFFFFFFFF)
 
 # Launches of each kernel in this process; a plain-version call adds none.
 LAUNCHES: Dict[str, int] = {"tokenize": 0, "radix_sort": 0, "group": 0,
-                            "fnv": 0}
+                            "fnv": 0, "route": 0}
 
 
 def reset_launches() -> None:
@@ -74,6 +79,29 @@ def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
     staging = torch.empty(len(buf), dtype=torch.uint8, pin_memory=True)
     staging.numpy()[:] = buf
     return staging.to(device, non_blocking=True)
+
+
+class HostCopy:
+    """A device-to-host copy in flight: on the card, a ``non_blocking``
+    copy into pinned memory plus a CUDA event recorded behind it, so the
+    caller decides when to wait; on the CPU, a copy made at once."""
+
+    def __init__(self, t: torch.Tensor):
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype,
+                                     pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+        else:
+            self._host = t.detach().clone()
+            self._event = None
+
+    def wait(self) -> np.ndarray:
+        """Block until the copy has landed; the host values as numpy."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
 
 
 # ── bit helpers (u32/u64 carried in int32/int64) ─────────────────────────
@@ -370,6 +398,68 @@ def fnv1a32_packed(keys_u: torch.Tensor, len_u: torch.Tensor,
                                    max_word_len, _ptr(out),
                                    _stream(keys_u)))
     return out
+
+
+# ── E: route rows to their destination shard ────────────────────────────
+
+
+def shuffle_rows_plain(rows: torch.Tensor, dest: torch.Tensor, *,
+                       n_dev: int, k: int) -> torch.Tensor:
+    """Plain version of kernel E: the reference's algorithm per source
+    shard (stable argsort of ``dest``, bincount, scatter into one
+    ``r``-row block per destination with a parking row for
+    ``dest == n_dev``), then the all-to-all as a transpose.
+
+    ``rows`` [n_dev, r, k+p] int32 (u32 bits: k key lanes, p payload
+    lanes), ``dest`` [n_dev, r] int32.  Returns recv [n_dev, n_dev*r,
+    k+p]: ``recv[d, s*r + j]`` is the j-th row of source s bound for d;
+    unfilled rows are the pad row (key lanes all ones, zero payload)."""
+    _, r, w = rows.shape
+    dev = rows.device
+    pad_row = torch.cat([
+        torch.full((k,), _PAD_KEY32, dtype=torch.int32, device=dev),
+        torch.zeros(w - k, dtype=torch.int32, device=dev)])
+    sendbuf = pad_row.expand(n_dev, n_dev * r + 1, w).clone()
+    for s in range(n_dev):
+        d = dest[s].to(torch.int64)
+        d = torch.where((d < 0) | (d > n_dev), n_dev, d)
+        order = torch.sort(d, stable=True).indices
+        sdest = d[order]
+        counts = torch.bincount(sdest, minlength=n_dev + 1)
+        starts = torch.cumsum(counts, 0) - counts
+        pos_in = torch.arange(r, device=dev) - starts[sdest]
+        flat = torch.where(sdest < n_dev, sdest * r + pos_in, n_dev * r)
+        sendbuf[s][flat] = rows[s][order]
+    send = sendbuf[:, :n_dev * r].reshape(n_dev, n_dev, r, w)
+    return send.transpose(0, 1).reshape(n_dev, n_dev * r, w).contiguous()
+
+
+def shuffle_rows(rows: torch.Tensor, dest: torch.Tensor, *, n_dev: int,
+                 k: int) -> torch.Tensor:
+    """Kernel E (``csrc/route.cu``); see :func:`shuffle_rows_plain`.
+    Replaces the reference's ``shuffle_rows``
+    (``parallel/shuffle.py``: argsort + scatter + ``lax.all_to_all``) for
+    any payload width, so the mesh fold, TF-IDF and indexer steps can
+    reuse it."""
+    _require(rows, torch.int32, 3, "shuffle rows")
+    _require(dest, torch.int32, 2, "shuffle dest")
+    n_src, r, w = rows.shape
+    if (n_src != n_dev or tuple(dest.shape) != (n_dev, r) or r < 1
+            or not 1 <= n_dev <= 1024 or not 0 <= k <= w):
+        raise ValueError(f"shuffle: bad shapes rows={tuple(rows.shape)} "
+                         f"dest={tuple(dest.shape)} n_dev={n_dev} k={k}")
+    if not _on_cuda(rows):
+        return shuffle_rows_plain(rows, dest, n_dev=n_dev, k=k)
+    lib = _lib()
+    recv = torch.empty((n_dev, n_dev * r, w), dtype=torch.int32,
+                       device=rows.device)
+    scratch = torch.empty(lib.dsi_route_scratch_bytes(n_dev, r),
+                          dtype=torch.uint8, device=rows.device)
+    with torch.cuda.device(rows.device):
+        _launch("route", lib.dsi_route(
+            _ptr(rows), _ptr(dest), n_dev, r, w, k, _ptr(recv),
+            _ptr(scratch), _stream(rows)))
+    return recv
 
 
 # ── the per-split program and its host wrapper ───────────────────────────

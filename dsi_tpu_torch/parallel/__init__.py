@@ -1,0 +1,3 @@
+"""The SPMD word count over virtual shards: the one-shot step
+(``shuffle``), the streaming engine (``streaming``) and its pipeline
+core, step objects and host merge table."""

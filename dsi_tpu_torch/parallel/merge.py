@@ -1,0 +1,120 @@
+"""Vectorized host-side merge table for the SPMD paths' per-step outputs.
+
+Copy of ``dsi_tpu/parallel/merge.py`` (``PackedCounts`` and its helpers;
+``PostingsTable`` waits for the indexer slice).  Per-step tables of
+packed word keys (big-endian u32 lanes) plus length / count / partition
+columns accumulate as raw numpy arrays; merging is one ``np.lexsort``
+over the key lanes, run-boundary detection and ``np.add.reduceat`` per
+compaction window; spellings are decoded once, from the final merged
+table.
+
+Zero-padded key lanes make width harmonisation trivial: a word packed
+into K lanes and the same word packed into K' > K lanes agree on the
+first K lanes and are zero beyond, so narrower tables are right-padded
+with zero columns before concatenation.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from dsi_tpu_torch.ops.wordcount import decode_packed
+
+
+def _pad_width(keys: np.ndarray, k: int) -> np.ndarray:
+    """Right-pad packed-key lanes with zero columns to width ``k``."""
+    if keys.shape[1] == k:
+        return keys
+    out = np.zeros((keys.shape[0], k), dtype=np.uint32)
+    out[:, :keys.shape[1]] = keys
+    return out
+
+
+def _group_starts(sorted_keys: np.ndarray) -> np.ndarray:
+    """Start indices of equal-key runs in a lexsorted [n, k] table."""
+    n = len(sorted_keys)
+    boundary = np.empty(n, dtype=bool)
+    boundary[0] = True
+    np.any(sorted_keys[1:] != sorted_keys[:-1], axis=1, out=boundary[1:])
+    return np.flatnonzero(boundary)
+
+
+def _lexsort_rows(keys: np.ndarray) -> np.ndarray:
+    """Row order sorting a [n, k] table lexicographically (lane 0
+    primary).  ``np.lexsort`` treats its LAST key as primary, so lanes are
+    passed in reverse."""
+    return np.lexsort(tuple(keys[:, j] for j in range(keys.shape[1] - 1,
+                                                      -1, -1)))
+
+
+class PackedCounts:
+    """Word-count accumulator over packed-key row batches.
+
+    ``add`` ingests per-shard step outputs (keys [n, K] uint32, byte
+    lengths, counts, reduce partitions); batches are compacted into one
+    merged table whenever the buffered row count crosses
+    ``compact_rows`` — so host memory is O(vocabulary + window), never
+    O(corpus).  ``finalize`` decodes spellings once and returns
+    ``{word: (count, reduce_partition)}``.
+    """
+
+    def __init__(self, compact_rows: int = 1 << 21):
+        self._bufs: List[Tuple[np.ndarray, np.ndarray, np.ndarray,
+                               np.ndarray]] = []
+        self._pending = 0
+        self._compact_rows = max(1, compact_rows)
+
+    def add(self, keys: np.ndarray, lens: np.ndarray, cnts: np.ndarray,
+            parts: np.ndarray) -> None:
+        if len(keys) == 0:
+            return
+        # Copies detach the rows from the step's transfer buffer; counts
+        # widen to int64 so multi-step sums can't wrap.
+        self._bufs.append((
+            np.array(keys, dtype=np.uint32),
+            np.array(lens, dtype=np.int32),
+            np.array(cnts, dtype=np.int64),
+            np.array(parts, dtype=np.int32)))
+        self._pending += len(keys)
+        if self._pending >= self._compact_rows:
+            self._compact()
+
+    def add_packed_step(self, packed: np.ndarray, n_uniques,
+                        kk: int) -> None:
+        """Ingest one pulled step tensor ``[n_dev, mp, kk+3]`` uint32
+        (the ``shuffle._slice_pack`` layout: kk key lanes + len / count /
+        partition columns), taking the first ``n_uniques[d]`` rows of each
+        shard's table."""
+        for d in range(packed.shape[0]):
+            nu = int(n_uniques[d])
+            r = packed[d, :nu]
+            self.add(r[:, :kk], r[:, kk], r[:, kk + 1], r[:, kk + 2])
+
+    def _compact(self) -> None:
+        if len(self._bufs) <= 1:
+            return
+        k = max(b[0].shape[1] for b in self._bufs)
+        keys = np.concatenate([_pad_width(b[0], k) for b in self._bufs])
+        lens = np.concatenate([b[1] for b in self._bufs])
+        cnts = np.concatenate([b[2] for b in self._bufs])
+        parts = np.concatenate([b[3] for b in self._bufs])
+        order = _lexsort_rows(keys)
+        skeys = keys[order]
+        starts = _group_starts(skeys)
+        # len and partition are functions of the word, so first-of-run is
+        # exact; only counts need the segmented sum.
+        self._bufs = [(skeys[starts], lens[order][starts],
+                       np.add.reduceat(cnts[order], starts),
+                       parts[order][starts])]
+        self._pending = len(starts)
+
+    def finalize(self) -> Dict[str, Tuple[int, int]]:
+        self._compact()
+        if not self._bufs:
+            return {}
+        keys, lens, cnts, parts = self._bufs[0]
+        words = decode_packed(keys, lens, len(keys))
+        return {w: (int(c), int(p))
+                for w, c, p in zip(words, cnts.tolist(), parts.tolist())}

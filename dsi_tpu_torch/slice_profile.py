@@ -1,6 +1,6 @@
 """Where the time of the port's word-count slice goes, on the card.
 
-    python -m dsi_tpu_torch.slice_profile [--baseline-csrc DIR]
+    python -m dsi_tpu_torch.slice_profile [--baseline-csrc DIR] [--stream]
 
 On the bench corpus (8 files x (2 MiB - 64), seed 1234) it prints JSON
 lines:
@@ -13,7 +13,12 @@ lines:
 * with ``--baseline-csrc``: kernel B built from that directory (for
   example the parent commit's ``dsi_tpu_torch/csrc``, unpacked with
   ``git archive``) timed in turns with this tree's (baseline, change,
-  change, baseline), both checked against the plain version.
+  change, baseline), both checked against the plain version;
+* with ``--stream``: ``stream_profile``, the bench's stream row (the
+  corpus cycled to 64 MB, 2 MiB chunks, u_cap 2^15, one shard, depth 2)
+  with the device table off and on, each run once warm and once under
+  ``torch.profiler``: wall seconds, device seconds (kernels and copies),
+  the device's idle share (1 - device / wall) and the busiest kernels.
 
 Needs one CUDA card; the card's name and power limit head the output.
 """
@@ -74,6 +79,29 @@ def _profile(fn, top: int = 12) -> dict:
                      "device_ms": _device_us(e) / 1e3} for e in kernels[:top]]}
 
 
+def _stream_profile(files, total_bytes: int) -> dict:
+    from dsi_tpu_torch.parallel.streaming import (cycle_files,
+                                                  wordcount_streaming)
+
+    cycles = max(1, round(64e6 / total_bytes))
+    out = {"cycles": cycles}
+    for tag, acc in (("stream", False), ("stream_acc", True)):
+        stats: dict = {}
+
+        def run():
+            stats.clear()
+            wordcount_streaming(cycle_files(files, cycles), n_dev=1,
+                                n_reduce=10, chunk_bytes=1 << 21,
+                                u_cap=1 << 15, device_accumulate=acc,
+                                pipeline_stats=stats, device="cuda")
+
+        prof = _profile(run)
+        prof["idle_share"] = 1.0 - prof["device_s"] / prof["wall_s"]
+        prof["steps"] = stats["steps"]
+        out[tag] = prof
+    return out
+
+
 def _sort_with(lib, keys: torch.Tensor):
     """Kernel B from ``lib`` (same C interface as the package's)."""
     k64, t = keys.shape
@@ -93,6 +121,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-csrc", type=Path, default=None,
                     help="csrc directory of the kernel version to compare")
+    ap.add_argument("--stream", action="store_true",
+                    help="also profile the stream row (stream_profile)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("slice_profile: needs a CUDA card")
@@ -105,6 +135,10 @@ def main() -> int:
         files = ensure_corpus(os.path.join(work, "c"), 8, (2 << 20) - 64,
                               1234)
         raws = [Path(p).read_bytes() for p in files]
+        if args.stream:
+            print(json.dumps({"stream_profile": _stream_profile(
+                files, sum(len(r) for r in raws) + len(raws) - 1)}),
+                flush=True)
     buf, _, _ = _resolve_pieces(raws, None)
     print(json.dumps({"corpus_profile": _profile(
         lambda: corpus_wordcount(raws, device="cuda"))}), flush=True)

@@ -55,7 +55,13 @@ def loaded():
 def test_every_module_is_listed():
     assert {"dsi_tpu_torch.ops.wordcount", "dsi_tpu_torch.ops.corpus_wc",
             "dsi_tpu_torch.kernels.build", "dsi_tpu_torch.interop",
-            "chip_smoke"} <= set(MODULES)
+            "dsi_tpu_torch.parallel.shuffle", "dsi_tpu_torch.parallel.merge",
+            "dsi_tpu_torch.parallel.pipeline",
+            "dsi_tpu_torch.parallel.stepobj",
+            "dsi_tpu_torch.parallel.streaming",
+            "dsi_tpu_torch.device.policy", "dsi_tpu_torch.device.table",
+            "dsi_tpu_torch.utils.ioread", "dsi_tpu_torch.serve.pack",
+            "dsi_tpu_torch.cli.wcstream", "chip_smoke"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("name", MODULES)

@@ -213,4 +213,4 @@ def test_cpu_runs_launch_no_kernel():
     tw.count_words_host_result(_random_text(5, 300) + b" " + b"q" * 30,
                                device="cpu")
     assert tw.LAUNCHES == {"tokenize": 0, "radix_sort": 0, "group": 0,
-                           "fnv": 0}
+                           "fnv": 0, "route": 0}
