@@ -31,8 +31,25 @@ Phases (any failure exits non-zero before the last line is printed):
    call alone timed, so the two modes share one window), then through
    the ``wcstream`` CLI in-process with the table on, each holding every
    count to the oracle's times the cycles; kernels B and C held against
-   their plain versions at the reduce and fold shapes of that stream.
-Launch counts are zeroed just before each path and read just after.
+   their plain versions at the reduce and fold shapes of that stream;
+6. the hash grouper (kernel F) against its plain version at the corpus
+   shape with ``extra``, the split shape without, max_word_len 64, no
+   token, a forced dirty bucket and a dirty overflow; the 6-bit decode
+   (kernel G) on the bench corpus, a random 64-symbol buffer and one
+   repeated byte; D, E, B and C at the mesh-sharded fold's shapes;
+7. the word count in every configuration the JAX package offers, each to
+   parity with the oracle: ``corpus_wordcount`` with the hash grouper,
+   with the 6-bit transport under both groupers, the per-split path and
+   ``wordcount_sharded`` (8 shards) under ``DSI_WC_GROUPER=hash``, the
+   stream row with the table on and the hash grouper, and the stream row
+   at 8 virtual shards with the mesh-sharded table (``mesh_shards`` 8),
+   equal to the oracle's counts times the cycles and to the same stream
+   without ``mesh_shards``, once at the table's own capacity and once
+   under a ``DSI_DEVICE_TABLE_CAP`` that forces per-shard widens; the
+   corpus and the stream (table on) with the sort and the hash grouper in
+   turns, to show the gap beside its spread.
+Launch counts are zeroed just before each path and read just after; each
+path fails if a kernel of its own set never launched.
 
 The second-to-last lines are the ``kernels`` JSON line and the card's
 ``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
@@ -42,6 +59,7 @@ Imports nothing of JAX or of the ``dsi_tpu`` package.
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import os
 import subprocess
@@ -69,7 +87,30 @@ KERNELS = {
     "fnv": ("dsi_tpu_torch/csrc/fnv.cu", "dsi_tpu/ops/wordcount.py:104"),
     "route": ("dsi_tpu_torch/csrc/route.cu",
               "dsi_tpu/parallel/shuffle.py:68"),
+    "hash_group": ("dsi_tpu_torch/csrc/hash_group.cu",
+                   "dsi_tpu/ops/wordcount.py:199"),
+    "pack6": ("dsi_tpu_torch/csrc/pack6.cu", "dsi_tpu/ops/corpus_wc.py:90"),
 }
+# The kernels each path must launch.
+WC = ("tokenize", "radix_sort", "group", "fnv", "route")  # A-E
+HASH = ("tokenize", "radix_sort", "group", "fnv", "hash_group")
+PATH_KERNELS = {
+    "corpus": ("tokenize", "radix_sort", "group"),
+    "split": ("tokenize", "radix_sort", "group", "fnv"),
+    "sharded": WC, "sharded_n8": WC,
+    "stream": WC, "stream_acc": WC, "stream_cli": WC,
+    "corpus_hash": HASH,
+    "corpus_pack6": ("tokenize", "radix_sort", "group", "pack6"),
+    "corpus_pack6_hash": HASH + ("pack6",),
+    "split_hash": HASH,
+    "sharded_hash": HASH + ("route",),
+    "stream_hash": WC + ("hash_group",),
+    "stream_mesh_base": WC, "stream_mesh": WC, "stream_mesh_widen": WC,
+}
+MESH_SHARDS = 8
+# A table capacity far below a mesh shard's share of the corpus's
+# 131,215 words: every shard widens at least once.
+MESH_WIDEN_CAP = 4096
 
 
 def log(obj) -> None:
@@ -321,9 +362,9 @@ def run_oracle(files, workdir) -> list:
     return sorted_lines([out])
 
 
-def corpus_path(files, workdir, tag):
-    """Read -> corpus_wordcount -> write_corpus_output, phase by phase;
-    returns (sorted output lines, phase seconds, launches)."""
+def corpus_path(files, workdir, tag, **kw):
+    """Read -> corpus_wordcount(**kw) -> write_corpus_output, phase by
+    phase; returns (sorted output lines, phase seconds, launches)."""
     import glob
 
     import torch
@@ -340,7 +381,7 @@ def corpus_path(files, workdir, tag):
         with open(p, "rb") as f:
             raws.append(f.read())
     t1 = time.perf_counter()
-    res = corpus_wordcount(raws, device=DEVICE)
+    res = corpus_wordcount(raws, device=DEVICE, **kw)
     sync()
     t2 = time.perf_counter()
     if res is None:
@@ -525,6 +566,228 @@ def fold_shape_times(raws, cap: int):
     return time_sort_group(keys64, cnts, lens, cap, "fold")
 
 
+# ── phase 6: F, G, and D / E / B / C at the mesh fold's shapes ───────────
+
+
+def colliding_words(mask: int):
+    """Two distinct lowercase words sharing one bucket at ``mask``: the
+    search of ``tests/test_ops_wordcount.py`` (3 letters, then 4)."""
+    from dsi_tpu_torch.mr.sequential import fnv32a
+
+    seen: dict = {}
+    for n in (3, 4):
+        for tup in itertools.product(b"abcdefghijklmnopqrstuvwxyz",
+                                     repeat=n):
+            w = bytes(tup)
+            b = fnv32a(w) & mask
+            if b in seen and seen[b] != w:
+                return seen[b], w
+            seen[b] = w
+    raise RuntimeError(f"no colliding words at mask {mask:#x}")
+
+
+def hash_group_cases(corpus_buf, split_buf, raw0: bytes):
+    """(name, chunk, max_word_len, with_extra, u_cap) per case for F."""
+    import numpy as np
+    from dsi_tpu_torch.ops.wordcount import hash_group_shape
+
+    split_nb, split_dcap = hash_group_shape(len(split_buf) // 4 + 1)
+    w1, w2 = colliding_words(split_nb - 1)
+    pair = w1 + b" " + w2 + b" "
+    return [
+        ("corpus_extra", corpus_buf, MWL, True, CORPUS_U_CAP),
+        ("split", split_buf, MWL, False, SPLIT_U_CAP),
+        ("mwl64_extra", corpus_buf, 64, True, CORPUS_U_CAP),
+        ("no_token", np.zeros(4096, np.uint8), MWL, True, 256),
+        ("dirty_bucket", _text_chunk([raw0[:len(split_buf) // 2], b" ",
+                                      pair * (split_dcap // 8)],
+                                     len(split_buf)), MWL, False,
+         SPLIT_U_CAP),
+        ("dirty_overflow", _text_chunk([pair * (split_dcap // 2 + 1000)],
+                                       len(split_buf)), MWL, False,
+         SPLIT_U_CAP),
+    ]
+
+
+def check_hash_group(cases):
+    """Kernel F against its plain version on every case, all six outputs
+    in order; returns max_abs_err (-1 marks a mismatch of shape or type)
+    and the failures of the cases' own conditions."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    err, failures = 0, []
+    for name, buf, mwl, with_extra, u_cap in cases:
+        chunk = torch.from_numpy(buf).to(DEVICE)
+        keys, lens, poslen, sc = w.tokenize(
+            chunk, max_word_len=mwl, t_cap=len(buf) // 4 + 1,
+            with_poslen=True)
+        fnv = w.fnv1a32_packed(keys, lens, mwl)
+        extra = poslen if with_extra else None
+        got = w.hash_group(keys, lens, fnv, sc[:1], u_cap, extra=extra)
+        want = w.hash_group_plain(keys, lens, fnv, sc[:1], u_cap,
+                                  extra=extra)
+        d = _worst(zip(got, want))
+        err = _merge_err(err, d)
+        sync()
+        nu, overflow = int(want[4]), bool(want[5])
+        if name == "dirty_overflow" and not overflow:
+            failures.append("F: the dirty overflow case did not overflow")
+        if name != "dirty_overflow" and overflow:
+            failures.append(f"F: {name} overflowed its dirty buffer")
+        log({"hash_group_case": name, "bytes": len(buf), "max_word_len": mwl,
+             "extra": with_extra, "u_cap": u_cap,
+             "n_tokens": int(sc[0]), "n_unique": nu,
+             "group_overflow": overflow, "max_abs_err": d})
+    return err, failures
+
+
+def time_hash_group(buf, mwl: int, with_extra: bool, u_cap: int):
+    """F (the whole ``hash_group``: two launches of F around B and C on the
+    dirty rows) timed beside its plain version, its bound and the library
+    yardstick, at one shape of the main path."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    chunk = torch.from_numpy(buf).to(DEVICE)
+    t = len(buf) // 4 + 1
+    keys, lens, poslen, sc = w.tokenize(chunk, max_word_len=mwl, t_cap=t,
+                                        with_poslen=True)
+    fnv = w.fnv1a32_packed(keys, lens, mwl)
+    extra = poslen if with_extra else None
+    k64 = keys.shape[0]
+    out = w.hash_group(keys, lens, fnv, sc[:1], u_cap, extra=extra)
+    e = 4 if with_extra else 0
+    nbytes = (t * (8 * k64 + 4 + 4 + e) + 4
+              + u_cap * (8 * k64 + 4 + 8 + e) + 8)
+    rows = keys.T
+    return {
+        "ms": cuda_ms(lambda: w.hash_group(keys, lens, fnv, sc[:1], u_cap,
+                                           extra=extra), 20),
+        "plain_ms": cuda_ms(lambda: w.hash_group_plain(
+            keys, lens, fnv, sc[:1], u_cap, extra=extra), 3),
+        # The same uniques and counts in sorted order, in one call; the
+        # port never calls it.
+        "library_ms": cuda_ms(lambda: torch.unique(
+            rows, dim=0, return_counts=True), 5),
+        "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "shape": (f"t={t} k64={k64} extra={with_extra} u_cap={u_cap} "
+                  f"n_buckets={w.hash_group_shape(t)[0]} "
+                  f"d_cap={w.hash_group_shape(t)[1]} "
+                  f"n_unique={int(out[4])}")}
+
+
+def check_pack6(corpus_buf):
+    """Kernel G against its plain version and against the raw bytes on
+    every case; returns (max_abs_err, the corpus case's tensors)."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.ops import corpus_wc as cw
+    from dsi_tpu_torch.ops import wordcount as w
+
+    rng = np.random.default_rng(SEED)
+    cases = [("bench_corpus", corpus_buf),
+             ("random_64_symbols", rng.choice(
+                 np.arange(100, 164, dtype=np.uint8), 3 << 20)),
+             ("one_byte", np.full(1 << 20, 0x61, np.uint8))]
+    err, corpus_args = 0, None
+    for name, buf in cases:
+        wire, table = cw.pack6_encode(buf)
+        pk = torch.from_numpy(wire).to(DEVICE)
+        tb = torch.from_numpy(table).to(DEVICE)
+        got = w.pack6_decode(pk, tb)
+        d = _merge_err(_diff(got, w.pack6_decode_plain(pk, tb)),
+                       _diff(got, torch.from_numpy(buf).to(DEVICE)))
+        err = _merge_err(err, d)
+        sync()
+        log({"pack6_case": name, "bytes": len(buf), "max_abs_err": d})
+        if corpus_args is None:
+            corpus_args = (pk, tb)
+    return err, corpus_args
+
+
+def time_pack6(pk, tb):
+    from dsi_tpu_torch.ops import wordcount as w
+
+    n = pk.shape[0] // 3 * 4
+    nbytes = pk.shape[0] + 64 + n
+    return {"ms": cuda_ms(lambda: w.pack6_decode(pk, tb), 50),
+            "plain_ms": cuda_ms(lambda: w.pack6_decode_plain(pk, tb), 5),
+            "library_ms": None,  # no one PyTorch call decodes the codes
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "shape": f"wire={pk.shape[0]} n={n}"}
+
+
+def mesh_fold_shapes(raws):
+    """D, E, B and C as the mesh-sharded fold (K11) runs them on the
+    stream at ``MESH_SHARDS`` virtual shards: a table holding one step of
+    the eight files (one 2 MiB chunk per shard) and the next step, held
+    against their plain versions and timed.  Returns {kernel: entry}."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.device import table as dt
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.ops.meshroute import route_dest
+    from dsi_tpu_torch.parallel.shuffle import _slice_pack, mapreduce_step
+
+    n_dev, k = MESH_SHARDS, MWL // 4
+    buf = np.zeros((n_dev, STREAM_CHUNK), np.uint8)
+    for i, raw in enumerate(raws[:n_dev]):
+        buf[i, :len(raw)] = np.frombuffer(raw, np.uint8)
+    out = mapreduce_step(torch.from_numpy(buf).to(DEVICE), n_dev=n_dev,
+                         n_reduce=N_REDUCE, max_word_len=MWL,
+                         u_cap=STREAM_U_CAP)
+    packed = _slice_pack(*out[:4], mp=out[0].shape[1])
+    scal = out[4]
+    rows = packed.shape[1]
+    opts = {"device": DEVICE}
+    state = (torch.full((n_dev, rows, k), -1, dtype=torch.int32, **opts),
+             torch.zeros((n_dev, rows), dtype=torch.int32, **opts),
+             torch.zeros((n_dev, rows), dtype=torch.int64, **opts),
+             torch.zeros((n_dev, rows), dtype=torch.int32, **opts),
+             torch.zeros(n_dev, dtype=torch.int32, **opts))
+    apply = torch.ones(n_dev, dtype=torch.bool, **opts)
+    state = dt.mesh_fold_step(*state, packed, scal, apply,
+                              n_shards=n_dev)[:5]
+
+    skeys, slens, svalid = dt._route_operands(packed, scal)
+    keys64 = torch.stack(w.pack_key_lanes(tuple(skeys[:, j]
+                                                for j in range(k))))
+    slens = slens.contiguous()
+    n = keys64.shape[1]
+    d_bytes = n * (8 * keys64.shape[0] + 4 + 4)
+    shapes = {"fnv": {
+        "max_abs_err": _diff(w.fnv1a32_packed(keys64, slens, 4 * k),
+                             w.fnv1a32_packed_plain(keys64, slens, 4 * k)),
+        "ms": cuda_ms(lambda: w.fnv1a32_packed(keys64, slens, 4 * k), 20),
+        "plain_ms": cuda_ms(lambda: w.fnv1a32_packed_plain(
+            keys64, slens, 4 * k), 5),
+        "library_ms": None, "bound_ms": d_bytes / HBM_BYTES_PER_S * 1e3,
+        "shape": f"mesh_fold route: rows={n} k64={keys64.shape[0]}"}}
+
+    dest = route_dest(skeys, slens, svalid, n_shards=n_dev,
+                      park=n_dev).view(n_dev, rows)
+    recv = w.shuffle_rows_plain(packed, dest, n_dev=n_dev, k=k)
+    e_bytes = 4 * (packed.numel() + dest.numel() + recv.numel())
+    shapes["route"] = {
+        "max_abs_err": _diff(w.shuffle_rows(packed, dest, n_dev=n_dev, k=k),
+                             recv),
+        "ms": cuda_ms(lambda: w.shuffle_rows(packed, dest, n_dev=n_dev,
+                                             k=k), 20),
+        "plain_ms": cuda_ms(lambda: w.shuffle_rows_plain(
+            packed, dest, n_dev=n_dev, k=k), 3),
+        "library_ms": None, "bound_ms": e_bytes / HBM_BYTES_PER_S * 1e3,
+        "shape": f"mesh_fold exchange: n_dev={n_dev} r={rows} w={k + 3}"}
+
+    # B and C on the busiest shard: its table rows and what it received.
+    d = int(torch.argmax(state[4]))
+    keys_d, cnts_d, lens_d, _ = dt._received_operands(
+        state[0][d], state[1][d], state[2][d], state[3][d], recv[d], k)
+    shapes.update(time_sort_group(keys_d, cnts_d, lens_d, rows,
+                                  f"mesh_fold shard {d}"))
+    return shapes
+
+
 # ── phase 5: the streaming SPMD word count ───────────────────────────────
 
 
@@ -567,10 +830,11 @@ def stream_parity(counts: dict, want: dict, cycles: int) -> bool:
                     for w_, c in want.items()))
 
 
-def stream_path(files, cycles: int, want: dict, device_accumulate: bool):
+def stream_path(files, cycles: int, want: dict, device_accumulate: bool,
+                n_dev: int = 1, mesh_shards: int = 0):
     """The stream row through ``wordcount_streaming``, the bench's input
     (``cycle_files``) and window: the call alone, so the table off and on
-    are timed alike; (parity, seconds, stats, launches)."""
+    are timed alike; (parity, seconds, stats, launches, result)."""
     from dsi_tpu_torch.mr.sequential import ihash
     from dsi_tpu_torch.ops import wordcount as w
     from dsi_tpu_torch.parallel.streaming import (cycle_files,
@@ -579,11 +843,12 @@ def stream_path(files, cycles: int, want: dict, device_accumulate: bool):
     stats: dict = {}
     w.reset_launches()
     t0 = time.perf_counter()
-    res = wordcount_streaming(cycle_files(files, cycles), n_dev=1,
+    res = wordcount_streaming(cycle_files(files, cycles), n_dev=n_dev,
                               n_reduce=N_REDUCE, chunk_bytes=STREAM_CHUNK,
                               u_cap=STREAM_U_CAP,
                               device_accumulate=device_accumulate,
-                              pipeline_stats=stats, device=DEVICE)
+                              mesh_shards=mesh_shards, pipeline_stats=stats,
+                              device=DEVICE)
     sync()
     seconds = time.perf_counter() - t0
     launches = dict(w.LAUNCHES)
@@ -593,7 +858,7 @@ def stream_path(files, cycles: int, want: dict, device_accumulate: bool):
                             cycles)
               and all(p == ihash(k) % N_REDUCE
                       for k, (_, p) in res.items()))
-    return parity, seconds, stats, launches
+    return parity, seconds, stats, launches, res
 
 
 def stream_cli_path(files, cycles: int, want: dict, workdir: str):
@@ -635,7 +900,7 @@ def stream_cli_path(files, cycles: int, want: dict, workdir: str):
                     counts[word] = int(c)
                     parts_ok = parts_ok and ihash(word) % N_REDUCE == r
     return (stream_parity(counts, want, cycles) and parts_ok, seconds,
-            stats, launches)
+            stats, launches, None)
 
 
 STREAM_PHASES = ("batch_s", "batch_wait_s", "upload_s", "dispatch_s",
@@ -643,7 +908,8 @@ STREAM_PHASES = ("batch_s", "batch_wait_s", "upload_s", "dispatch_s",
                  "sync_s", "widen_s", "finalize_s",
                  "steps", "replays", "step_pulls", "folds",
                  "fold_overflows", "sync_pulls", "widens", "table_cap",
-                 "max_inflight_chunks", "batch_allocs")
+                 "max_inflight_chunks", "batch_allocs", "mesh_shards",
+                 "shard_widens", "shard_imbalance", "pull_bytes")
 
 
 
@@ -661,6 +927,7 @@ def main() -> int:
     from dsi_tpu_torch.mr.sequential import ihash
     from dsi_tpu_torch.ops import wordcount as w
     from dsi_tpu_torch.ops.corpus_wc import _resolve_pieces
+    from dsi_tpu_torch.slice_profile import pinned_grouper
     from dsi_tpu_torch.utils.corpus import ensure_corpus
 
     gpu = gpu_line()
@@ -747,19 +1014,12 @@ def main() -> int:
             if not parity:
                 failures.append(f"wordcount_sharded n_dev={n_dev} mr-out-* "
                                 "differ from the oracle")
-            failures += [f"{name} never launched on the sharded n_dev="
-                         f"{n_dev} path" for name in KERNELS
-                         if launches[name] < 1]
         want_counts = oracle_counts(oracle)
         cycles = max(1, round(STREAM_MB * 1e6 / len(data)))
         stream = {}
-        for tag, run in (("stream", lambda: stream_path(
-                files, cycles, want_counts, False)),
-                         ("stream_acc", lambda: stream_path(
-                             files, cycles, want_counts, True)),
-                         ("stream_cli", lambda: stream_cli_path(
-                             files, cycles, want_counts, work))):
-            parity, secs, stats, launches = run()
+
+        def stream_run(tag, run):
+            parity, secs, stats, launches, res = run()
             stream[tag] = {"parity": parity, "seconds": secs,
                            "mb_per_s": len(data) * cycles / secs / 1e6,
                            "launches": launches,
@@ -771,28 +1031,149 @@ def main() -> int:
             if not parity:
                 failures.append(f"{tag}: counts differ from the oracle's "
                                 f"times {cycles}")
-            failures += [f"{name} never launched on the {tag} path"
-                         for name in KERNELS if launches[name] < 1]
             if tag != "stream" and stream[tag]["pipeline_stats"].get(
                     "folds", 0) < 1:
                 failures.append(f"{tag}: no fold ran with the device table "
                                 "on")
+            return res
+
+        stream_run("stream", lambda: stream_path(files, cycles, want_counts,
+                                                 False))
+        stream_run("stream_acc", lambda: stream_path(files, cycles,
+                                                     want_counts, True))
+        stream_run("stream_cli", lambda: stream_cli_path(files, cycles,
+                                                         want_counts, work))
         shapes["fold"] = fold_shape_times(
             raws, stream["stream_acc"]["pipeline_stats"]["table_cap"])
-        log({"sort_group_shapes": shapes, "gpu": gpu})
+
+        # Phase 6: F and G against their plain versions, and D / E / B / C
+        # at the mesh-sharded fold's shapes.
+        err["hash_group"], fails = check_hash_group(
+            hash_group_cases(corpus_buf, split_buf, raws[0]))
+        failures += fails
+        times["hash_group"] = time_hash_group(corpus_buf, MWL, True,
+                                              w.rung0_cap(len(corpus_buf),
+                                                          CORPUS_U_CAP))
+        hash_shapes = {"split": time_hash_group(
+            split_buf, MWL, False, w.rung0_cap(len(split_buf),
+                                               SPLIT_U_CAP))}
+        err["pack6"], (pk, tb) = check_pack6(corpus_buf)
+        times["pack6"] = time_pack6(pk, tb)
+        mesh_shapes = mesh_fold_shapes(raws)
+        for name in ("hash_group", "pack6"):
+            if err[name] != 0:
+                failures.append(f"{name} differs from its plain version")
+        shapes["mesh_fold"] = {name: mesh_shapes[name]
+                               for name in ("radix_sort", "group")}
+        log({"sort_group_shapes": shapes, "mesh_fold_shapes": mesh_shapes,
+             "hash_group_shapes": hash_shapes, "gpu": gpu})
         for name in ("radix_sort", "group"):
             for shape, v in shapes.items():
                 err[name] = _merge_err(err[name], v[name]["max_abs_err"])
                 if v[name]["max_abs_err"] != 0:
                     failures.append(f"{name} differs from its plain version "
                                     f"at the {shape} shape")
+        for name in ("fnv", "route"):
+            err[name] = _merge_err(err[name],
+                                   mesh_shapes[name]["max_abs_err"])
+            if mesh_shapes[name]["max_abs_err"] != 0:
+                failures.append(f"{name} differs from its plain version at "
+                                "the mesh_fold shape")
 
-    for name in ("tokenize", "radix_sort", "group"):
-        if launch_main[name] < 1:
-            failures.append(f"{name} never launched on the corpus path")
-    for name in ("tokenize", "radix_sort", "group", "fnv"):
-        if launch_split[name] < 1:
-            failures.append(f"{name} never launched on the per-split path")
+        # Phase 7: every configuration of the word count.
+        corpus_runs = {}
+        for tag, kw in (("corpus_hash", {"grouper": "hash"}),
+                        ("corpus_pack6", {"pack6": True,
+                                          "grouper": "sort"}),
+                        ("corpus_pack6_hash", {"pack6": True,
+                                               "grouper": "hash"})):
+            c_lines, c_phases, c_launch, _ = corpus_path(files, work, tag,
+                                                         **kw)
+            c_total = sum(c_phases.values())
+            corpus_runs[tag] = {"parity": c_lines == oracle, **c_phases,
+                                "mb_per_s": nbytes / c_total / 1e6,
+                                "launches": c_launch}
+            if c_lines != oracle:
+                failures.append(f"{tag}: mr-out-* differ from the oracle")
+        # The sort and the hash grouper in turns (sort, hash, hash, sort,
+        # twice for the corpus): the end-to-end gap beside its spread.
+        turns = {"corpus": [], "stream_acc": []}
+        for i, g in enumerate(("sort", "hash", "hash", "sort") * 2):
+            t_lines, t_phases, _, _ = corpus_path(files, work, f"turn{i}",
+                                                  grouper=g)
+            if t_lines != oracle:
+                failures.append(f"corpus turn {i} ({g}): mr-out-* differ "
+                                "from the oracle")
+            turns["corpus"].append(
+                {"grouper": g, **t_phases,
+                 "mb_per_s": nbytes / sum(t_phases.values()) / 1e6})
+        for i, g in enumerate(("sort", "hash", "hash", "sort")):
+            with pinned_grouper(g):
+                parity, secs, st, _, _ = stream_path(files, cycles,
+                                                     want_counts, True)
+            if not parity:
+                failures.append(f"stream turn {i} ({g}): counts differ "
+                                "from the oracle's")
+            turns["stream_acc"].append(
+                {"grouper": g, "seconds": secs,
+                 "mb_per_s": len(data) * cycles / secs / 1e6,
+                 **{k: st[k] for k in ("dispatch_s", "fold_s",
+                                       "finalize_s")}})
+        log({"grouper_turns": turns, "gpu": gpu})
+        with pinned_grouper("hash"):
+            w.reset_launches()
+            t0 = time.perf_counter()
+            got = w.count_words_host_result(raws[0], device=DEVICE)
+            split_hash_s = time.perf_counter() - t0
+            launch_split_hash = dict(w.LAUNCHES)
+            if got != {word: (c, ihash(word)) for word, c in want.items()}:
+                failures.append("split_hash: count_words_host_result "
+                                "differs from the oracle")
+            parity, secs, launch_sharded_hash = sharded_path(
+                data, 8, os.path.join(work, "hash"), oracle)
+            if not parity:
+                failures.append("sharded_hash: mr-out-* differ from the "
+                                "oracle")
+            stream_run("stream_hash", lambda: stream_path(
+                files, cycles, want_counts, True))
+        base = stream_run("stream_mesh_base", lambda: stream_path(
+            files, cycles, want_counts, True, n_dev=MESH_SHARDS))
+        for tag in ("stream_mesh", "stream_mesh_widen"):
+            old_cap = os.environ.pop("DSI_DEVICE_TABLE_CAP", None)
+            if tag == "stream_mesh_widen":
+                os.environ["DSI_DEVICE_TABLE_CAP"] = str(MESH_WIDEN_CAP)
+            try:
+                res = stream_run(tag, lambda: stream_path(
+                    files, cycles, want_counts, True, n_dev=MESH_SHARDS,
+                    mesh_shards=MESH_SHARDS))
+            finally:
+                os.environ.pop("DSI_DEVICE_TABLE_CAP", None)
+                if old_cap is not None:
+                    os.environ["DSI_DEVICE_TABLE_CAP"] = old_cap
+            st = stream[tag]["pipeline_stats"]
+            if res != base:
+                failures.append(f"{tag}: differs from the same stream "
+                                "without mesh_shards")
+            if st.get("mesh_shards") != MESH_SHARDS:
+                failures.append(f"{tag}: the table was not mesh-sharded")
+            # The mesh fold launches D (the route) and E (the exchange)
+            # on top of the steps' own: the base stream runs the same
+            # steps with the unsharded fold.
+            for name in ("fnv", "route"):
+                extra = (stream[tag]["launches"][name]
+                         - stream["stream_mesh_base"]["launches"][name])
+                if extra < st.get("folds", 0) or extra < 1:
+                    failures.append(f"{tag}: the fold launched {name} "
+                                    f"{extra} times for {st.get('folds')} "
+                                    "folds")
+            log({f"{tag}_stats": {k: st.get(k) for k in (
+                "mesh_shards", "shard_widens", "shard_imbalance",
+                "pull_bytes", "folds", "fold_overflows", "widens",
+                "table_cap")}, "gpu": gpu})
+        if sum(stream["stream_mesh_widen"]["pipeline_stats"].get(
+                "shard_widens", [])) < 1:
+            failures.append("stream_mesh_widen: no shard widened")
+
     total_s = sum(phases.values())
     log({"slice": {
         "gpu": gpu, "input_bytes": nbytes, "mb_per_s": nbytes / total_s / 1e6,
@@ -801,15 +1182,28 @@ def main() -> int:
                   "launches": launch64},
         "split": {"seconds": split_s, "bytes": len(raws[0]),
                   "launches": launch_split},
+        "split_hash": {"seconds": split_hash_s,
+                       "launches": launch_split_hash},
         "sharded": sharded,
         "launches_main": launch_main}})
+    log({"end_to_end": {
+        "gpu": gpu,
+        "corpus_mb_per_s": {"raw_sort": nbytes / total_s / 1e6,
+                            **{k: v["mb_per_s"]
+                               for k, v in corpus_runs.items()}},
+        "corpus_runs": corpus_runs,
+        "stream_mb_per_s": {k: v["mb_per_s"] for k, v in stream.items()}}})
 
     by_path = {"corpus": launch_main, "corpus_mwl64": launch64,
                "split": launch_split, "sharded": sharded[1]["launches"],
                "sharded_n8": sharded[8]["launches"],
-               "stream": stream["stream"]["launches"],
-               "stream_acc": stream["stream_acc"]["launches"],
-               "stream_cli": stream["stream_cli"]["launches"]}
+               **{k: v["launches"] for k, v in stream.items()},
+               **{k: v["launches"] for k, v in corpus_runs.items()},
+               "split_hash": launch_split_hash,
+               "sharded_hash": launch_sharded_hash}
+    for path, names in PATH_KERNELS.items():
+        failures += [f"{name} never launched on the {path} path"
+                     for name in names if by_path[path][name] < 1]
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         tm = times[name]
@@ -825,6 +1219,10 @@ def main() -> int:
             row["radix_bound_ms"] = tm["radix_bound_ms"]
         if name in ("radix_sort", "group"):
             row["at_shapes"] = {k: v[name] for k, v in shapes.items()}
+        if name in ("fnv", "route"):
+            row["at_shapes"] = {"mesh_fold": mesh_shapes[name]}
+        if name == "hash_group":
+            row["at_shapes"] = hash_shapes
         kernels.append(row)
     log({"kernels": kernels})
     if failures:

@@ -14,7 +14,8 @@ Usage:
     python -m dsi_tpu_torch.cli.wcstream [--nreduce N] [--chunk-bytes B]
         [--devices D] [--workdir DIR] [--check] [--u-cap U]
         [--pipeline-depth D] [--device-accumulate] [--sync-every K]
-        [--ingest-readers N] [--stats] [--device cuda|cpu] inputfiles...
+        [--mesh-shards N] [--grouper sort|hash] [--ingest-readers N]
+        [--stats] [--device cuda|cpu] inputfiles...
 """
 
 from __future__ import annotations
@@ -60,6 +61,18 @@ def main(argv=None) -> int:
                    help="folds between host pulls with "
                         "--device-accumulate (default: "
                         "DSI_STREAM_SYNC_EVERY or 8)")
+    p.add_argument("--mesh-shards", type=int, default=None,
+                   help="mesh-shard the device table across N of the "
+                        "--devices shards (ihash(key) %% N routing inside "
+                        "the fold, per-shard widens; implies "
+                        "--device-accumulate; default: "
+                        "DSI_STREAM_MESH_SHARDS or 0 = off; results are "
+                        "the same either way)")
+    p.add_argument("--grouper", choices=("sort", "hash"), default=None,
+                   help="pin the token-grouping strategy (sets "
+                        "DSI_WC_GROUPER; default: hash on the CPU, sort on "
+                        "the card); the sort grouper stays the "
+                        "always-exact fallback rung either way")
     p.add_argument("--ingest-readers", type=int, default=None,
                    dest="ingest_readers",
                    help="parallel mmap'd input readers with readahead "
@@ -71,6 +84,8 @@ def main(argv=None) -> int:
                    help="where the step runs (default: cuda; cpu runs "
                         "the plain PyTorch versions)")
     args = p.parse_args(argv)
+    if args.grouper:
+        os.environ["DSI_WC_GROUPER"] = args.grouper
 
     from dsi_tpu_torch.parallel.shuffle import write_partitioned_output
     from dsi_tpu_torch.parallel.streaming import wordcount_streaming
@@ -83,7 +98,8 @@ def main(argv=None) -> int:
         chunk_bytes=args.chunk_bytes, u_cap=args.u_cap,
         depth=args.pipeline_depth,
         device_accumulate=args.device_accumulate,
-        sync_every=args.sync_every, pipeline_stats=pstats,
+        sync_every=args.sync_every, mesh_shards=args.mesh_shards,
+        pipeline_stats=pstats,
         device=args.device)
     if args.stats:
         print(f"wcstream: pipeline_stats={pstats}", file=sys.stderr)

@@ -1,9 +1,11 @@
-"""Sync cadence for the device-resident accumulator.
+"""Sync cadence and mesh-sharding degree for the device-resident
+accumulator.
 
-Copy of ``dsi_tpu/device/policy.py`` (``SyncPolicy`` and
-``sync_every_default``).  The device table (``device/table.py``) keeps
-confirmed step outputs on the card; the host pulls the merged table only
-at sync points, every ``sync_every`` confirmed folds, plus at stream end.
+Copy of ``dsi_tpu/device/policy.py`` (``SyncPolicy``,
+``sync_every_default`` and ``mesh_shards_default``).  The device table
+(``device/table.py``) keeps confirmed step outputs on the card; the host
+pulls the merged table only at sync points, every ``sync_every``
+confirmed folds, plus at stream end.
 The correctness story never depends on the cadence: every path drains at
 stream end, and the widen protocol drains on demand.
 """
@@ -27,6 +29,22 @@ def sync_every_default(sync_every: int | None = None) -> int:
         except ValueError:
             sync_every = _SYNC_EVERY_DEFAULT
     return max(1, sync_every)
+
+
+#: Environment default for the mesh-sharded table's degree (0 = off).
+_MESH_SHARDS_ENV = "DSI_STREAM_MESH_SHARDS"
+
+
+def mesh_shards_default(mesh_shards: int | None = None) -> int:
+    """Resolve the mesh-sharding degree of the device table: an explicit
+    value wins, else ``DSI_STREAM_MESH_SHARDS`` (default 0 = off),
+    floored at 0."""
+    if mesh_shards is None:
+        try:
+            mesh_shards = int(os.environ.get(_MESH_SHARDS_ENV, "0"))
+        except ValueError:
+            mesh_shards = 0
+    return max(0, int(mesh_shards))
 
 
 class SyncPolicy:

@@ -40,6 +40,12 @@ SIGNATURES = {
     "dsi_fnv": (_INT, [_P, _I64, _P, _INT, _P, _P]),
     "dsi_route_scratch_bytes": (_I64, [_INT, _I64]),
     "dsi_route": (_INT, [_P, _P, _INT, _I64, _INT, _INT, _P, _P, _P]),
+    "dsi_hash_group_scratch_bytes": (_I64, [_INT, _I64, _I64]),
+    "dsi_hash_bucket": (_INT, [_P, _INT, _I64, _P, _P, _P, _P, _I64, _I64,
+                               _P, _P, _P, _P]),
+    "dsi_hash_assemble": (_INT, [_INT, _I64, _I64, _I64, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P, _P, _P, _P]),
+    "dsi_pack6": (_INT, [_P, _I64, _P, _P, _P]),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,14 +1,16 @@
 """Whole-corpus word count: one device pass, position-coded results.
 
-Port of ``dsi_tpu/ops/corpus_wc.py`` (raw transport, sort grouper).
-Every input file is laid out in fixed-size zero-padded pieces (zero
-padding separates files, so no token straddles a boundary); the corpus is
-uploaded once, from one pinned host buffer, and tokenize + stable sort +
-group run over all of it through kernels A, B and C
-(``ops/wordcount.py``).  Each unique word comes back as
-``(first_occurrence_position << 7 | byte_length, count)`` in ONE
-device-to-host pull of a u32 vector that also carries the overflow
-scalars; the host slices the spelling out of its own copy of the corpus.
+Port of ``dsi_tpu/ops/corpus_wc.py``.  Every input file is laid out in
+fixed-size zero-padded pieces (zero padding separates files, so no token
+straddles a boundary); the pieces are uploaded through ``ops/xfer.py``,
+raw or, with ``pack6=True``, 6 bits per byte (kernel G decodes them on
+the card), and tokenize + group run over all of them through kernel A and
+either the stable sort grouper (kernels B and C) or the hash grouper
+(kernels D and F, with B and C for the dirty repair).  Each unique word
+comes back as ``(first_occurrence_position << 7 | byte_length, count)``
+in ONE device-to-host pull of a u32 vector that also carries the
+overflow scalars; the host slices the spelling out of its own copy of the
+corpus.
 
 Tokens are maximal ASCII-letter runs; any byte >= 0x80 or word longer than
 64 letters returns None so the caller takes the host path (the contract of
@@ -23,12 +25,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dsi_tpu_torch.ops import xfer
 from dsi_tpu_torch.ops.wordcount import (
     exactness_retry,
+    fnv1a32_packed,
     group_sorted,
+    grouper_ladder,
+    hash_group,
+    pack6_decode,
     radix_sort,
     resolve_device,
-    to_device,
     tokenize,
 )
 from dsi_tpu_torch.utils.atomicio import atomic_write
@@ -52,35 +58,80 @@ def corpus_kernel(*pieces: torch.Tensor, max_word_len: int = 16,
     """Count every word of the concatenated pieces; emit position-coded rows.
 
     Returns ONE 1-D int32 tensor (u32 bits) of length ``2*u_cap + 4``:
-    ``rows[u_cap, 2]`` flattened (``pos << 7 | len``, ``count``; rows in
-    lexicographic word order, pad rows zero) followed by the scalars
-    ``[n_unique, max_len, has_high, token_overflow]``.
+    ``rows[u_cap, 2]`` flattened (``pos << 7 | len``, ``count``; with the
+    sort grouper rows are in lexicographic word order, with the hash
+    grouper in bucket order — the output writer sorts on the host either
+    way; pad rows zero) followed by the scalars ``[n_unique, max_len,
+    has_high, token_overflow]``.
     """
     chunk = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
     return _corpus_core(chunk, max_word_len, u_cap, t_cap_frac, grouper)
 
 
+def corpus_kernel_packed(*pieces_and_table: torch.Tensor,
+                         max_word_len: int = 16, u_cap: int = 1 << 18,
+                         t_cap_frac: int = 4,
+                         grouper: str = "sort") -> torch.Tensor:
+    """``corpus_kernel`` over the 6-bit transport encoding of the corpus:
+    packed pieces (each ``3/4 * piece_size`` bytes) plus the 64-entry
+    code-to-byte table (``pack6_encode``).  Kernel G inverts the encoding
+    first, so everything after it sees the raw path's bytes."""
+    *pieces, table = pieces_and_table
+    pk = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
+    return _corpus_core(pack6_decode(pk, table), max_word_len, u_cap,
+                        t_cap_frac, grouper)
+
+
 def _corpus_core(chunk: torch.Tensor, max_word_len: int, u_cap: int,
                  t_cap_frac: int, grouper: str = "sort") -> torch.Tensor:
-    if grouper != "sort":
-        raise NotImplementedError(
-            f"grouper={grouper!r}: only the sort grouper is ported")
+    if grouper not in ("sort", "hash"):
+        raise ValueError(f"unknown grouper {grouper!r}")
     n = chunk.shape[0]
     if n > 1 << _POS_BITS:
         raise ValueError(f"corpus_kernel caps at {1 << _POS_BITS} bytes")
     t_cap = n // t_cap_frac + 1
-    keys, _, poslen, sc = tokenize(chunk, max_word_len=max_word_len,
-                                   t_cap=t_cap, with_poslen=True)
-    # Stable sort: within a run of equal words the tokens keep ascending
-    # position, so each run's FIRST row carries the first occurrence.
-    skeys, perm = radix_sort(keys)
-    ones = torch.ones(t_cap, dtype=torch.int64, device=chunk.device)
-    _, totals, _, poslen_u, n_unique = group_sorted(
-        skeys, ones, u_cap, payload=poslen, perm=perm)
+    keys, lengths, poslen, sc = tokenize(chunk, max_word_len=max_word_len,
+                                         t_cap=t_cap, with_poslen=True)
+    token_overflow = sc[0] > t_cap
+    if grouper == "hash":
+        # The first occurrence is the group's unsigned MIN of pos << 7 |
+        # len (the length is the same across a group); it needs the
+        # unsigned order, since the value reaches 2^32 - 1.
+        fnv_t = fnv1a32_packed(keys, lengths, max_word_len)
+        _, _, totals, poslen_u, n_unique, group_of = hash_group(
+            keys, lengths, fnv_t, sc[:1], u_cap, extra=poslen)
+        token_overflow = token_overflow | group_of
+    else:
+        # Stable sort: within a run of equal words the tokens keep
+        # ascending position, so each run's FIRST row carries the first
+        # occurrence.
+        skeys, perm = radix_sort(keys)
+        ones = torch.ones(t_cap, dtype=torch.int64, device=chunk.device)
+        _, totals, _, poslen_u, n_unique = group_sorted(
+            skeys, ones, u_cap, payload=poslen, perm=perm)
     rows = torch.stack([poslen_u, totals.to(torch.int32)], dim=1)
     scalars = torch.stack([n_unique, sc[1], sc[2],
-                           (sc[0] > t_cap).to(torch.int32)])
+                           token_overflow.to(torch.int32)])
     return torch.cat([rows.reshape(-1), scalars])
+
+
+def pack6_encode(buf: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """6-bit transport encoding (copy of the reference's): (packed bytes
+    [3n/4], code-to-byte table [64]), or None when the corpus uses more
+    than 64 distinct byte values.  ``len(buf)`` must be a multiple of 4
+    (piece sizes are powers of two)."""
+    used = np.flatnonzero(np.bincount(buf, minlength=256))
+    if len(used) > 64:
+        return None
+    table = np.zeros(64, dtype=np.uint8)
+    table[:len(used)] = used.astype(np.uint8)
+    lut = np.zeros(256, dtype=np.uint8)
+    lut[used] = np.arange(len(used), dtype=np.uint8)
+    c = lut[buf].astype(np.uint32).reshape(-1, 4)
+    v = (c[:, 0] << 18) | (c[:, 1] << 12) | (c[:, 2] << 6) | c[:, 3]
+    packed = np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255],
+                      axis=1).astype(np.uint8).reshape(-1)
+    return packed, table
 
 
 def pack_pieces(raws: Sequence[bytes],
@@ -132,7 +183,7 @@ class CorpusResult:
         self.buf = buf      # [N] uint8, W zero bytes of tail padding
         self.pos = pos      # [nu] int64 first-occurrence byte offsets
         self.lens = lens    # [nu] int64 word byte lengths
-        self.cnt = cnt      # [nu] int64 counts; rows in lexicographic order
+        self.cnt = cnt      # [nu] int64 counts, in the kernel's row order
 
     def words(self) -> List[str]:
         b = self.buf.tobytes()
@@ -169,12 +220,13 @@ def corpus_wordcount(raws: Sequence[bytes], *, piece_size: int | None = None,
                      device=None) -> Optional[CorpusResult]:
     """Exact whole-corpus counts, or None when the host path is needed
     (non-ASCII bytes or a word longer than 64).  Retries wider shapes on
-    overflow.  ``device=None`` means ``cuda``."""
-    if pack6:
-        raise NotImplementedError("pack6 transport (K7) is not ported yet")
-    if grouper not in (None, "sort"):
-        raise NotImplementedError(
-            f"grouper={grouper!r}: only the sort grouper is ported")
+    overflow.  ``device=None`` means ``cuda``.
+
+    ``pack6=True`` ships the corpus 6 bits per byte when its alphabet fits
+    in 64 symbols, and raw bytes when it does not.  ``grouper`` (default:
+    the device's ``grouper_ladder``) picks the grouping stage; a hash
+    grouper that cannot prove exactness retries through the sort grouper,
+    the always-exact last rung."""
     dev = resolve_device(device)
     buf, n_pieces, piece_size = _resolve_pieces(raws, piece_size)
     if n_pieces == 0:
@@ -182,13 +234,37 @@ def corpus_wordcount(raws: Sequence[bytes], *, piece_size: int | None = None,
                                                       for _ in range(3)))
     if len(buf) > 1 << _POS_BITS:
         return None  # position coding needs pos < 2^25: caller chunks
-    chunk = to_device(buf, dev)
+    table = None
+    if pack6:
+        enc = pack6_encode(buf)
+        if enc is None:
+            pack6 = False
+        else:
+            wire, table = enc
+    if pack6:
+        wire_piece = piece_size * 3 // 4
+    else:
+        wire, wire_piece = buf, piece_size
+    views = [wire[i * wire_piece:(i + 1) * wire_piece]
+             for i in range(n_pieces)]
+    if table is not None:
+        views.append(table)
+    kernel = corpus_kernel_packed if pack6 else corpus_kernel
+    if grouper is None:
+        groupers = grouper_ladder(dev)
+    else:
+        groupers = (grouper, "sort") if grouper != "sort" else ("sort",)
+    dev_args = xfer.put_views(views, dev)  # one upload serves every rung
 
     def run(mwl: int, cap: int):
-        for frac in (4, 2):  # exact token bound is n//2+1
-            out = _corpus_core(chunk, mwl, cap, frac)
-            out = out.cpu().numpy().view(np.uint32)  # the ONE D2H pull
-            nu, max_len, has_high, tok_of = (int(x) for x in out[-4:])
+        for g in groupers:
+            for frac in (4, 2):  # exact token bound is n//2+1
+                out = kernel(*dev_args, max_word_len=mwl, u_cap=cap,
+                             t_cap_frac=frac, grouper=g)
+                out = out.cpu().numpy().view(np.uint32)  # the ONE D2H pull
+                nu, max_len, has_high, tok_of = (int(x) for x in out[-4:])
+                if not tok_of:
+                    break
             if not tok_of:
                 break
 

@@ -1,25 +1,32 @@
-"""Word count per split: tokenize + sort + group + count on the card.
+"""Word count per split: tokenize + group + count on the card.
 
-Port of ``dsi_tpu/ops/wordcount.py`` (the sort grouper only).  Same
-contract as the JAX program: tokens are maximal runs of ASCII letters,
-grouped by their exact first ``max_word_len`` bytes, packed big-endian into
-u32 lanes and pairwise into u64 key words; any byte >= 0x80, a word longer
-than the window, more uniques than ``u_cap`` or more tokens than the token
-buffer is reported so the host wrapper retries wider or falls back
-(``exactness_retry``), so the result is always exact.
+Port of ``dsi_tpu/ops/wordcount.py``, with both groupers (the exact
+lexicographic sort and the hash grouper with its exact dirty repair) and
+the platform-adaptive grouper ladder.  Same contract as the JAX program:
+tokens are maximal runs of ASCII letters, grouped by their exact first
+``max_word_len`` bytes, packed big-endian into u32 lanes and pairwise into
+u64 key words; any byte >= 0x80, a word longer than the window, more
+uniques than ``u_cap``, more tokens than the token buffer or more dirty
+tokens than the hash grouper's repair buffer is reported so the host
+wrapper retries wider or falls back (``exactness_retry`` and the grouper
+ladder), so the result is always exact.
 
 Every hand-written CUDA kernel of the port (``csrc/``) is launched from
-this module, each with its plain PyTorch version beside it.  The four
-steps of the word count:
+this module, each with its plain PyTorch version beside it.  The steps
+of the word count:
 
 * ``tokenize``       — ``csrc/tokenize.cu``   (K1+K2, K6 front end)
 * ``radix_sort``     — ``csrc/radix_sort.cu`` (K3 sort)
 * ``group_sorted``   — ``csrc/group.cu``      (K3 group)
 * ``fnv1a32_packed`` — ``csrc/fnv.cu``        (K4)
+* ``hash_group``     — ``csrc/hash_group.cu`` (K5, with B and C for the
+  dirty repair)
+* ``pack6_decode``   — ``csrc/pack6.cu``      (K7, the 6-bit transport)
 
-and the shuffle of the streaming SPMD step (``parallel/shuffle.py``):
+and the shuffle of the streaming SPMD step (``parallel/shuffle.py``) and
+of the mesh-sharded fold (``ops/meshroute.py``):
 
-* ``shuffle_rows``   — ``csrc/route.cu``      (K8)
+* ``shuffle_rows``   — ``csrc/route.cu``      (K8, K11)
 
 A wrapper given a CUDA tensor launches its kernel (adding one to its
 count in ``LAUNCHES``) or raises; given a CPU tensor it runs the plain
@@ -34,6 +41,7 @@ storage as uint32_t/uint64_t.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,7 +58,8 @@ _BYTE_MASKS = (0, 0xFF000000, 0xFFFF0000, 0xFFFFFF00, 0xFFFFFFFF)
 
 # Launches of each kernel in this process; a plain-version call adds none.
 LAUNCHES: Dict[str, int] = {"tokenize": 0, "radix_sort": 0, "group": 0,
-                            "fnv": 0, "route": 0}
+                            "fnv": 0, "route": 0, "hash_group": 0,
+                            "pack6": 0}
 
 
 def reset_launches() -> None:
@@ -69,6 +78,26 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def default_grouper(device) -> str:
+    """The grouping strategy for ``device``: ``hash`` on the CPU, ``sort``
+    on the card, as the reference picks ``hash`` on its CPU platform and
+    ``sort`` on accelerators until on-chip evidence says otherwise.
+    ``DSI_WC_GROUPER`` pins either one."""
+    env = os.environ.get("DSI_WC_GROUPER")
+    if env in ("sort", "hash"):
+        return env
+    return "hash" if torch.device(device).type == "cpu" else "sort"
+
+
+def grouper_ladder(device) -> tuple:
+    """The grouper rungs every wrapper walks on ``device``: the preferred
+    grouper first, the always-exact sort grouper last (a hash-grouper
+    dirty overflow cannot clear at frac 2; the sort never overflows
+    there)."""
+    g0 = default_grouper(device)
+    return (g0, "sort") if g0 != "sort" else ("sort",)
 
 
 def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -462,6 +491,194 @@ def shuffle_rows(rows: torch.Tensor, dest: torch.Tensor, *, n_dev: int,
     return recv
 
 
+# ── F: the hash grouper ──────────────────────────────────────────────────
+
+
+def hash_group_shape(t: int) -> tuple:
+    """(n_buckets, d_cap) of the reference's ``_hash_group`` for ``t``
+    token rows: about t buckets, a power of two; a dirty buffer of t/16
+    rows, at least 256."""
+    return 1 << max(10, int(t).bit_length() - 1), max(1 << 8, t // 16)
+
+
+def _repair_sort_group(dkeys: torch.Tensor, dlen: torch.Tensor, k64: int,
+                       u_cap: int):
+    """The hash grouper's dirty repair: sort the dirty rows ``dkeys``
+    [k64 (+1), d_cap] with B (with ``extra`` it rides as the last key
+    word, so each run's first row holds the group's minimum), then group
+    them on their ``k64`` key words with C, carrying ``dlen``.  Returns
+    kernel C's outputs and the sorted key words."""
+    skeys, perm = radix_sort(dkeys)
+    ones = torch.ones(dkeys.shape[1], dtype=torch.int64,
+                      device=dkeys.device)
+    return group_sorted(skeys[:k64], ones, u_cap, dlen, perm), skeys
+
+
+def hash_group_plain(keys: torch.Tensor, lengths: torch.Tensor,
+                     fnv: torch.Tensor, n_valid: torch.Tensor, u_cap: int,
+                     extra: Optional[torch.Tensor] = None):
+    """Plain version of kernel F, the reference's ``_hash_group``
+    (``dsi_tpu/ops/wordcount.py:199-320``).
+
+    ``keys`` [k64, t] u64 key words (int64 bits), ``lengths`` [t] int32,
+    ``fnv`` [t] the tokens' FNV-1a (int32 bits), ``n_valid`` [1] int32
+    (rows below it are tokens), ``extra`` [t] u32 (int32 bits) reduced by
+    unsigned MIN per group, or None.  Tokens go to bucket ``fnv &
+    (n_buckets-1)``; a bucket is dirty when some key word's min differs
+    from its max.  Dirty tokens are compacted in token order to ``d_cap``
+    rows, sorted and grouped exactly.  Output rows: the clean buckets in
+    bucket order, then the dirty uniques in sorted order, cut at
+    ``u_cap``; zero past n_unique.  Returns (keys_u [k64, u_cap] int64,
+    len_u [u_cap] int32, cnt_u [u_cap] int64, extra_u [u_cap] int32 or
+    None, n_unique int32, group_overflow bool); n_unique stays true above
+    u_cap."""
+    k64, t = keys.shape
+    dev = keys.device
+    nb, d_cap = hash_group_shape(t)
+    valid = torch.arange(t, device=dev) < n_valid[0]
+    idx = torch.where(valid, _u32_value(fnv) & (nb - 1), nb)
+
+    def per_bucket(vals, how, init):
+        out = torch.full((nb + 1,), init, dtype=torch.int64, device=dev)
+        return out.scatter_reduce(0, idx, vals, how, include_self=False)[:nb]
+
+    tot1 = per_bucket(valid.to(torch.int64), "sum", 0)
+    len1 = per_bucket(lengths.to(torch.int64), "amax", 0)
+    ex1 = (per_bucket(_u32_value(extra), "amin", 0xFFFFFFFF)
+           if extra is not None else None)
+    dirty = torch.zeros(nb, dtype=torch.bool, device=dev)
+    keys1 = []
+    for w in range(k64):
+        flipped = keys[w] ^ _SIGN64  # unsigned order as signed order
+        mn = per_bucket(flipped, "amin", 0)
+        mx = per_bucket(flipped, "amax", 0)
+        dirty |= mn != mx
+        keys1.append(mx ^ _SIGN64)
+    occ1 = tot1 > 0
+    dirty &= occ1
+
+    in_dirty = valid & dirty[idx.clamp(max=nb - 1)]
+    n_dirty = in_dirty.sum()
+    dpos = _compact(in_dirty, d_cap, 0)
+    dvalid = torch.arange(d_cap, device=dev) < n_dirty
+    dlen = torch.where(dvalid, lengths[dpos], 0).to(torch.int32)
+    dkeys = torch.where(dvalid, keys[:, dpos], _PAD_KEY64)
+    if extra is not None:
+        dex = torch.where(dvalid, _u32_value(extra)[dpos], 0xFFFFFFFF)
+        dkeys = torch.cat([dkeys, dex[None]])
+    (dgk, dtot, dupos, dlen_u, n_du), skeys = _repair_sort_group(
+        dkeys, dlen, k64, u_cap)
+
+    clean1 = occ1 & ~dirty
+    n_clean = clean1.sum()
+    cpos1 = _compact(clean1, u_cap, nb - 1)
+    v1 = torch.arange(u_cap, device=dev) < n_clean
+    keys_u = torch.where(v1, torch.stack(keys1)[:, cpos1], 0)
+    len_u = torch.where(v1, len1[cpos1], 0)
+    cnt_u = torch.where(v1, tot1[cpos1], 0)
+    ex_u = torch.where(v1, ex1[cpos1], 0) if extra is not None else None
+    i = torch.arange(u_cap, device=dev)
+    put = (i < n_du) & (i + n_clean < u_cap)
+    dst, src = (i + n_clean)[put], i[put]
+    keys_u[:, dst] = dgk[:, src]
+    len_u[dst] = dlen_u[src].to(torch.int64)
+    cnt_u[dst] = dtot[src]
+    if ex_u is not None:
+        ex_u[dst] = skeys[k64][dupos[src].to(torch.int64)]
+        ex_u = _u32_bits(ex_u)
+    return (keys_u, len_u.to(torch.int32), cnt_u, ex_u,
+            (n_clean + n_du).to(torch.int32), n_dirty > d_cap)
+
+
+def hash_group(keys: torch.Tensor, lengths: torch.Tensor, fnv: torch.Tensor,
+               n_valid: torch.Tensor, u_cap: int,
+               extra: Optional[torch.Tensor] = None):
+    """Kernel F (``csrc/hash_group.cu``); see :func:`hash_group_plain`.
+
+    Two launches of F around the exact repair: the first accumulates the
+    buckets, flags the dirty ones and compacts their tokens in token
+    order; kernels B and C sort and group those rows; the second launch
+    of F writes the clean buckets in bucket order and the dirty uniques
+    after them."""
+    _require(keys, torch.int64, 2, "hash_group keys")
+    _require(lengths, torch.int32, 1, "hash_group lengths")
+    _require(fnv, torch.int32, 1, "hash_group fnv")
+    _require(n_valid, torch.int32, 1, "hash_group n_valid")
+    if extra is not None:
+        _require(extra, torch.int32, 1, "hash_group extra")
+    k64, t = keys.shape
+    if (k64 < 1 or t < 1 or u_cap < 1 or n_valid.shape[0] != 1
+            or lengths.shape[0] != t or fnv.shape[0] != t
+            or (extra is not None and extra.shape[0] != t)):
+        raise ValueError(f"hash_group: bad shapes keys={tuple(keys.shape)} "
+                         f"u_cap={u_cap}")
+    if not _on_cuda(keys):
+        return hash_group_plain(keys, lengths, fnv, n_valid, u_cap, extra)
+    lib = _lib()
+    nb, d_cap = hash_group_shape(t)
+    e = 0 if extra is None else 1
+    opts = {"device": keys.device}
+    scratch = torch.empty(lib.dsi_hash_group_scratch_bytes(k64, t, nb),
+                          dtype=torch.uint8, **opts)
+    dkeys = torch.empty((k64 + e, d_cap), dtype=torch.int64, **opts)
+    dlen = torch.empty(d_cap, dtype=torch.int32, **opts)
+    with torch.cuda.device(keys.device):
+        _launch("hash_group", lib.dsi_hash_bucket(
+            _ptr(keys), k64, t, _ptr(lengths), _ptr(fnv), _ptr(n_valid),
+            _ptr(extra), nb, d_cap, _ptr(dkeys), _ptr(dlen), _ptr(scratch),
+            _stream(keys)))
+    (dgk, dtot, dupos, dlen_u, n_du), skeys = _repair_sort_group(
+        dkeys, dlen, k64, u_cap)
+    keys_u = torch.empty((k64, u_cap), dtype=torch.int64, **opts)
+    len_u = torch.empty(u_cap, dtype=torch.int32, **opts)
+    cnt_u = torch.empty(u_cap, dtype=torch.int64, **opts)
+    extra_u = (torch.empty(u_cap, dtype=torch.int32, **opts) if e
+               else None)
+    scal = torch.empty(2, dtype=torch.int32, **opts)
+    with torch.cuda.device(keys.device):
+        _launch("hash_group", lib.dsi_hash_assemble(
+            k64, nb, d_cap, u_cap, _ptr(dgk), _ptr(dtot), _ptr(dupos),
+            _ptr(dlen_u), _ptr(n_du), _ptr(skeys[k64]) if e else None,
+            _ptr(keys_u), _ptr(len_u), _ptr(cnt_u), _ptr(extra_u),
+            _ptr(scal), _ptr(scratch), _stream(keys)))
+    return keys_u, len_u, cnt_u, extra_u, scal[0], scal[1] != 0
+
+
+# ── G: the 6-bit transport decode ────────────────────────────────────────
+
+
+def pack6_decode_plain(packed: torch.Tensor,
+                       table: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel G, the inverse transform at the head of the
+    reference's ``corpus_kernel_packed`` (``dsi_tpu/ops/corpus_wc.py:107-
+    116``): every 3 wire bytes ``v = b0<<16 | b1<<8 | b2`` hold four 6-bit
+    codes, high first, each mapped through the 64-entry code-to-byte
+    ``table``.  Returns the uint8 corpus, 4/3 the wire length."""
+    b = packed.view(-1, 3).to(torch.int64)
+    v = (b[:, 0] << 16) | (b[:, 1] << 8) | b[:, 2]
+    codes = torch.stack([(v >> 18) & 63, (v >> 12) & 63, (v >> 6) & 63,
+                         v & 63], dim=1).reshape(-1)
+    return table[codes]
+
+
+def pack6_decode(packed: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Kernel G (``csrc/pack6.cu``); see :func:`pack6_decode_plain`."""
+    _require(packed, torch.uint8, 1, "pack6 wire bytes")
+    _require(table, torch.uint8, 1, "pack6 table")
+    m = packed.shape[0]
+    if m < 3 or m % 3 or table.shape[0] != 64:
+        raise ValueError(f"pack6: bad shapes wire={m} "
+                         f"table={tuple(table.shape)}")
+    if not _on_cuda(packed):
+        return pack6_decode_plain(packed, table)
+    lib = _lib()
+    out = torch.empty(m // 3 * 4, dtype=torch.uint8, device=packed.device)
+    with torch.cuda.device(packed.device):
+        _launch("pack6", lib.dsi_pack6(_ptr(packed), m // 3, _ptr(table),
+                                       _ptr(out), _stream(packed)))
+    return out
+
+
 # ── the per-split program and its host wrapper ───────────────────────────
 
 
@@ -474,24 +691,35 @@ def tokenize_group_core(chunk: torch.Tensor, *, max_word_len: int = 16,
     Returns (packed_u [u_cap, K] u32 bits, len_u [u_cap] i32, cnt_u
     [u_cap] i32, fnv_u [u_cap] u32 bits, n_unique i32, max_len i32,
     has_high bool, token_overflow bool) — the outputs of
-    ``dsi_tpu.ops.wordcount.tokenize_group_core`` with ``grouper="sort"``.
+    ``dsi_tpu.ops.wordcount.tokenize_group_core``.  ``grouper`` is
+    ``"sort"`` (kernels B and C over all tokens: rows in word order) or
+    ``"hash"`` (kernel D per token, then kernel F: clean buckets in
+    bucket order, then the dirty uniques); a hash attempt that cannot
+    prove exactness reports ``token_overflow`` so the grouper ladder
+    re-runs the chunk through the sort grouper.
     """
-    if grouper != "sort":
-        raise NotImplementedError(
-            f"grouper={grouper!r}: only the sort grouper is ported")
+    if grouper not in ("sort", "hash"):
+        raise ValueError(f"unknown grouper {grouper!r}")
     n = chunk.shape[0]
     k = max_word_len // 4
     t_cap = n // t_cap_frac + 1
     keys, lengths, _, sc = tokenize(chunk, max_word_len=max_word_len,
                                     t_cap=t_cap)
-    skeys, perm = radix_sort(keys)
-    ones = torch.ones(t_cap, dtype=torch.int64, device=chunk.device)
-    keys_u, totals, _, len_u, n_unique = group_sorted(
-        skeys, ones, u_cap, payload=lengths, perm=perm)
+    token_overflow = sc[0] > t_cap
+    if grouper == "hash":
+        fnv_t = fnv1a32_packed(keys, lengths, max_word_len)
+        keys_u, len_u, totals, _, n_unique, group_of = hash_group(
+            keys, lengths, fnv_t, sc[:1], u_cap)
+        token_overflow = token_overflow | group_of
+    else:
+        skeys, perm = radix_sort(keys)
+        ones = torch.ones(t_cap, dtype=torch.int64, device=chunk.device)
+        keys_u, totals, _, len_u, n_unique = group_sorted(
+            skeys, ones, u_cap, payload=lengths, perm=perm)
     packed_u = unpack_key_rows(keys_u.T, k)
     fnv_u = fnv1a32_packed(keys_u, len_u, max_word_len)
     return (packed_u, len_u, totals.to(torch.int32), fnv_u, n_unique,
-            sc[1], sc[2] != 0, sc[0] > t_cap)
+            sc[1], sc[2] != 0, token_overflow)
 
 
 def _pad_pow2(data: bytes, min_size: int = 256) -> np.ndarray:
@@ -555,15 +783,20 @@ def count_words_host_result(
     """Run the per-split program (retrying wider on overflow) and return
     ``{word: (count, ihash)}``, or None if and only if the text needs the
     host path (non-ASCII bytes, or words longer than 64 bytes)."""
-    chunk = to_device(_pad_pow2(data), resolve_device(device))
+    dev = resolve_device(device)
+    chunk = to_device(_pad_pow2(data), dev)
+    groupers = grouper_ladder(dev)
 
     def run(mwl: int, cap: int):
-        for frac in (4, 2):  # exact token bound is n//2+1
-            out = tokenize_group_core(chunk, max_word_len=mwl, u_cap=cap,
-                                      t_cap_frac=frac)
-            nu, max_len, has_high, tok_of = torch.stack(
-                [out[4], out[5], out[6].to(torch.int32),
-                 out[7].to(torch.int32)]).tolist()
+        for g in groupers:
+            for frac in (4, 2):  # exact token bound is n//2+1
+                out = tokenize_group_core(chunk, max_word_len=mwl, u_cap=cap,
+                                          t_cap_frac=frac, grouper=g)
+                nu, max_len, has_high, tok_of = torch.stack(
+                    [out[4], out[5], out[6].to(torch.int32),
+                     out[7].to(torch.int32)]).tolist()
+                if not tok_of:
+                    break
             if not tok_of:
                 break
 

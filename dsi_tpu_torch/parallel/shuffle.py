@@ -35,6 +35,7 @@ from dsi_tpu_torch.ops.wordcount import (
     _u32_value,
     exactness_retry,
     group_sorted,
+    grouper_ladder,
     pack_key_lanes,
     radix_sort,
     resolve_device,
@@ -179,18 +180,24 @@ def wordcount_sharded(
 
     Returns ``{word: (count, reduce_partition)}`` — exact, or None when
     the input needs the host path (non-ASCII bytes or words longer than
-    64).  Retries with wider shapes on capacity overflow, as
-    ``ops.wordcount.count_words_host_result`` does."""
+    64).  Retries with wider shapes on capacity overflow, and through the
+    device's grouper ladder, as ``ops.wordcount.count_words_host_result``
+    does."""
     dev = resolve_device(device)
     chunks_np, shard_len = shard_text(data, n_dev)
     chunks = to_device(chunks_np.reshape(-1), dev).view(n_dev, -1)
+    groupers = grouper_ladder(dev)
 
     def run(mwl: int, cap: int):
-        for frac in (4, 2):  # exact token bound is n//2+1
-            keys, lens, cnts, parts, scal_dev = mapreduce_step(
-                chunks, n_dev=n_dev, n_reduce=n_reduce, max_word_len=mwl,
-                u_cap=cap, t_cap_frac=frac)
-            scal = scal_dev.cpu().numpy()
+        for g in groupers:
+            for frac in (4, 2):  # exact token bound is n//2+1
+                keys, lens, cnts, parts, scal_dev = mapreduce_step(
+                    chunks, n_dev=n_dev, n_reduce=n_reduce,
+                    max_word_len=mwl, u_cap=cap, t_cap_frac=frac,
+                    grouper=g)
+                scal = scal_dev.cpu().numpy()
+                if not scal[:, 4].any():
+                    break
             if not scal[:, 4].any():
                 break
 

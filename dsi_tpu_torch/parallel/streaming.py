@@ -8,7 +8,9 @@ boundaries; every batch runs ``parallel/shuffle.py mapreduce_step``
 (kernels A-E); per-step grouped counts merge into a host accumulator
 (``PackedCounts``) or, with ``device_accumulate``, fold into a table on
 the card (``device/table.py``) that the host pulls every ``sync_every``
-folds.
+folds; with ``mesh_shards`` that table is mesh-sharded (its fold routes
+every key to shard ``ihash % mesh_shards``).  Every step walks the
+device's grouper ladder (``ops/wordcount.py grouper_ladder``).
 
 The stream is a pipeline: ``depth`` steps stay in flight (default 2).
 A background batcher thread slices blocks into a bounded queue of
@@ -18,13 +20,14 @@ kernels run.  Each step's scalars go to the host as a ``non_blocking``
 copy into pinned memory with an event, and are read only when the step
 leaves the window; a step that overflowed its rung replays alone through
 the shared exactness ladder at a wider one, disturbing nothing merged
-before it, and the rung that cleared sticks for later steps.  A batch
-buffer goes back to the pool only once its step is confirmed and its
-upload has completed.  Nothing on the dispatch side waits on the card.
+before it, and the rung that cleared (capacity, word window, grouper and
+token buffer) sticks for later steps.  A batch buffer goes back to the
+pool only once its step is confirmed and its upload has completed.
+Nothing on the dispatch side waits on the card.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``aot``, checkpoints, ``wire_upload``, ``device_batches``,
-``input_range`` and ``mesh_shards``.
+item): ``aot``, checkpoints, ``wire_upload``, ``device_batches`` and
+``input_range``.
 """
 
 from __future__ import annotations
@@ -35,11 +38,12 @@ from typing import Dict, Iterable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dsi_tpu_torch.device.policy import SyncPolicy
+from dsi_tpu_torch.device.policy import SyncPolicy, mesh_shards_default
 from dsi_tpu_torch.device.table import DeviceTable
 from dsi_tpu_torch.ops.wordcount import (
     HostCopy,
     exactness_retry,
+    grouper_ladder,
     resolve_device,
     rung0_cap,
 )
@@ -204,12 +208,10 @@ class WordcountStep(EngineStep):
         if device_batches is not None or input_range is not None:
             raise _not_ported("device_batches/input_range",
                               "the plan and serving layers")
-        if mesh_shards:
-            raise _not_ported("mesh_shards", "the mesh-sharded fold")
         _wordcount_setup(self, blocks, n_dev, n_reduce, chunk_bytes,
                          max_word_len, u_cap, on_attempt, depth,
                          pipeline_stats, device_accumulate, sync_every,
-                         resolve_device(device))
+                         mesh_shards, resolve_device(device))
 
 
 def wordcount_streaming(
@@ -258,6 +260,12 @@ def wordcount_streaming(
     ``DSI_DEVICE_TABLE_CAP`` starts the table below the step's row count
     (the widen protocol recovers).
 
+    ``mesh_shards`` (default ``DSI_STREAM_MESH_SHARDS``, 0 = off; at most
+    ``n_dev``) mesh-shards the device table and implies
+    ``device_accumulate``; ``pipeline_stats`` then gains
+    ``mesh_shards``, ``shard_widens``, ``shard_imbalance`` and
+    ``pull_bytes``.  Results are the same either way.
+
     ``on_attempt(max_word_len, u_cap)`` is called before every step
     attempt.  The remaining parameters keep the reference's signature and
     raise ``NotImplementedError`` when set.
@@ -277,16 +285,23 @@ def wordcount_streaming(
 
 def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
                      max_word_len, u_cap, on_attempt, depth, pipeline_stats,
-                     device_accumulate, sync_every, dev: torch.device):
+                     device_accumulate, sync_every, mesh_shards,
+                     dev: torch.device):
     """The engine body behind :class:`WordcountStep`: setup ending with
     the pipeline armed and the lifecycle hooks attached to ``step``."""
     depth = pipeline_depth(depth)
     acc = PackedCounts()
+    groupers = grouper_ladder(dev)
     # Sticky dispatch rung: starts where the ladder would and only ever
     # moves toward more headroom (run_step_sync records the rung that
-    # cleared).  The port has the sort grouper only.
+    # cleared) — cap and word window widen, and grouper and frac follow
+    # the last cleared combination, so a stream that needs the sort
+    # grouper or the exact token buffer does not replay every step.
     state = {"cap": rung0_cap(chunk_bytes, u_cap), "mwl": max_word_len,
-             "frac": 4}
+             "grouper": groupers[0], "frac": 4}
+    mesh_shards = mesh_shards_default(mesh_shards)
+    if mesh_shards:
+        device_accumulate = True  # the mesh-sharded table is the state
     stats = {"depth": depth, "steps": 0, "replays": 0,
              "max_inflight_chunks": 0, "step_pulls": 0,
              "device_accumulate": device_accumulate, "batch_s": 0.0,
@@ -302,6 +317,7 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
     if device_accumulate:
         policy = SyncPolicy(sync_every)
         stats["sync_every"] = policy.sync_every
+        stats["mesh_shards"] = mesh_shards
     on_card = dev.type == "cuda"
 
     def fold_confirmed(packed_dev, scal_dev, scal_np) -> None:
@@ -319,7 +335,8 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
             table_svc = DeviceTable(
                 n_dev, kk=int(packed_dev.shape[2]) - 3,
                 cap=cap if cap > 0 else int(packed_dev.shape[1]),
-                acc=acc, device=dev, lag=max(0, depth - 1), stats=stats)
+                acc=acc, device=dev, lag=max(0, depth - 1), stats=stats,
+                mesh_shards=mesh_shards)
         table_svc.fold(packed_dev, scal_dev, scal_np)
         policy.note_fold()
         if policy.due():
@@ -352,9 +369,10 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
             uploaded.synchronize()  # the copy out of buf has completed
         pool.give(buf)
 
-    def step_call(chunks, mwl, cap, frac):
+    def step_call(chunks, mwl, cap, frac, g):
         return mapreduce_step(chunks, n_dev=n_dev, n_reduce=n_reduce,
-                              max_word_len=mwl, u_cap=cap, t_cap_frac=frac)
+                              max_word_len=mwl, u_cap=cap, t_cap_frac=frac,
+                              grouper=g)
 
     def pull_packed(keys, lens, cnts, parts, scal_np):
         """One packed host array per step (the single-pull shape,
@@ -378,14 +396,17 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
             state["mwl"] = mwl    # (sticky for later optimistic dispatches)
             if on_attempt is not None:
                 on_attempt(mwl, cap)
-            for frac in (4, 2):
-                chunks, uploaded = upload(chunks_np)
-                keys, lens, cnts, parts, scal = step_call(chunks, mwl, cap,
-                                                          frac)
-                scal_np = scal.cpu().numpy()
+            for g in groupers:
+                for frac in (4, 2):
+                    chunks, uploaded = upload(chunks_np)
+                    keys, lens, cnts, parts, scal = step_call(
+                        chunks, mwl, cap, frac, g)
+                    scal_np = scal.cpu().numpy()
+                    if not scal_np[:, 4].any():
+                        break
                 if not scal_np[:, 4].any():
                     break
-            state["frac"] = frac  # the cleared rung sticks
+            state["grouper"], state["frac"] = g, frac  # the rung sticks
 
             def payload():
                 if device_payload:
@@ -409,8 +430,8 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
         with timed(stats, "upload_s"):
             chunks, uploaded = upload(buf)
         with timed(stats, "dispatch_s"):
-            keys, lens, cnts, parts, scal = step_call(chunks, mwl, cap,
-                                                      state["frac"])
+            keys, lens, cnts, parts, scal = step_call(
+                chunks, mwl, cap, state["frac"], state["grouper"])
             if device_accumulate:
                 # Only scal + the packed tensor stay referenced: an
                 # in-flight step holds one packed copy, not four tables.

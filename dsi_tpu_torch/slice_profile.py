@@ -7,7 +7,9 @@ lines:
 
 * ``corpus_profile``: one warm ``corpus_wordcount`` call under
   ``torch.profiler``: wall seconds, the sum of device kernel time, and
-  the busiest device kernels by total time;
+  the busiest device kernels by total time; ``corpus_hash_profile`` and
+  ``corpus_pack6_profile`` the same with the hash grouper and with the
+  6-bit transport;
 * ``sort_profile``: the same for one ``radix_sort`` of the corpus keys,
   split by sub-kernel (histogram, scans, scatter, gathers);
 * with ``--baseline-csrc``: kernel B built from that directory (for
@@ -15,10 +17,12 @@ lines:
   ``git archive``) timed in turns with this tree's (baseline, change,
   change, baseline), both checked against the plain version;
 * with ``--stream``: ``stream_profile``, the bench's stream row (the
-  corpus cycled to 64 MB, 2 MiB chunks, u_cap 2^15, one shard, depth 2)
-  with the device table off and on, each run once warm and once under
-  ``torch.profiler``: wall seconds, device seconds (kernels and copies),
-  the device's idle share (1 - device / wall) and the busiest kernels.
+  corpus cycled to 64 MB, 2 MiB chunks, u_cap 2^15, depth 2) with the
+  device table off and on at one shard, with the table on and the hash
+  grouper, and at 8 virtual shards with the table mesh-sharded 8 ways,
+  each run once warm and once under ``torch.profiler``: wall seconds,
+  device seconds (kernels and copies), the device's idle share (1 -
+  device / wall) and the busiest kernels.
 
 Needs one CUDA card; the card's name and power limit head the output.
 """
@@ -26,6 +30,7 @@ Needs one CUDA card; the card's name and power limit head the output.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -85,21 +90,42 @@ def _stream_profile(files, total_bytes: int) -> dict:
 
     cycles = max(1, round(64e6 / total_bytes))
     out = {"cycles": cycles}
-    for tag, acc in (("stream", False), ("stream_acc", True)):
+    for tag, acc, grouper, n_dev, mesh in (
+            ("stream", False, None, 1, 0), ("stream_acc", True, None, 1, 0),
+            ("stream_hash", True, "hash", 1, 0),
+            ("stream_mesh", True, None, 8, 8)):
         stats: dict = {}
 
         def run():
             stats.clear()
-            wordcount_streaming(cycle_files(files, cycles), n_dev=1,
+            wordcount_streaming(cycle_files(files, cycles), n_dev=n_dev,
                                 n_reduce=10, chunk_bytes=1 << 21,
                                 u_cap=1 << 15, device_accumulate=acc,
-                                pipeline_stats=stats, device="cuda")
+                                mesh_shards=mesh, pipeline_stats=stats,
+                                device="cuda")
 
-        prof = _profile(run)
+        with pinned_grouper(grouper):
+            prof = _profile(run)
         prof["idle_share"] = 1.0 - prof["device_s"] / prof["wall_s"]
         prof["steps"] = stats["steps"]
         out[tag] = prof
     return out
+
+
+@contextlib.contextmanager
+def pinned_grouper(grouper):
+    """``DSI_WC_GROUPER`` pinned to ``grouper`` (None: unset, the
+    device's default) for the duration; the previous value comes back
+    after."""
+    old = os.environ.pop("DSI_WC_GROUPER", None)
+    if grouper is not None:
+        os.environ["DSI_WC_GROUPER"] = grouper
+    try:
+        yield
+    finally:
+        os.environ.pop("DSI_WC_GROUPER", None)
+        if old is not None:
+            os.environ["DSI_WC_GROUPER"] = old
 
 
 def _sort_with(lib, keys: torch.Tensor):
@@ -140,8 +166,12 @@ def main() -> int:
                 files, sum(len(r) for r in raws) + len(raws) - 1)}),
                 flush=True)
     buf, _, _ = _resolve_pieces(raws, None)
-    print(json.dumps({"corpus_profile": _profile(
-        lambda: corpus_wordcount(raws, device="cuda"))}), flush=True)
+    for tag, kw in (("corpus_profile", {}),
+                    ("corpus_hash_profile", {"grouper": "hash"}),
+                    ("corpus_pack6_profile", {"pack6": True})):
+        print(json.dumps({tag: _profile(
+            lambda: corpus_wordcount(raws, device="cuda", **kw))}),
+            flush=True)
 
     chunk = torch.from_numpy(buf).cuda()
     keys = w.tokenize(chunk, max_word_len=16, t_cap=len(buf) // 4 + 1)[0]

@@ -131,13 +131,6 @@ def test_empty_corpus():
     assert res is not None and len(res.cnt) == 0
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tc.corpus_wordcount([b"a b"], pack6=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tc.corpus_wordcount([b"a b"], grouper="hash", device="cpu")
-
-
 def test_corpus_entry_point_needs_cuda_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

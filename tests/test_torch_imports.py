@@ -61,7 +61,8 @@ def test_every_module_is_listed():
             "dsi_tpu_torch.parallel.streaming",
             "dsi_tpu_torch.device.policy", "dsi_tpu_torch.device.table",
             "dsi_tpu_torch.utils.ioread", "dsi_tpu_torch.serve.pack",
-            "dsi_tpu_torch.cli.wcstream", "chip_smoke"} <= set(MODULES)
+            "dsi_tpu_torch.cli.wcstream", "dsi_tpu_torch.ops.meshroute",
+            "dsi_tpu_torch.ops.xfer", "chip_smoke"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("name", MODULES)

@@ -57,12 +57,6 @@ def _blocks(seed: int = 23, n: int = 40):
     return out
 
 
-@pytest.fixture
-def sort_grouper(monkeypatch):
-    """The reference walks the sort grouper only, as on an accelerator."""
-    monkeypatch.setenv("DSI_WC_GROUPER", "sort")
-
-
 _COUNTERS = ("steps", "replays", "step_pulls", "folds", "fold_overflows",
              "sync_pulls", "widens")
 
@@ -72,9 +66,13 @@ GRID = [(8, depth, dacc, cap) for depth in (1, 2)
 GRID += [(1, 2, False, None), (1, 2, True, "32")]
 
 
+@pytest.mark.parametrize("grouper", ("sort", "hash"))
 @pytest.mark.parametrize("n_dev,depth,dacc,table_cap", GRID)
 def test_wordcount_streaming_matches_reference(n_dev, depth, dacc, table_cap,
-                                               sort_grouper, monkeypatch):
+                                               grouper, monkeypatch):
+    """Both packages pinned to one grouper: the hash grouper is the CPU
+    default of both, the sort grouper the card's."""
+    monkeypatch.setenv("DSI_WC_GROUPER", grouper)
     if table_cap:
         monkeypatch.setenv("DSI_DEVICE_TABLE_CAP", table_cap)
     blocks = _blocks(n=40 if n_dev == 8 else 12)
@@ -101,7 +99,7 @@ def test_wordcount_streaming_matches_reference(n_dev, depth, dacc, table_cap,
     assert gst["batch_allocs"] <= 2 * depth + 3
 
 
-def test_streaming_word_window_rung_matches_reference(sort_grouper):
+def test_streaming_word_window_rung_matches_reference():
     """A 20-letter word mid-stream moves the sticky rung to the 64-byte
     window; with accumulation the table re-keys."""
     blocks = [b"alpha beta gamma " * 40,
@@ -120,7 +118,7 @@ def test_streaming_word_window_rung_matches_reference(sort_grouper):
                 == {k: wst.get(k) for k in _COUNTERS})
 
 
-def test_wordcount_step_lifecycle_matches_reference(sort_grouper):
+def test_wordcount_step_lifecycle_matches_reference():
     """The step object driven a few turns at a time: confirmed counts
     after each confirm() and the closed result equal the reference's."""
     blocks = _blocks(n=24)
@@ -148,7 +146,7 @@ def test_wordcount_step_lifecycle_matches_reference(sort_grouper):
     [b"plain words ", "café".encode("utf-8"), b" more words"],
     [b"ok words here ", b"x" * 5000, b" tail"],
 ], ids=["non_ascii", "giant_token"])
-def test_streaming_host_path_is_none(blocks, sort_grouper):
+def test_streaming_host_path_is_none(blocks):
     kw = dict(chunk_bytes=1 << 10, u_cap=1 << 8)
     assert jst.wordcount_streaming(list(blocks), mesh=_mesh(8), **kw) is None
     assert tst.wordcount_streaming(list(blocks), n_dev=8, device="cpu",
@@ -157,7 +155,7 @@ def test_streaming_host_path_is_none(blocks, sort_grouper):
 
 @pytest.mark.parametrize("kw", [
     {"aot": True}, {"checkpoint_dir": "ck"}, {"resume": True},
-    {"wire_upload": True}, {"input_range": (0, 10)}, {"mesh_shards": 2},
+    {"wire_upload": True}, {"input_range": (0, 10)},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -192,12 +192,6 @@ def test_device_table_rekeys_on_a_wider_word_window():
     assert gst["widens"] == 1
 
 
-def test_device_table_refuses_mesh_shards():
-    with pytest.raises(NotImplementedError):
-        tt.DeviceTable(8, kk=4, cap=64, acc=tm.PackedCounts(), device="cpu",
-                       mesh_shards=8)
-
-
 def test_sync_policy_matches_reference(monkeypatch):
     for k in (1, 3):
         mine, ref = SyncPolicy(k), JSyncPolicy(k)

@@ -195,12 +195,6 @@ def test_wrappers_refuse_other_devices():
         tw.tokenize(chunk, max_word_len=16, t_cap=65)
 
 
-def test_hash_grouper_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tw.tokenize_group_core(torch.zeros(256, dtype=torch.uint8),
-                               grouper="hash")
-
-
 def test_count_words_host_result_matches_oracle():
     text = _random_text(12, 3000) + b" a b c" * 400
     want = collections.Counter(tokenize(text.decode()))
@@ -213,4 +207,5 @@ def test_cpu_runs_launch_no_kernel():
     tw.count_words_host_result(_random_text(5, 300) + b" " + b"q" * 30,
                                device="cpu")
     assert tw.LAUNCHES == {"tokenize": 0, "radix_sort": 0, "group": 0,
-                           "fnv": 0, "route": 0}
+                           "fnv": 0, "route": 0, "hash_group": 0,
+                           "pack6": 0}
