@@ -47,7 +47,21 @@ Phases (any failure exits non-zero before the last line is printed):
    without ``mesh_shards``, once at the table's own capacity and once
    under a ``DSI_DEVICE_TABLE_CAP`` that forces per-shard widens; the
    corpus and the stream (table on) with the sort and the hash grouper in
-   turns, to show the gap beside its spread.
+   turns, to show the gap beside its spread;
+8. grep: kernels H (literal and class, ``csrc/grep.cu``), I (the NFA,
+   ``csrc/nfa.cu``, in each state bucket) and J (the grep step,
+   ``csrc/grep_step.cu``, at 1 and 8 virtual shards) against their plain
+   versions at the main path's shapes, and B at the top-k snapshot's;
+   ``cuda_map`` on ``pg-00.txt`` (n = 2^21) for ``the``, ``[Tt]he``,
+   ``^a``, ``s$``, ``the|and`` and ``th[a-z]*e`` (tier 4 pinned to the
+   kernel) against the host ``Map``, and a short-line input that
+   overflows rung 0 and clears at n+1; the bench's grep row (the corpus
+   once, 16,776,704 bytes, pattern ``the``, 2 MiB chunks, one shard)
+   through ``grep_streaming`` with ``device_accumulate`` off and on
+   against ``grep_host_oracle`` (MB/s beside the oracle's), at 8 virtual
+   shards with the services mesh-sharded 8 ways against the same stream
+   unsharded, and through the ``grepstream`` CLI with ``--check``; and
+   the tier-4 calibration (host ``re`` against kernel I) in each bucket.
 Launch counts are zeroed just before each path and read just after; each
 path fails if a kernel of its own set never launched.
 
@@ -59,6 +73,7 @@ Imports nothing of JAX or of the ``dsi_tpu`` package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import json
 import os
@@ -90,6 +105,11 @@ KERNELS = {
     "hash_group": ("dsi_tpu_torch/csrc/hash_group.cu",
                    "dsi_tpu/ops/wordcount.py:199"),
     "pack6": ("dsi_tpu_torch/csrc/pack6.cu", "dsi_tpu/ops/corpus_wc.py:90"),
+    # H also replaces K14, dsi_tpu/ops/regexk.py:198 (its class shape).
+    "grep": ("dsi_tpu_torch/csrc/grep.cu", "dsi_tpu/ops/grepk.py:116"),
+    "nfa": ("dsi_tpu_torch/csrc/nfa.cu", "dsi_tpu/ops/nfak.py:303"),
+    "grep_step": ("dsi_tpu_torch/csrc/grep_step.cu",
+                  "dsi_tpu/parallel/grepstream.py:243"),
 }
 # The kernels each path must launch.
 WC = ("tokenize", "radix_sort", "group", "fnv", "route")  # A-E
@@ -106,11 +126,29 @@ PATH_KERNELS = {
     "sharded_hash": HASH + ("route",),
     "stream_hash": WC + ("hash_group",),
     "stream_mesh_base": WC, "stream_mesh": WC, "stream_mesh_widen": WC,
+    "grep_tiers": ("grep", "nfa"),
+    "grep_stream": ("grep_step",),
+    # The candidate folds run B and C; the snapshot sync runs B.
+    "grep_stream_acc": ("grep_step", "radix_sort", "group"),
+    "grep_stream_mesh_base": ("grep_step", "radix_sort", "group"),
+    # The mesh fold routes with D and exchanges with E.
+    "grep_stream_mesh": ("grep_step", "radix_sort", "group", "fnv",
+                         "route"),
+    "grep_cli": ("grep_step", "radix_sort", "group"),
 }
 MESH_SHARDS = 8
 # A table capacity far below a mesh shard's share of the corpus's
 # 131,215 words: every shard widens at least once.
 MESH_WIDEN_CAP = 4096
+# Grep: the per-split tiers on one bench file (tier 4 pinned to the
+# kernel), the bench's grep row (bench.py:1037-1101) and the tier-4
+# calibration's state buckets.
+GREP_PATTERNS = ("the", "[Tt]he", "^a", "s$", "the|and", "th[a-z]*e")
+GREP_MB, GREP_PATTERN, GREP_CHUNK = 16.0, "the", 1 << 21
+NFA_PATTERNS = {16: "th[a-z]*e", 32: "a{5,20}b", 48: "a{20,40}b"}
+# H100 SXM float32 outside the tensor cores, NVIDIA data sheet: the peak
+# rate taken for the 32-bit integer work of kernel I's bit sets.
+SCALAR_OPS_PER_S = 67e12
 
 
 def log(obj) -> None:
@@ -903,6 +941,13 @@ def stream_cli_path(files, cycles: int, want: dict, workdir: str):
             stats, launches, None)
 
 
+GREP_PHASES = ("batch_s", "batch_wait_s", "upload_s", "dispatch_s",
+               "kernel_s", "pull_s", "merge_s", "replay_s", "fold_s",
+               "sync_s", "widen_s", "hist_s", "steps", "replays", "l_cap",
+               "step_pulls", "sync_pulls", "folds", "fold_overflows",
+               "widens", "table_cap", "topk_snapshots", "hist_folds",
+               "hist_pulls", "pull_bytes", "mesh_shards", "shard_widens",
+               "shard_imbalance", "max_inflight_chunks", "batch_allocs")
 STREAM_PHASES = ("batch_s", "batch_wait_s", "upload_s", "dispatch_s",
                  "kernel_s", "pull_s", "merge_s", "replay_s", "fold_s",
                  "sync_s", "widen_s", "finalize_s",
@@ -911,6 +956,219 @@ STREAM_PHASES = ("batch_s", "batch_wait_s", "upload_s", "dispatch_s",
                  "max_inflight_chunks", "batch_allocs", "mesh_shards",
                  "shard_widens", "shard_imbalance", "pull_bytes")
 
+
+
+# ── phase 8: grep ────────────────────────────────────────────────────────
+
+
+def grep_tiers_path(raw0: bytes):
+    """``cuda_map`` (the four tiers, tier 4 pinned to the kernel) on one
+    bench file for every pattern of ``GREP_PATTERNS``, then on a short-line
+    input that overflows rung 0, each against the host ``Map``.  Returns
+    ({pattern: entry}, launches, failures)."""
+    from dsi_tpu_torch.apps.cuda_grep import cuda_map
+    from dsi_tpu_torch.apps.grep import Map
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.slice_profile import env_set
+
+    short = b"a\nthe\nb\n" * (1 << 16)  # 2.7-byte lines: rung 0 overflows
+    cases = [(p, raw0) for p in GREP_PATTERNS] + [("the", short)]
+    out, failures = {}, []
+    w.reset_launches()
+    with env_set(DSI_NFA_DISPATCH="device"):
+        for i, (pattern, data) in enumerate(cases):
+            tag = pattern if i < len(GREP_PATTERNS) else "short_lines the"
+            before = dict(w.LAUNCHES)
+            with env_set(DSI_GREP_PATTERN=pattern):
+                t0 = time.perf_counter()
+                got = cuda_map("pg-00.txt", data, device=DEVICE)
+                sync()
+                secs = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                want = Map("pg-00.txt", data.decode())
+                host_s = time.perf_counter() - t0
+            out[tag] = {"matched_lines": len(want), "parity": got == want,
+                        "seconds": secs, "host_map_s": host_s,
+                        "launches": {k: w.LAUNCHES[k] - before[k]
+                                     for k in ("grep", "nfa")}}
+            if got != want:
+                failures.append(f"grep_tiers: cuda_map {tag!r} differs "
+                                "from the host Map")
+    launches = dict(w.LAUNCHES)
+    if out["short_lines the"]["launches"]["grep"] != 2:
+        failures.append("grep_tiers: the short-line input did not overflow "
+                        "rung 0 and clear at n+1")
+    return out, launches, failures
+
+
+def grep_stream_path(files, cycles: int, want, *, device_accumulate: bool,
+                     n_dev: int = 1, mesh_shards: int = 0):
+    """The bench's grep row through ``grep_streaming``, the call alone
+    timed; (result, seconds, stats, launches, parity)."""
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.parallel.grepstream import grep_streaming
+    from dsi_tpu_torch.parallel.streaming import cycle_files
+
+    stats: dict = {}
+    w.reset_launches()
+    t0 = time.perf_counter()
+    res = grep_streaming(cycle_files(files, cycles), GREP_PATTERN,
+                         n_dev=n_dev, chunk_bytes=GREP_CHUNK,
+                         device_accumulate=device_accumulate,
+                         mesh_shards=mesh_shards, pipeline_stats=stats,
+                         device=DEVICE)
+    sync()
+    seconds = time.perf_counter() - t0
+    return res, seconds, stats, dict(w.LAUNCHES), res == want
+
+
+def grep_cli_path(files, cycles: int):
+    """``python -m dsi_tpu_torch.cli.grepstream --check`` in-process over
+    the same input, table on; (seconds, stats, launches)."""
+    import ast
+    import io
+
+    from dsi_tpu_torch.cli import grepstream
+    from dsi_tpu_torch.ops import wordcount as w
+
+    out, err = io.StringIO(), io.StringIO()
+    w.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = grepstream.main(
+            ["--pattern", GREP_PATTERN, "--chunk-bytes", str(GREP_CHUNK),
+             "--device-accumulate", "--check", "--stats", "--device",
+             DEVICE] + list(files) * cycles)
+    sync()
+    seconds = time.perf_counter() - t0
+    text = err.getvalue()
+    if rc != 0 or "parity OK" not in text:
+        raise RuntimeError(f"grepstream rc={rc}: {text[-2000:]}")
+    stats = ast.literal_eval(
+        text.split("pipeline_stats=", 1)[1].splitlines()[0])
+    return seconds, stats, dict(w.LAUNCHES), out.getvalue()
+
+
+def nfa_calibration():
+    """``calibrate_tier4`` in every state bucket on the card: host ``re``
+    MB/s against kernel I's (the evidence the tier-4 gate waits for)."""
+    from dsi_tpu_torch.ops.nfak import calibrate_tier4
+
+    return {s: calibrate_tier4(s, device=DEVICE) for s in (16, 32, 48)}
+
+
+def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
+    """H, I, J and B at the grep paths' shapes, each held against its
+    plain version on the same device tensors and timed beside it.
+    Returns ({kernel: entry with at_shapes}, {kernel: max_abs_err})."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.ops import grepk, nfak, regexk
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.parallel.grepstream import (grep_step,
+                                                   grep_step_plain)
+
+    buf = w._pad_pow2(raw0)
+    n = len(buf)
+    l_cap = grepk.line_cap_rungs(n)[0]
+    chunk = torch.from_numpy(buf).to(DEVICE)
+
+    def entry(fn, plain, nbytes, shape, reps=20, ops=None):
+        err = _worst(zip(fn(), plain()))
+        e = {"max_abs_err": err, "ms": cuda_ms(fn, reps),
+             "plain_ms": cuda_ms(plain, 3), "library_ms": None,
+             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes", "shape": shape}
+        if ops is not None:
+            e["ops"] = ops
+            ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+            if ops_ms > e["bound_ms"]:
+                e["bound_ms"], e["bound_by"] = ops_ms, "operations"
+        return e
+
+    flags_bytes = n + 4 * l_cap + 8
+    rows = {"grep": entry(
+        lambda: grepk.grep_kernel(chunk, b"the", l_cap=l_cap),
+        lambda: grepk.grep_kernel_plain(chunk, b"the", l_cap=l_cap),
+        flags_bytes, f"literal 'the': n={n} l_cap={l_cap}")}
+    ranges, a_s, a_e = regexk.parse_class_pattern("[Tt]he")
+    kw = dict(ranges=ranges, anchor_start=a_s, anchor_end=a_e, l_cap=l_cap)
+    rows["grep"]["at_shapes"] = {"class": entry(
+        lambda: regexk.classgrep_kernel(chunk, **kw),
+        lambda: regexk.classgrep_kernel_plain(chunk, **kw), flags_bytes,
+        f"class '[Tt]he' (K14): n={n} l_cap={l_cap}")}
+
+    nfa = {}
+    for s, pat in NFA_PATTERNS.items():
+        table, v0 = nfak._build_table(*nfak.parse_nfa_pattern(pat))
+        t = torch.from_numpy(table).to(DEVICE)
+        v = torch.from_numpy(v0).to(DEVICE)
+        # Bit-set work: at least one row lookup and one 64-bit OR (two
+        # 32-bit operations) a state row a byte in phase 1, one a byte in
+        # phase 3.
+        nfa[s] = entry(
+            lambda: nfak.nfa_kernel(chunk, t, v, l_cap=l_cap),
+            lambda: nfak.nfa_kernel_plain(chunk, t, v, l_cap=l_cap),
+            flags_bytes + 256 * s * 8 + 8,
+            f"S={s} {pat!r}: n={n} l_cap={l_cap}", ops=2 * n * (s + 1))
+    rows["nfa"] = nfa[16]
+    rows["nfa"]["at_shapes"] = {f"S={s}": nfa[s] for s in (32, 48)}
+
+    steps = {}
+    for n_dev in (1, 8):
+        b = np.zeros((n_dev, GREP_CHUNK), np.uint8)
+        lens = np.zeros(n_dev, np.int32)
+        rest = stream_raw
+        for r in range(n_dev):
+            cut = rest.rfind(b"\n", 0, GREP_CHUNK) + 1
+            b[r, :cut] = np.frombuffer(rest[:cut], np.uint8)
+            lens[r] = cut
+            rest = rest[cut:]
+        ch = torch.from_numpy(b).to(DEVICE)
+        pats = torch.from_numpy(np.tile(np.frombuffer(
+            GREP_PATTERN.encode(), np.uint8), (n_dev, 1))).to(DEVICE)
+        dl = torch.from_numpy(lens).to(DEVICE)
+        bases = torch.zeros(n_dev, dtype=torch.int64, device=DEVICE)
+        lc = GREP_CHUNK // 8
+        kw = dict(l_cap=lc, bins=8, k=16)
+        steps[n_dev] = entry(
+            lambda: grep_step(ch, pats, dl, bases, **kw),
+            lambda: grep_step_plain(ch, pats, dl, bases, **kw),
+            n_dev * (GREP_CHUNK + 3 + 4 + 8 + 4 * (11 + 80 + 5)),
+            f"n_dev={n_dev} N={GREP_CHUNK} l_cap={lc} k=16")
+    rows["grep_step"] = steps[1]
+    rows["grep_step"]["at_shapes"] = {"n_dev=8": steps[8]}
+
+    # B as the top-k snapshot runs it: the candidate table at its rung-0
+    # capacity (16,384 rows) holding one stream's 128 candidate rows.
+    rng = np.random.default_rng(SEED)
+    cap, occ = 1 << 14, 128
+    counts = np.zeros(cap, np.int64)
+    counts[:occ] = rng.integers(1, 9, occ)
+    keys = np.full((cap, 2), -1, np.int32)
+    keys[:occ, 1] = rng.permutation(200_000)[:occ]
+    keys[:occ, 0] = 0
+    lanes = torch.from_numpy(keys).to(DEVICE)
+    words = torch.stack([
+        ~torch.from_numpy(counts).to(DEVICE),
+        *w.pack_key_lanes((lanes[:, 0], lanes[:, 1])),
+        torch.from_numpy(np.where(counts > 0, 8, 0)).to(DEVICE)])
+    word0 = words[0].clone()
+    topk = entry(lambda: w.radix_sort(words),
+                 lambda: w.radix_sort_plain(words),
+                 2 * 8 * 3 * cap + 4 * cap,
+                 f"topk: t={cap} k64=3 occupied={occ}")
+    topk["library_ms"] = cuda_ms(lambda: torch.sort(word0, stable=True), 20)
+    errs = {name: _merge_err(rows[name]["max_abs_err"], _worst_err(rows[name]))
+            for name in rows}
+    return rows, topk, errs
+
+
+def _worst_err(row) -> int:
+    err = 0
+    for v in row.get("at_shapes", {}).values():
+        err = _merge_err(err, v["max_abs_err"])
+    return err
 
 
 def main() -> int:
@@ -1174,6 +1432,78 @@ def main() -> int:
                 "shard_widens", [])) < 1:
             failures.append("stream_mesh_widen: no shard widened")
 
+        # Phase 8: grep.
+        from dsi_tpu_torch.parallel.grepstream import grep_host_oracle
+        from dsi_tpu_torch.parallel.streaming import cycle_files
+
+        grep_tiers, launch_grep_tiers, fails = grep_tiers_path(raws[0])
+        failures += fails
+        log({"grep_tiers": grep_tiers, "gpu": gpu})
+        corpus_bytes = sum(len(r) for r in raws)
+        grep_cycles = max(1, round(GREP_MB * 1e6 / corpus_bytes))
+        grep_bytes = corpus_bytes * grep_cycles
+        t0 = time.perf_counter()
+        grep_want = grep_host_oracle(cycle_files(files, grep_cycles),
+                                     GREP_PATTERN)
+        grep_oracle_s = time.perf_counter() - t0
+        grep_stream_path(files, grep_cycles, grep_want,
+                         device_accumulate=True)  # warm: first use
+        grep = {}
+
+        def grep_run(tag, **kw):
+            res, secs, st, launches, parity = grep_stream_path(
+                files, grep_cycles, grep_want, **kw)
+            grep[tag] = {"parity": parity, "seconds": secs,
+                         "mb_per_s": grep_bytes / secs / 1e6,
+                         "launches": launches,
+                         "pipeline_stats": {k: st[k] for k in GREP_PHASES
+                                            if k in st}}
+            log({tag: {**grep[tag], "gpu": gpu, "input_bytes": grep_bytes,
+                       "oracle_mb_per_s": grep_bytes / grep_oracle_s / 1e6,
+                       "matched": grep_want.matched,
+                       "occurrences": grep_want.occurrences}})
+            if not parity:
+                failures.append(f"{tag}: the result differs from "
+                                "grep_host_oracle")
+            if kw.get("device_accumulate") and (
+                    st.get("folds", 0) < 1 or st["step_pulls"] != 0):
+                failures.append(f"{tag}: the device services did not fold")
+            return res
+
+        grep_run("grep_stream", device_accumulate=False)
+        grep_run("grep_stream_acc", device_accumulate=True)
+        base = grep_run("grep_stream_mesh_base", device_accumulate=True,
+                        n_dev=MESH_SHARDS)
+        if grep_run("grep_stream_mesh", device_accumulate=True,
+                    n_dev=MESH_SHARDS, mesh_shards=MESH_SHARDS) != base:
+            failures.append("grep_stream_mesh: differs from the same stream "
+                            "without mesh_shards")
+        if grep["grep_stream_mesh"]["pipeline_stats"].get(
+                "mesh_shards") != MESH_SHARDS:
+            failures.append("grep_stream_mesh: the services were not "
+                            "mesh-sharded")
+        secs, st, launches, cli_out = grep_cli_path(files, grep_cycles)
+        grep["grep_cli"] = {"parity": True, "seconds": secs,
+                            "mb_per_s": grep_bytes / secs / 1e6,
+                            "launches": launches,
+                            "pipeline_stats": {k: st[k] for k in GREP_PHASES
+                                               if k in st}}
+        log({"grep_cli": {**grep["grep_cli"], "gpu": gpu,
+                          "stdout": cli_out.splitlines()[:3]}})
+        calibration = nfa_calibration()
+        log({"nfa_calibration": calibration, "gpu": gpu})
+        grep_rows, topk_row, grep_err = grep_kernel_rows(raws[0], data)
+        times.update(grep_rows)
+        err.update(grep_err)
+        err["radix_sort"] = _merge_err(err["radix_sort"],
+                                       topk_row["max_abs_err"])
+        for name in ("grep", "nfa", "grep_step"):
+            if err[name] != 0:
+                failures.append(f"{name} differs from its plain version")
+        if topk_row["max_abs_err"] != 0:
+            failures.append("radix_sort differs from its plain version at "
+                            "the topk shape")
+
     total_s = sum(phases.values())
     log({"slice": {
         "gpu": gpu, "input_bytes": nbytes, "mb_per_s": nbytes / total_s / 1e6,
@@ -1192,7 +1522,9 @@ def main() -> int:
                             **{k: v["mb_per_s"]
                                for k, v in corpus_runs.items()}},
         "corpus_runs": corpus_runs,
-        "stream_mb_per_s": {k: v["mb_per_s"] for k, v in stream.items()}}})
+        "stream_mb_per_s": {k: v["mb_per_s"] for k, v in stream.items()},
+        "grep_mb_per_s": {k: v["mb_per_s"] for k, v in grep.items()},
+        "grep_oracle_mb_per_s": grep_bytes / grep_oracle_s / 1e6}})
 
     by_path = {"corpus": launch_main, "corpus_mwl64": launch64,
                "split": launch_split, "sharded": sharded[1]["launches"],
@@ -1200,7 +1532,9 @@ def main() -> int:
                **{k: v["launches"] for k, v in stream.items()},
                **{k: v["launches"] for k, v in corpus_runs.items()},
                "split_hash": launch_split_hash,
-               "sharded_hash": launch_sharded_hash}
+               "sharded_hash": launch_sharded_hash,
+               "grep_tiers": launch_grep_tiers,
+               **{k: v["launches"] for k, v in grep.items()}}
     for path, names in PATH_KERNELS.items():
         failures += [f"{name} never launched on the {path} path"
                      for name in names if by_path[path][name] < 1]
@@ -1212,13 +1546,18 @@ def main() -> int:
                "launches": sum(p[name] for p in by_path.values()),
                "max_abs_err": err[name], "match": err[name] == 0,
                "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-               "bound_ms": tm["bound_ms"], "bound_by": "bytes",
+               "bound_ms": tm["bound_ms"],
+               "bound_by": tm.get("bound_by", "bytes"),
                "library_ms": tm["library_ms"], "shape": tm["shape"],
                "launches_by_path": {k: p[name] for k, p in by_path.items()}}
         if "radix_bound_ms" in tm:
             row["radix_bound_ms"] = tm["radix_bound_ms"]
         if name in ("radix_sort", "group"):
             row["at_shapes"] = {k: v[name] for k, v in shapes.items()}
+        if name == "radix_sort":
+            row["at_shapes"]["topk"] = topk_row
+        if name in grep_rows:
+            row["at_shapes"] = tm["at_shapes"]
         if name in ("fnv", "route"):
             row["at_shapes"] = {"mesh_fold": mesh_shapes[name]}
         if name == "hash_group":

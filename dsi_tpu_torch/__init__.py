@@ -17,8 +17,12 @@ Rules the package keeps:
 
 Package layout (each module keeps its ``dsi_tpu`` counterpart's name):
   mr/       KeyValue and the sequential oracle
-  apps/     the word-count app (host tokenizer, Map, Reduce)
-  ops/      word count per split and over the whole corpus
+  apps/     the word-count and grep apps (host Map, Reduce) and
+            ``cuda_grep.cuda_map``, grep's device tier walk
+  ops/      word count per split and over the whole corpus; grep's tiers
+  parallel/ the streaming word count and the streaming grep
+  device/   the device-resident table, top-k and histogram services
+  cli/      ``wcstream`` and ``grepstream``
   kernels/  the CUDA build and the ctypes binding
   csrc/     the kernels' sources
   utils/    corpus generation, atomic file commit

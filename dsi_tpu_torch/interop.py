@@ -33,3 +33,25 @@ def to_numpy(t: torch.Tensor, dtype=None) -> np.ndarray:
     if dtype is not None:
         a = a.view(dtype)
     return a
+
+
+def nfa_table_to_bits(table, v0):
+    """The JAX package's NFA table (``ops/nfak.py _build_table``: [256, S,
+    S] float32 and [S] float32, numpy) in kernel I's bit-set form: (bits
+    [256, S] uint64, v0bits uint64)."""
+    from dsi_tpu_torch.ops.nfak import nfa_table_bits
+
+    bits, v0bits = nfa_table_bits(torch.from_numpy(np.asarray(table)),
+                                  torch.from_numpy(np.asarray(v0)))
+    return to_numpy(bits, np.uint64), to_numpy(v0bits, np.uint64)[0]
+
+
+def nfa_table_from_bits(bits, v0bits):
+    """Inverse of :func:`nfa_table_to_bits`: the [256, S, S] and [S]
+    float32 0/1 arrays back from the bit sets."""
+    bits = np.asarray(bits, dtype=np.uint64)
+    s = bits.shape[1]
+    shifts = np.arange(s, dtype=np.uint64)
+    table = ((bits[:, :, None] >> shifts) & np.uint64(1)).astype(np.float32)
+    v0 = ((np.uint64(v0bits) >> shifts) & np.uint64(1)).astype(np.float32)
+    return table, v0

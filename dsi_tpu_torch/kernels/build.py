@@ -46,6 +46,15 @@ SIGNATURES = {
     "dsi_hash_assemble": (_INT, [_INT, _I64, _I64, _I64, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P, _P, _P, _P]),
     "dsi_pack6": (_INT, [_P, _I64, _P, _P, _P]),
+    "dsi_grep_scratch_bytes": (_I64, [_I64]),
+    "dsi_grep": (_INT, [_P, _I64, _P, _P, _P, _P, _INT, _INT, _INT, _I64, _P,
+                        _P, _P, _P]),
+    "dsi_line_flags": (_INT, [_P, _I64, _P, _I64, _P, _P, _P, _P]),
+    "dsi_nfa_scratch_bytes": (_I64, [_I64, _INT]),
+    "dsi_nfa": (_INT, [_P, _I64, _P, _INT, _P, _I64, _P, _P, _P, _P]),
+    "dsi_grep_step_scratch_bytes": (_I64, [_INT, _I64, _I64, _INT]),
+    "dsi_grep_step": (_INT, [_P, _INT, _I64, _P, _INT, _P, _P, _I64, _INT,
+                             _INT, _P, _P, _P, _P, _P]),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -28,6 +28,13 @@ of the mesh-sharded fold (``ops/meshroute.py``):
 
 * ``shuffle_rows``   — ``csrc/route.cu``      (K8, K11)
 
+The grep kernels launch from their own modules through the same
+``_launch`` (one count each in ``LAUNCHES``): ``grep_kernel`` and
+``classgrep_kernel`` (``ops/grepk.py``, ``ops/regexk.py``) —
+``csrc/grep.cu`` (K13, K14); ``nfa_kernel`` (``ops/nfak.py``) —
+``csrc/nfa.cu`` (K15); ``grep_step`` (``parallel/grepstream.py``) —
+``csrc/grep_step.cu`` (K16).
+
 A wrapper given a CUDA tensor launches its kernel (adding one to its
 count in ``LAUNCHES``) or raises; given a CPU tensor it runs the plain
 version.  There is no other path.
@@ -59,7 +66,8 @@ _BYTE_MASKS = (0, 0xFF000000, 0xFFFF0000, 0xFFFFFF00, 0xFFFFFFFF)
 # Launches of each kernel in this process; a plain-version call adds none.
 LAUNCHES: Dict[str, int] = {"tokenize": 0, "radix_sort": 0, "group": 0,
                             "fnv": 0, "route": 0, "hash_group": 0,
-                            "pack6": 0}
+                            "pack6": 0, "grep": 0, "nfa": 0,
+                            "grep_step": 0}
 
 
 def reset_launches() -> None:

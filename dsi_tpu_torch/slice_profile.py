@@ -1,6 +1,7 @@
 """Where the time of the port's word-count slice goes, on the card.
 
     python -m dsi_tpu_torch.slice_profile [--baseline-csrc DIR] [--stream]
+    python -m dsi_tpu_torch.slice_profile --grep
 
 On the bench corpus (8 files x (2 MiB - 64), seed 1234) it prints JSON
 lines:
@@ -22,7 +23,12 @@ lines:
   grouper, and at 8 virtual shards with the table mesh-sharded 8 ways,
   each run once warm and once under ``torch.profiler``: wall seconds,
   device seconds (kernels and copies), the device's idle share (1 -
-  device / wall) and the busiest kernels.
+  device / wall) and the busiest kernels;
+* with ``--grep`` (and nothing else): ``grep_profile``, the bench's grep
+  row (``bench.py run_grep_row``: the corpus once, 16,776,704 bytes,
+  pattern ``the``, 2 MiB chunks, one shard) through ``grep_streaming``
+  with ``device_accumulate`` off and on, and ``cuda_map`` on one file
+  (tiers 1, 2 and 4), each the same way.
 
 Needs one CUDA card; the card's name and power limit head the output.
 """
@@ -112,6 +118,51 @@ def _stream_profile(files, total_bytes: int) -> dict:
     return out
 
 
+def _grep_profile(files, raw0: bytes) -> dict:
+    from dsi_tpu_torch.apps.cuda_grep import cuda_map
+    from dsi_tpu_torch.parallel.grepstream import (GREP_CHUNK_BYTES,
+                                                   grep_streaming)
+    from dsi_tpu_torch.parallel.streaming import stream_files
+
+    out = {}
+    for tag, acc in (("grep_stream", False), ("grep_stream_acc", True)):
+        stats: dict = {}
+
+        def run():
+            stats.clear()
+            grep_streaming(stream_files(files), "the",
+                           chunk_bytes=GREP_CHUNK_BYTES,
+                           device_accumulate=acc, pipeline_stats=stats,
+                           device="cuda")
+
+        prof = _profile(run)
+        prof["idle_share"] = 1.0 - prof["device_s"] / prof["wall_s"]
+        prof["steps"] = stats["steps"]
+        out[tag] = prof
+    for pattern in ("the", "[Tt]he", "th[a-z]*e"):
+        with env_set(DSI_GREP_PATTERN=pattern, DSI_NFA_DISPATCH="device"):
+            prof = _profile(lambda: cuda_map("pg-00.txt", raw0,
+                                             device="cuda"))
+        prof["idle_share"] = 1.0 - prof["device_s"] / prof["wall_s"]
+        out[f"cuda_map {pattern}"] = prof
+    return out
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set for the duration; the old values come
+    back after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
 @contextlib.contextmanager
 def pinned_grouper(grouper):
     """``DSI_WC_GROUPER`` pinned to ``grouper`` (None: unset, the
@@ -149,6 +200,9 @@ def main() -> int:
                     help="csrc directory of the kernel version to compare")
     ap.add_argument("--stream", action="store_true",
                     help="also profile the stream row (stream_profile)")
+    ap.add_argument("--grep", action="store_true",
+                    help="profile the grep row and cuda_map alone "
+                         "(grep_profile)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("slice_profile: needs a CUDA card")
@@ -161,6 +215,11 @@ def main() -> int:
         files = ensure_corpus(os.path.join(work, "c"), 8, (2 << 20) - 64,
                               1234)
         raws = [Path(p).read_bytes() for p in files]
+        if args.grep:
+            print(json.dumps({"grep_profile": _grep_profile(files,
+                                                            raws[0])}),
+                  flush=True)
+            return 0
         if args.stream:
             print(json.dumps({"stream_profile": _stream_profile(
                 files, sum(len(r) for r in raws) + len(raws) - 1)}),

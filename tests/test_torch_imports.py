@@ -62,7 +62,12 @@ def test_every_module_is_listed():
             "dsi_tpu_torch.device.policy", "dsi_tpu_torch.device.table",
             "dsi_tpu_torch.utils.ioread", "dsi_tpu_torch.serve.pack",
             "dsi_tpu_torch.cli.wcstream", "dsi_tpu_torch.ops.meshroute",
-            "dsi_tpu_torch.ops.xfer", "chip_smoke"} <= set(MODULES)
+            "dsi_tpu_torch.ops.xfer", "dsi_tpu_torch.ops.grepk",
+            "dsi_tpu_torch.ops.regexk", "dsi_tpu_torch.ops.altk",
+            "dsi_tpu_torch.ops.nfak", "dsi_tpu_torch.apps.grep",
+            "dsi_tpu_torch.apps.cuda_grep", "dsi_tpu_torch.device.topk",
+            "dsi_tpu_torch.parallel.grepstream",
+            "dsi_tpu_torch.cli.grepstream", "chip_smoke"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("name", MODULES)

@@ -208,4 +208,4 @@ def test_cpu_runs_launch_no_kernel():
                                device="cpu")
     assert tw.LAUNCHES == {"tokenize": 0, "radix_sort": 0, "group": 0,
                            "fnv": 0, "route": 0, "hash_group": 0,
-                           "pack6": 0}
+                           "pack6": 0, "grep": 0, "nfa": 0, "grep_step": 0}
