@@ -61,7 +61,19 @@ Phases (any failure exits non-zero before the last line is printed):
    against ``grep_host_oracle`` (MB/s beside the oracle's), at 8 virtual
    shards with the services mesh-sharded 8 ways against the same stream
    unsharded, and through the ``grepstream`` CLI with ``--check``; and
-   the tier-4 calibration (host ``re`` against kernel I) in each bucket.
+   the tier-4 calibration (host ``re`` against kernel I) in each bucket;
+9. TF-IDF: kernels L (the stable valid-first compaction,
+   ``csrc/compact.cu``) and M (the postings append,
+   ``csrc/postings_append.cu``) against their plain versions at the wave's
+   shapes (one shard, eight shards, the 64-byte window, lane-0 pad rows;
+   an append that fits, the bench's second-wave overflow, a dirty buffer,
+   eight shards); the bench's TF-IDF row (the corpus once, eight 2 MiB
+   documents, u_cap 2^15, packed) through ``tfidf_sharded`` at one
+   virtual shard with the postings buffer off (``tfidf``) and on
+   (``tfidf_acc``, which must overflow and recover), and at eight
+   (``tfidf_n8``, one wave), each writing ``mr-out-*`` byte-equal to the
+   sequential TF-IDF oracle's and holding the token invariant (the sum of
+   tf equals the oracle's token count).
 Launch counts are zeroed just before each path and read just after; each
 path fails if a kernel of its own set never launched.
 
@@ -110,6 +122,11 @@ KERNELS = {
     "nfa": ("dsi_tpu_torch/csrc/nfa.cu", "dsi_tpu/ops/nfak.py:303"),
     "grep_step": ("dsi_tpu_torch/csrc/grep_step.cu",
                   "dsi_tpu/parallel/grepstream.py:243"),
+    # L also replaces compact_received, dsi_tpu/ops/meshroute.py:83.
+    "compact": ("dsi_tpu_torch/csrc/compact.cu",
+                "dsi_tpu/parallel/tfidf.py:124"),
+    "postings_append": ("dsi_tpu_torch/csrc/postings_append.cu",
+                        "dsi_tpu/device/postings.py:57"),
 }
 # The kernels each path must launch.
 WC = ("tokenize", "radix_sort", "group", "fnv", "route")  # A-E
@@ -135,6 +152,9 @@ PATH_KERNELS = {
     "grep_stream_mesh": ("grep_step", "radix_sort", "group", "fnv",
                          "route"),
     "grep_cli": ("grep_step", "radix_sort", "group"),
+    # The TF-IDF wave: A-E, then L; with the device postings buffer, M.
+    "tfidf": WC + ("compact",), "tfidf_n8": WC + ("compact",),
+    "tfidf_acc": WC + ("compact", "postings_append"),
 }
 MESH_SHARDS = 8
 # A table capacity far below a mesh shard's share of the corpus's
@@ -146,6 +166,9 @@ MESH_WIDEN_CAP = 4096
 GREP_PATTERNS = ("the", "[Tt]he", "^a", "s$", "the|and", "th[a-z]*e")
 GREP_MB, GREP_PATTERN, GREP_CHUNK = 16.0, "the", 1 << 21
 NFA_PATTERNS = {16: "th[a-z]*e", 32: "a{5,20}b", 48: "a{20,40}b"}
+# TF-IDF: the bench's engine row (bench.py:949-1000): the corpus once
+# (16 MB asked, one cycle), eight 2 MiB documents, u_cap 2^15, packed.
+TFIDF_MB, TFIDF_U_CAP = 16.0, 1 << 15
 # H100 SXM float32 outside the tensor cores, NVIDIA data sheet: the peak
 # rate taken for the 32-bit integer work of kernel I's bit sets.
 SCALAR_OPS_PER_S = 67e12
@@ -426,7 +449,7 @@ def corpus_path(files, workdir, tag, **kw):
         raise RuntimeError(f"{tag}: corpus_wordcount fell back to the host")
     write_corpus_output(res, N_REDUCE, outdir)
     t3 = time.perf_counter()
-    launches = dict(w.LAUNCHES)
+    launches = w.launch_counts()
     phases = {"read_s": t1 - t0, "kernel_s": t2 - t1, "write_s": t3 - t2}
     lines = sorted_lines(sorted(glob.glob(os.path.join(outdir, "mr-out-*"))))
     return lines, phases, launches, sum(len(r) for r in raws)
@@ -854,7 +877,7 @@ def sharded_path(data: bytes, n_dev: int, workdir: str, oracle):
                             u_cap=SHARDED_U_CAP, device=DEVICE)
     sync()
     kernel_s = time.perf_counter() - t0
-    launches = dict(w.LAUNCHES)
+    launches = w.launch_counts()
     if res is None:
         raise RuntimeError(f"wordcount_sharded n_dev={n_dev} returned None")
     write_partitioned_output(res, N_REDUCE, outdir)
@@ -889,7 +912,7 @@ def stream_path(files, cycles: int, want: dict, device_accumulate: bool,
                               device=DEVICE)
     sync()
     seconds = time.perf_counter() - t0
-    launches = dict(w.LAUNCHES)
+    launches = w.launch_counts()
     if res is None:
         raise RuntimeError("the stream returned None (host path)")
     parity = (stream_parity({k: c for k, (c, _) in res.items()}, want,
@@ -923,7 +946,7 @@ def stream_cli_path(files, cycles: int, want: dict, workdir: str):
             + list(files) * cycles)
     sync()
     seconds = time.perf_counter() - t0
-    launches = dict(w.LAUNCHES)
+    launches = w.launch_counts()
     text = err.getvalue()
     if rc != 0 or "host path" in text:
         raise RuntimeError(f"wcstream rc={rc}: {text[-2000:]}")
@@ -978,7 +1001,7 @@ def grep_tiers_path(raw0: bytes):
     with env_set(DSI_NFA_DISPATCH="device"):
         for i, (pattern, data) in enumerate(cases):
             tag = pattern if i < len(GREP_PATTERNS) else "short_lines the"
-            before = dict(w.LAUNCHES)
+            before = w.launch_counts()
             with env_set(DSI_GREP_PATTERN=pattern):
                 t0 = time.perf_counter()
                 got = cuda_map("pg-00.txt", data, device=DEVICE)
@@ -994,7 +1017,7 @@ def grep_tiers_path(raw0: bytes):
             if got != want:
                 failures.append(f"grep_tiers: cuda_map {tag!r} differs "
                                 "from the host Map")
-    launches = dict(w.LAUNCHES)
+    launches = w.launch_counts()
     if out["short_lines the"]["launches"]["grep"] != 2:
         failures.append("grep_tiers: the short-line input did not overflow "
                         "rung 0 and clear at n+1")
@@ -1019,7 +1042,7 @@ def grep_stream_path(files, cycles: int, want, *, device_accumulate: bool,
                          device=DEVICE)
     sync()
     seconds = time.perf_counter() - t0
-    return res, seconds, stats, dict(w.LAUNCHES), res == want
+    return res, seconds, stats, w.launch_counts(), res == want
 
 
 def grep_cli_path(files, cycles: int):
@@ -1046,7 +1069,7 @@ def grep_cli_path(files, cycles: int):
         raise RuntimeError(f"grepstream rc={rc}: {text[-2000:]}")
     stats = ast.literal_eval(
         text.split("pipeline_stats=", 1)[1].splitlines()[0])
-    return seconds, stats, dict(w.LAUNCHES), out.getvalue()
+    return seconds, stats, w.launch_counts(), out.getvalue()
 
 
 def nfa_calibration():
@@ -1171,6 +1194,192 @@ def _worst_err(row) -> int:
     return err
 
 
+# ── phase 9: TF-IDF ──────────────────────────────────────────────────────
+
+
+TFIDF_PHASES = ("materialize_s", "materialize_wait_s", "upload_s",
+                "dispatch_s", "kernel_s", "pull_s", "merge_s", "replay_s",
+                "append_s", "drain_s", "waves", "depth", "replays",
+                "max_inflight_waves", "step_pulls", "appends",
+                "append_overflows", "sync_pulls", "postings_widens",
+                "pull_bytes", "sync_every")
+
+
+def tfidf_oracle(files, workdir) -> list:
+    """The sequential TF-IDF oracle's ``mr-out-0`` lines over ``files``."""
+    from dsi_tpu_torch.apps import tfidf
+    from dsi_tpu_torch.mr.sequential import run_sequential
+
+    old = os.environ.get("DSI_TFIDF_NDOCS")
+    os.environ["DSI_TFIDF_NDOCS"] = str(len(files))
+    try:
+        out = run_sequential(tfidf.Map, tfidf.Reduce, files,
+                             os.path.join(workdir, "tfidf-correct.txt"))
+    finally:
+        if old is None:
+            os.environ.pop("DSI_TFIDF_NDOCS", None)
+        else:
+            os.environ["DSI_TFIDF_NDOCS"] = old
+    return sorted_lines([out])
+
+
+def tfidf_path(files, workdir, tag, oracle, tokens, **kw):
+    """The bench's TF-IDF row (``FileDocs`` over ``files``, u_cap 2^15,
+    packed) through ``tfidf_sharded(**kw)``, the call alone timed, then
+    ``write_tfidf_output``; returns (entry, launches, failures)."""
+    import glob
+
+    import numpy as np
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.parallel.tfidf import (FileDocs, tfidf_sharded,
+                                              write_tfidf_output)
+
+    docs = FileDocs(files)
+    stats: dict = {}
+    w.reset_launches()
+    t0 = time.perf_counter()
+    res = tfidf_sharded(docs, n_reduce=N_REDUCE, u_cap=TFIDF_U_CAP,
+                        packed=True, wave_stats=stats, device=DEVICE, **kw)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = w.launch_counts()
+    if res is None:
+        raise RuntimeError(f"{tag}: tfidf_sharded fell back to the host")
+    got_tokens = int(res.tfs.astype(np.int64).sum())
+    outdir = os.path.join(workdir, tag)
+    os.makedirs(outdir)
+    t0 = time.perf_counter()
+    write_tfidf_output(res.to_dict(), files, N_REDUCE, outdir)
+    write_s = time.perf_counter() - t0
+    lines = sorted_lines(sorted(glob.glob(os.path.join(outdir, "mr-out-*"))))
+    nbytes = sum(docs.lengths)
+    entry = {"parity": lines == oracle, "tokens": got_tokens,
+             "token_invariant": got_tokens == tokens, "words": len(res),
+             "postings": res.n_postings, "seconds": seconds,
+             "write_s": write_s, "input_bytes": nbytes,
+             "mb_per_s": nbytes / seconds / 1e6, "launches": launches,
+             "wave_stats": {k: stats[k] for k in TFIDF_PHASES if k in stats}}
+    failures = []
+    if lines != oracle:
+        failures.append(f"{tag}: mr-out-* differ from the TF-IDF oracle")
+    if got_tokens != tokens:
+        failures.append(f"{tag}: the sum of tf {got_tokens} is not the "
+                        f"oracle's token count {tokens}")
+    return entry, launches, failures
+
+
+def tfidf_kernel_rows(raws):
+    """L and M at the TF-IDF wave's shapes, each held against its plain
+    version on the same device tensors and timed beside it.  Returns
+    ({kernel: entry with at_shapes}, {kernel: max_abs_err})."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.device.postings import (postings_append,
+                                               postings_append_plain)
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.ops.meshroute import compact_rows, compact_rows_plain
+    from dsi_tpu_torch.parallel.tfidf import _wave_chunk, wave_received
+
+    size = 1 << max(8, max(len(r) for r in raws).bit_length())
+
+    def received(n_dev, mwl):
+        chunks = torch.from_numpy(_wave_chunk(raws, range(n_dev), n_dev,
+                                              size)).to(DEVICE)
+        ids = torch.arange(n_dev, dtype=torch.int32, device=DEVICE)
+        cap = w.rung0_cap(size, TFIDF_U_CAP)
+        recv, _ = wave_received(chunks, ids, n_dev=n_dev, n_reduce=N_REDUCE,
+                                max_word_len=mwl, u_cap=cap)
+        return recv
+
+    def l_entry(rows, pad_lanes, shape, reps=20):
+        err = _worst(zip(compact_rows(rows, pad_lanes=pad_lanes),
+                         compact_rows_plain(rows, pad_lanes=pad_lanes)))
+        flag = (rows[..., :pad_lanes] == -1).all(-1).to(torch.int8)
+        nbytes = 2 * rows.numel() * 4 + 4 * rows.shape[0]
+        return {"max_abs_err": err,
+                "ms": cuda_ms(lambda: compact_rows(rows,
+                                                   pad_lanes=pad_lanes), reps),
+                "plain_ms": cuda_ms(lambda: compact_rows_plain(
+                    rows, pad_lanes=pad_lanes), 3),
+                # One stable argsort of the pad flag plus the gather.
+                "library_ms": cuda_ms(lambda: torch.gather(
+                    rows, 1, torch.argsort(flag, dim=1, stable=True)[
+                        ..., None].expand_as(rows)), reps),
+                "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "shape": shape}
+
+    recv1, recv8, recv64 = received(1, MWL), received(8, MWL), received(1, 64)
+    lane0 = recv1.clone()
+    n0 = int((lane0[0, :, 0] != -1).sum())
+    lane0[0, 1:n0:97, 0] = -1  # lane 0 alone all ones: pad for this test
+    rng = np.random.default_rng(SEED)
+    mixed = recv1[:, torch.from_numpy(rng.permutation(recv1.shape[1])).to(
+        DEVICE)].contiguous()
+    rows_l = {"n_dev=1": l_entry(recv1, 2, f"[1, {recv1.shape[1]}, 8] "
+                                           "pad_lanes 2")}
+    rows_l["n_dev=1"]["at_shapes"] = {
+        "n_dev=8": l_entry(recv8, 2, f"[8, {recv8.shape[1]}, 8]", 10),
+        "mwl64": l_entry(recv64, 2, f"[1, {recv64.shape[1]}, 20]"),
+        "interleaved": l_entry(mixed, 2, "n_dev=1 rows permuted"),
+        "received_lane0": l_entry(lane0, 1, "n_dev=1 pad_lanes 1 with "
+                                            "lane-0-only rows")}
+
+    def m_case(rows, scal, cap, n, dirty):
+        opts = {"dtype": torch.int32, "device": DEVICE}
+        base = torch.from_numpy(rng.integers(
+            0, 1 << 31, (rows.shape[0], cap, rows.shape[2]),
+            dtype=np.int64).astype(np.int32)).to(DEVICE)
+        args = (torch.tensor(n, **opts), torch.tensor(dirty, **opts), rows,
+                scal)
+        kb, pb = base.clone(), base.clone()
+        got = postings_append(kb, *args)
+        want = postings_append_plain(pb, *args)
+        return _worst(zip((kb,) + tuple(got), (pb,) + tuple(want))), \
+            (base, args, got[2])
+
+    def m_entry(rows, scal, cap, shape, reps=50):
+        nr = int(scal[:, 0].sum())
+        err, (base, args, _) = m_case(rows, scal, cap, [0] * rows.shape[0],
+                                      [0] * rows.shape[0])
+        nbytes = 2 * nr * rows.shape[2] * 4 + 4 * 5 * rows.shape[0]
+        kb, pb = base.clone(), base.clone()
+        return {"max_abs_err": err,
+                "ms": cuda_ms(lambda: postings_append(kb, *args), reps),
+                "plain_ms": cuda_ms(lambda: postings_append_plain(pb, *args),
+                                    5),
+                "library_ms": None, "bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "shape": shape}
+
+    srecv1, n1 = compact_rows(recv1, pad_lanes=2)
+    scal1 = torch.zeros((1, 5), dtype=torch.int32, device=DEVICE)
+    scal1[:, 0] = n1
+    cap1 = recv1.shape[1]  # n_dev x the rung-0 capacity
+    srecv8, n8 = compact_rows(recv8, pad_lanes=2)
+    scal8 = torch.zeros((8, 5), dtype=torch.int32, device=DEVICE)
+    scal8[:, 0] = n8
+    rows_m = {"fits": m_entry(srecv1, scal1, cap1,
+                              f"cap {cap1}, {int(n1[0])} rows")}
+    extra = {}
+    nv = int(n1[0])
+    # One row past the capacity, as the bench's second wave passes it.
+    for name, n, dirty in (("overflow", [cap1 - nv + 1], [0]),
+                           ("dirty", [0], [1])):
+        err, (_, _, flags) = m_case(srecv1, scal1, cap1, n, dirty)
+        extra[name] = {"max_abs_err": err,
+                       "no_op": int(flags[0, 0]), "shape": f"n={n}"}
+        if int(flags[0, 0]) != 1:
+            extra[name]["max_abs_err"] = -1  # the append had to no-op
+    extra["n_dev=8"] = m_entry(srecv8, scal8, recv8.shape[1],
+                               f"[8, {recv8.shape[1]}, 8], "
+                               f"{int(n8.sum())} rows", 20)
+    rows_m["fits"]["at_shapes"] = extra
+    out = {"compact": rows_l["n_dev=1"], "postings_append": rows_m["fits"]}
+    errs = {name: _merge_err(row["max_abs_err"], _worst_err(row))
+            for name, row in out.items()}
+    return out, errs
+
+
 def main() -> int:
     import torch
 
@@ -1248,7 +1457,7 @@ def main() -> int:
         t0 = time.perf_counter()
         got = w.count_words_host_result(raws[0], device=DEVICE)
         split_s = time.perf_counter() - t0
-        launch_split = dict(w.LAUNCHES)
+        launch_split = w.launch_counts()
         want = collections.Counter(host_tokenize(raws[0].decode("ascii")))
         if got != {word: (c, ihash(word)) for word, c in want.items()}:
             failures.append("count_words_host_result differs from oracle")
@@ -1383,7 +1592,7 @@ def main() -> int:
             t0 = time.perf_counter()
             got = w.count_words_host_result(raws[0], device=DEVICE)
             split_hash_s = time.perf_counter() - t0
-            launch_split_hash = dict(w.LAUNCHES)
+            launch_split_hash = w.launch_counts()
             if got != {word: (c, ihash(word)) for word, c in want.items()}:
                 failures.append("split_hash: count_words_host_result "
                                 "differs from the oracle")
@@ -1504,6 +1713,40 @@ def main() -> int:
             failures.append("radix_sort differs from its plain version at "
                             "the topk shape")
 
+        # Phase 9: TF-IDF.
+        tf_rows, tf_err = tfidf_kernel_rows(raws)
+        times.update(tf_rows)
+        err.update(tf_err)
+        for name in ("compact", "postings_append"):
+            if err[name] != 0:
+                failures.append(f"{name} differs from its plain version")
+        t0 = time.perf_counter()
+        tf_oracle = tfidf_oracle(files, work)
+        tf_oracle_s = time.perf_counter() - t0
+        tf_cycles = max(1, round(TFIDF_MB * 1e6 / corpus_bytes))
+        if tf_cycles != 1:
+            raise RuntimeError(f"the TF-IDF row wants {tf_cycles} cycles; "
+                               "its oracle covers one")
+        tokens = sum(want_counts.values())
+        tfidf_path(files, work, "tfidf_warm", tf_oracle, tokens)
+        tfidf = {}
+        for tag, kw in (("tfidf", {}),
+                        ("tfidf_acc", {"device_accumulate": True}),
+                        ("tfidf_n8", {"n_dev": MESH_SHARDS})):
+            entry, _, fails = tfidf_path(files, work, tag, tf_oracle,
+                                         tokens, **kw)
+            tfidf[tag] = entry
+            failures += fails
+            log({tag: {**entry, "gpu": gpu,
+                       "oracle_s": tf_oracle_s}})
+        if tfidf["tfidf_acc"]["wave_stats"].get("append_overflows", 0) < 1:
+            failures.append("tfidf_acc: no postings append overflowed")
+        if tfidf["tfidf_acc"]["wave_stats"].get("step_pulls", 1) != 0:
+            failures.append("tfidf_acc: waves were pulled one by one")
+        if tfidf["tfidf_n8"]["wave_stats"].get("waves") != 1:
+            failures.append("tfidf_n8: the eight documents took more than "
+                            "one wave")
+
     total_s = sum(phases.values())
     log({"slice": {
         "gpu": gpu, "input_bytes": nbytes, "mb_per_s": nbytes / total_s / 1e6,
@@ -1524,7 +1767,8 @@ def main() -> int:
         "corpus_runs": corpus_runs,
         "stream_mb_per_s": {k: v["mb_per_s"] for k, v in stream.items()},
         "grep_mb_per_s": {k: v["mb_per_s"] for k, v in grep.items()},
-        "grep_oracle_mb_per_s": grep_bytes / grep_oracle_s / 1e6}})
+        "grep_oracle_mb_per_s": grep_bytes / grep_oracle_s / 1e6,
+        "tfidf_mb_per_s": {k: v["mb_per_s"] for k, v in tfidf.items()}}})
 
     by_path = {"corpus": launch_main, "corpus_mwl64": launch64,
                "split": launch_split, "sharded": sharded[1]["launches"],
@@ -1534,7 +1778,8 @@ def main() -> int:
                "split_hash": launch_split_hash,
                "sharded_hash": launch_sharded_hash,
                "grep_tiers": launch_grep_tiers,
-               **{k: v["launches"] for k, v in grep.items()}}
+               **{k: v["launches"] for k, v in grep.items()},
+               **{k: v["launches"] for k, v in tfidf.items()}}
     for path, names in PATH_KERNELS.items():
         failures += [f"{name} never launched on the {path} path"
                      for name in names if by_path[path][name] < 1]
@@ -1556,7 +1801,7 @@ def main() -> int:
             row["at_shapes"] = {k: v[name] for k, v in shapes.items()}
         if name == "radix_sort":
             row["at_shapes"]["topk"] = topk_row
-        if name in grep_rows:
+        if name in grep_rows or name in tf_rows:
             row["at_shapes"] = tm["at_shapes"]
         if name in ("fnv", "route"):
             row["at_shapes"] = {"mesh_fold": mesh_shapes[name]}

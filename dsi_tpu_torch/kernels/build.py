@@ -55,6 +55,10 @@ SIGNATURES = {
     "dsi_grep_step_scratch_bytes": (_I64, [_INT, _I64, _I64, _INT]),
     "dsi_grep_step": (_INT, [_P, _INT, _I64, _P, _INT, _P, _P, _I64, _INT,
                              _INT, _P, _P, _P, _P, _P]),
+    "dsi_compact_scratch_bytes": (_I64, [_INT, _I64]),
+    "dsi_compact": (_INT, [_P, _INT, _I64, _INT, _INT, _P, _P, _P, _P]),
+    "dsi_postings_append": (_INT, [_P, _INT, _I64, _INT, _P, _P, _P, _I64,
+                                   _P, _INT, _P, _P, _P, _P]),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,22 +1,22 @@
-"""Key routing for the mesh-sharded device table.
+"""Key routing for the mesh-sharded device services.
 
 Port of ``dsi_tpu/ops/meshroute.py`` (``route_dest``, ``exchange_rows``,
-``host_shard_of``, ``pack_host_rows``).  A key belongs to shard
-``ihash(key) % n_shards`` — the paper's partition rule (``mr/worker.go:76``),
-``fnv1a32(key) & 0x7fffffff`` over the key's bytes, bit-exact with the
-host's ``ihash``.  The mesh is ``n_dev`` virtual shards, the leading
-tensor dimension, so the reference's per-device routing and its
-``all_to_all`` run for all shards at once:
+``compact_received``, ``host_shard_of``, ``pack_host_rows``).  A key
+belongs to shard ``ihash(key) % n_shards`` — the paper's partition
+rule (``mr/worker.go:76``), ``fnv1a32(key) & 0x7fffffff`` over the key's
+bytes, bit-exact with the host's ``ihash``.  The mesh is ``n_dev``
+virtual shards, the leading tensor dimension, so the reference's
+per-device routing and its ``all_to_all`` run for all shards at once:
 
 * ``route_dest``: the key lanes packed into u64 key words, kernel D over
   the first ``len`` bytes, then ``& 0x7fffffff`` and ``% n_shards``;
   invalid rows park on ``n_dev``;
 * ``exchange_rows``: kernel E, every shard's rows to their owning shard
-  in stable order, one block per (destination, source) pair.
-
-``compact_received`` (``:83``), which only the mesh-sharded postings
-append reads, is ported with the postings (ROADMAP Queue 1, indexer and
-TF-IDF).
+  in stable order, one block per (destination, source) pair;
+* ``compact_received`` (``:83``): kernel L (``csrc/compact.cu``, through
+  :func:`compact_rows`), the stable valid-first partition of the
+  received rows that the TF-IDF wave step shares
+  (``parallel/tfidf.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +28,13 @@ import torch
 
 from dsi_tpu_torch.mr.sequential import fnv32a
 from dsi_tpu_torch.ops.wordcount import (
+    _PAD_KEY32,
+    _launch,
+    _lib,
+    _on_cuda,
+    _ptr,
+    _require,
+    _stream,
     _u32_value,
     fnv1a32_packed,
     pack_key_lanes,
@@ -57,6 +64,49 @@ def exchange_rows(rows: torch.Tensor, dest: torch.Tensor, *, n_dev: int,
     shard order, each its rows in order then pad rows (key lanes all ones,
     zero payload)."""
     return shuffle_rows(rows, dest, n_dev=n_dev, k=kk)
+
+
+def compact_rows_plain(rows: torch.Tensor, *, pad_lanes: int):
+    """Plain version of kernel L: per shard of ``rows`` [n_dev, r, w]
+    (int32 bits), a stable ``torch.argsort`` of the pad flag (the first
+    ``pad_lanes`` lanes all ones) and the gather it gives.  Returns (rows
+    valid-first then pad, each side in row order; n_valid [n_dev] int32)."""
+    is_pad = (rows[..., :pad_lanes] == _PAD_KEY32).all(dim=-1)
+    order = torch.argsort(is_pad.to(torch.int8), dim=1, stable=True)
+    out = torch.gather(rows, 1, order[..., None].expand_as(rows))
+    return out, (~is_pad).sum(dim=1).to(torch.int32)
+
+
+def compact_rows(rows: torch.Tensor, *, pad_lanes: int):
+    """Kernel L (``csrc/compact.cu``); see :func:`compact_rows_plain`.
+    Replaces the stable pad-bit partitions of ``dsi_tpu``'s TF-IDF wave
+    step (``parallel/tfidf.py:124-134``, ``pad_lanes`` 2: the first
+    packed u64 key word) and of ``compact_received`` (``pad_lanes`` 1)."""
+    _require(rows, torch.int32, 3, "compact rows")
+    n_dev, r, w = rows.shape
+    if n_dev < 1 or r < 1 or not 1 <= pad_lanes <= w:
+        raise ValueError(f"compact: bad shape {tuple(rows.shape)} "
+                         f"pad_lanes={pad_lanes}")
+    if not _on_cuda(rows):
+        return compact_rows_plain(rows, pad_lanes=pad_lanes)
+    lib = _lib()
+    out = torch.empty_like(rows)
+    n_valid = torch.empty(n_dev, dtype=torch.int32, device=rows.device)
+    scratch = torch.empty(lib.dsi_compact_scratch_bytes(n_dev, r),
+                          dtype=torch.uint8, device=rows.device)
+    with torch.cuda.device(rows.device):
+        _launch("compact", lib.dsi_compact(
+            _ptr(rows), n_dev, r, w, pad_lanes, _ptr(out), _ptr(n_valid),
+            _ptr(scratch), _stream(rows)))
+    return out, n_valid
+
+
+def compact_received(recv: torch.Tensor):
+    """Compact an :func:`exchange_rows` result ``recv`` [n_dev, R, w]: per
+    shard, the real rows (lane 0 not all ones) first in received order,
+    then the pad rows in received order.  Returns (rows, n_valid [n_dev]
+    int32), the order-keeping prefix a postings append consumes."""
+    return compact_rows(recv, pad_lanes=1)
 
 
 def host_shard_of(word_bytes: bytes, n_shards: int) -> int:

@@ -28,12 +28,15 @@ of the mesh-sharded fold (``ops/meshroute.py``):
 
 * ``shuffle_rows``   — ``csrc/route.cu``      (K8, K11)
 
-The grep kernels launch from their own modules through the same
+The grep and TF-IDF kernels launch from their own modules through the same
 ``_launch`` (one count each in ``LAUNCHES``): ``grep_kernel`` and
 ``classgrep_kernel`` (``ops/grepk.py``, ``ops/regexk.py``) —
 ``csrc/grep.cu`` (K13, K14); ``nfa_kernel`` (``ops/nfak.py``) —
 ``csrc/nfa.cu`` (K15); ``grep_step`` (``parallel/grepstream.py``) —
-``csrc/grep_step.cu`` (K16).
+``csrc/grep_step.cu`` (K16); ``compact`` (``ops/meshroute.py``) —
+``csrc/compact.cu`` (K18's partition, ``compact_received``);
+``postings_append`` (``device/postings.py``) —
+``csrc/postings_append.cu`` (K20a).
 
 A wrapper given a CUDA tensor launches its kernel (adding one to its
 count in ``LAUNCHES``) or raises; given a CPU tensor it runs the plain
@@ -64,15 +67,24 @@ _SIGN64 = torch.iinfo(torch.int64).min  # 1 << 63 as int64 bits
 _BYTE_MASKS = (0, 0xFF000000, 0xFFFF0000, 0xFFFFFF00, 0xFFFFFFFF)
 
 # Launches of each kernel in this process; a plain-version call adds none.
+# The TF-IDF kernels' names enter the dict at their first launch, so a
+# process that never launches them sees the dict it always saw;
+# ``launch_counts`` lists every kernel, zeros included.
 LAUNCHES: Dict[str, int] = {"tokenize": 0, "radix_sort": 0, "group": 0,
                             "fnv": 0, "route": 0, "hash_group": 0,
                             "pack6": 0, "grep": 0, "nfa": 0,
                             "grep_step": 0}
+KERNEL_NAMES = tuple(LAUNCHES) + ("compact", "postings_append")
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch count in this process, by name."""
+    return {name: LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -206,7 +218,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def _launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
 
 
 def _ptr(t: Optional[torch.Tensor]):

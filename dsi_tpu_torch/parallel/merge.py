@@ -1,7 +1,8 @@
 """Vectorized host-side merge table for the SPMD paths' per-step outputs.
 
-Copy of ``dsi_tpu/parallel/merge.py`` (``PackedCounts`` and its helpers;
-``PostingsTable`` waits for the indexer slice).  Per-step tables of
+Copy of ``dsi_tpu/parallel/merge.py`` (``PackedCounts`` and its helpers,
+``PostingsTable`` and ``PackedPostings``, without the checkpoint
+``snapshot``/``restore``).  Per-step tables of
 packed word keys (big-endian u32 lanes) plus length / count / partition
 columns accumulate as raw numpy arrays; merging is one ``np.lexsort``
 over the key lanes, run-boundary detection and ``np.add.reduceat`` per
@@ -12,11 +13,16 @@ Zero-padded key lanes make width harmonisation trivial: a word packed
 into K lanes and the same word packed into K' > K lanes agree on the
 first K lanes and are zero beyond, so narrower tables are right-padded
 with zero columns before concatenation.
+
+TF-IDF's postings accumulate rather than merge: ``PostingsTable`` keeps
+every wave's (word, len, tf, doc, part) rows raw and groups them once,
+at ``finalize``, with one stable lexsort, so a word's postings keep the
+order they were added in.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -118,3 +124,130 @@ class PackedCounts:
         words = decode_packed(keys, lens, len(keys))
         return {w: (int(c), int(p))
                 for w, c, p in zip(words, cnts.tolist(), parts.tolist())}
+
+
+class PostingsTable:
+    """TF-IDF accumulator over packed (word, tf, doc, part) row batches.
+
+    Rows are kept raw (uint32) and grouped once at ``finalize``: one
+    lexsort over the key lanes, run-boundary detection, one bulk spelling
+    decode.  ``finalize`` returns ``{word: (reduce_partition, [(doc_index,
+    tf), ...])}``, postings in the order they were added."""
+
+    def __init__(self):
+        self._bufs: List[np.ndarray] = []
+        self._kk: Optional[int] = None
+
+    def add(self, rows: np.ndarray, kk: int) -> None:
+        """Ingest [n, kk+4] rows: kk key lanes + (len, tf, doc, part)."""
+        if len(rows) == 0:
+            return
+        if self._kk is None:
+            self._kk = kk
+        elif kk != self._kk:  # one word-window rung per table
+            raise ValueError(f"mixed key widths: {self._kk} vs {kk}")
+        self._bufs.append(np.array(rows, dtype=np.uint32))
+
+    def finalize(self) -> Dict[str, Tuple[int, List[Tuple[int, int]]]]:
+        return self.finalize_packed().to_dict()
+
+    def finalize_packed(self) -> "PackedPostings":
+        """Group without building Python objects: the postings stay numpy
+        arrays (``to_dict`` or ``lookup_many`` make the dict form)."""
+        if not self._bufs:
+            return PackedPostings(0)
+        kk = self._kk
+        rows = (np.concatenate(self._bufs) if len(self._bufs) > 1
+                else self._bufs[0])
+        keys = rows[:, :kk]
+        order = _lexsort_rows(keys)
+        skeys = keys[order]
+        starts = _group_starts(skeys)
+        out = PackedPostings(kk)
+        out.skeys = np.ascontiguousarray(skeys[starts])
+        out.starts = starts
+        out.ends = np.append(starts[1:], len(rows))
+        out.lens = rows[order[starts], kk]
+        out.parts = rows[order[starts], kk + 3]
+        out.tfs = np.ascontiguousarray(rows[order, kk + 1])
+        out.docs = np.ascontiguousarray(rows[order, kk + 2])
+        return out
+
+
+class PackedPostings:
+    """Grouped TF-IDF postings as numpy tables, words in lexicographic
+    order.  ``skeys/lens/parts/starts/ends`` are per unique word;
+    ``tfs/docs`` are every posting, ``starts[i]:ends[i]`` word i's."""
+
+    __slots__ = ("kk", "skeys", "lens", "parts", "starts", "ends",
+                 "tfs", "docs", "_be")
+
+    def __init__(self, kk: int):
+        self.kk = kk
+        self._be = None  # big-endian key view, made by lookup_many
+        self.skeys = np.zeros((0, max(kk, 1)), np.uint32)
+        self.lens = np.zeros(0, np.uint32)
+        self.parts = np.zeros(0, np.uint32)
+        self.starts = np.zeros(0, np.int64)
+        self.ends = np.zeros(0, np.int64)
+        self.tfs = np.zeros(0, np.uint32)
+        self.docs = np.zeros(0, np.uint32)
+
+    def __len__(self) -> int:
+        return len(self.skeys)
+
+    @property
+    def n_postings(self) -> int:
+        return len(self.tfs)
+
+    def postings_per_word(self) -> np.ndarray:
+        return self.ends - self.starts
+
+    def lookup_many(self, words) -> Dict[str, Tuple[int, List[Tuple[int,
+                                                                    int]]]]:
+        """``{word: (part, [(doc, tf), ...])}`` for just these words
+        (absent words omitted): a binary search per word over the
+        lexsorted big-endian key bytes, whose byte order is lane order."""
+        n = len(self.skeys)
+        if n == 0:
+            return {}
+        if self._be is None:  # the table is immutable after finalize
+            self._be = np.ascontiguousarray(self.skeys.astype(">u4"))
+        be = self._be
+        width = 4 * self.kk
+        out: Dict[str, Tuple[int, List[Tuple[int, int]]]] = {}
+        for w in words:
+            try:
+                raw = w.encode("ascii")
+            except UnicodeEncodeError:
+                continue  # a non-ASCII word cannot be in the table
+            if not raw or len(raw) > width:
+                continue
+            q = raw.ljust(width, b"\x00")
+            lo, hi = 0, n
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if be[mid].tobytes() < q:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            if lo >= n or be[lo].tobytes() != q \
+                    or int(self.lens[lo]) != len(raw):
+                continue
+            s, e = int(self.starts[lo]), int(self.ends[lo])
+            out[w] = (int(self.parts[lo]),
+                      list(zip(self.docs[s:e].tolist(),
+                               self.tfs[s:e].tolist())))
+        return out
+
+    def to_dict(self) -> Dict[str, Tuple[int, List[Tuple[int, int]]]]:
+        if len(self.skeys) == 0:
+            return {}
+        words = decode_packed(self.skeys, self.lens, len(self.skeys))
+        tfs = self.tfs.tolist()
+        docs = self.docs.tolist()
+        out: Dict[str, Tuple[int, List[Tuple[int, int]]]] = {}
+        for i, w in enumerate(words):
+            s, e = int(self.starts[i]), int(self.ends[i])
+            out[w] = (int(self.parts[i]), list(zip(docs[s:e], tfs[s:e])))
+        return out

@@ -2,7 +2,8 @@
 machine.
 
 Copy of ``dsi_tpu/parallel/stepobj.py`` (``EngineStep`` and
-``HostPathStep``).  The lifecycle:
+``HostPathStep``), with the rung-restart hook the TF-IDF wave walk
+uses.  The lifecycle:
 
 * ``advance()`` — one turn of the crank: dispatch the next item, retiring
   the oldest in-flight record when the window is full.  False when the
@@ -18,8 +19,10 @@ Checkpoints (``checkpoint``/``restore``/``suspend`` in the reference) are
 not ported yet.  Subclass contract (attributes set by ``__init__``):
 ``_pipe`` (a begun :class:`~dsi_tpu_torch.parallel.pipeline.StepPipeline`),
 ``_host_excs`` (exception types meaning "this input needs the host
-path"), ``_on_complete`` (run once after the window drains at end of
-input) and ``_release`` (idempotent teardown).
+path"), ``_rung_excs`` (exception types that :meth:`EngineStep._next_rung`
+consumes: tear the rung down and begin the next one), ``_on_complete``
+(run once after the window drains at end of input) and ``_release``
+(idempotent teardown).
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ class EngineStep:
 
     #: Exception types that route the stream to the host path.
     _host_excs: tuple = ()
+    #: Exception types consumed by :meth:`_next_rung`.
+    _rung_excs: tuple = ()
 
     def __init__(self) -> None:
         self.result = None
@@ -39,6 +44,13 @@ class EngineStep:
         self._pipe = None
         self._on_complete = lambda: None
         self._release = lambda: None
+
+    def _next_rung(self) -> bool:
+        """Consume a rung-restart exception: tear the old rung down and
+        begin the next one.  True when a fresh rung is armed; False when
+        the walk is over (the phase already moved).  The base class has
+        no rungs."""
+        return False
 
     @property
     def phase(self) -> str:
@@ -64,6 +76,8 @@ class EngineStep:
             self._on_complete()
             self._phase = "done"
             return False
+        except self._rung_excs:
+            return self._next_rung()
         except self._host_excs:
             self._to_hostpath()
             return False
@@ -96,6 +110,8 @@ class EngineStep:
         if self._phase == "running":
             try:
                 self._pipe.drain()
+            except self._rung_excs:
+                self._next_rung()
             except self._host_excs:
                 self._to_hostpath()
             except BaseException:

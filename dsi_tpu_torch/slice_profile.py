@@ -2,6 +2,7 @@
 
     python -m dsi_tpu_torch.slice_profile [--baseline-csrc DIR] [--stream]
     python -m dsi_tpu_torch.slice_profile --grep
+    python -m dsi_tpu_torch.slice_profile --tfidf
 
 On the bench corpus (8 files x (2 MiB - 64), seed 1234) it prints JSON
 lines:
@@ -28,7 +29,12 @@ lines:
   row (``bench.py run_grep_row``: the corpus once, 16,776,704 bytes,
   pattern ``the``, 2 MiB chunks, one shard) through ``grep_streaming``
   with ``device_accumulate`` off and on, and ``cuda_map`` on one file
-  (tiers 1, 2 and 4), each the same way.
+  (tiers 1, 2 and 4), each the same way;
+* with ``--tfidf`` (and nothing else): ``tfidf_profile``, the bench's
+  TF-IDF row (``bench.py run_tfidf_row``: the 8 files as 8 documents,
+  u_cap 2^15, packed) through ``tfidf_sharded`` at one shard with the
+  postings buffer off and on, and at 8 virtual shards (one wave), each
+  the same way.
 
 Needs one CUDA card; the card's name and power limit head the output.
 """
@@ -148,6 +154,27 @@ def _grep_profile(files, raw0: bytes) -> dict:
     return out
 
 
+def _tfidf_profile(files) -> dict:
+    from dsi_tpu_torch.parallel.tfidf import FileDocs, tfidf_sharded
+
+    out = {}
+    for tag, acc, n_dev in (("tfidf", False, 1), ("tfidf_acc", True, 1),
+                            ("tfidf_n8", False, 8)):
+        stats: dict = {}
+
+        def run():
+            stats.clear()
+            tfidf_sharded(FileDocs(files), n_dev=n_dev, n_reduce=10,
+                          u_cap=1 << 15, packed=True, device_accumulate=acc,
+                          wave_stats=stats, device="cuda")
+
+        prof = _profile(run)
+        prof["idle_share"] = 1.0 - prof["device_s"] / prof["wall_s"]
+        prof["waves"] = stats["waves"]
+        out[tag] = prof
+    return out
+
+
 @contextlib.contextmanager
 def env_set(**values):
     """Environment variables set for the duration; the old values come
@@ -203,6 +230,8 @@ def main() -> int:
     ap.add_argument("--grep", action="store_true",
                     help="profile the grep row and cuda_map alone "
                          "(grep_profile)")
+    ap.add_argument("--tfidf", action="store_true",
+                    help="profile the TF-IDF row alone (tfidf_profile)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("slice_profile: needs a CUDA card")
@@ -215,6 +244,10 @@ def main() -> int:
         files = ensure_corpus(os.path.join(work, "c"), 8, (2 << 20) - 64,
                               1234)
         raws = [Path(p).read_bytes() for p in files]
+        if args.tfidf:
+            print(json.dumps({"tfidf_profile": _tfidf_profile(files)}),
+                  flush=True)
+            return 0
         if args.grep:
             print(json.dumps({"grep_profile": _grep_profile(files,
                                                             raws[0])}),

@@ -67,7 +67,9 @@ def test_every_module_is_listed():
             "dsi_tpu_torch.ops.nfak", "dsi_tpu_torch.apps.grep",
             "dsi_tpu_torch.apps.cuda_grep", "dsi_tpu_torch.device.topk",
             "dsi_tpu_torch.parallel.grepstream",
-            "dsi_tpu_torch.cli.grepstream", "chip_smoke"} <= set(MODULES)
+            "dsi_tpu_torch.cli.grepstream", "dsi_tpu_torch.apps.tfidf",
+            "dsi_tpu_torch.device.postings",
+            "dsi_tpu_torch.parallel.tfidf", "chip_smoke"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("name", MODULES)
