@@ -73,7 +73,21 @@ Phases (any failure exits non-zero before the last line is printed):
    (``tfidf_acc``, which must overflow and recover), and at eight
    (``tfidf_n8``, one wave), each writing ``mr-out-*`` byte-equal to the
    sequential TF-IDF oracle's and holding the token invariant (the sum of
-   tf equals the oracle's token count).
+   tf equals the oracle's token count);
+10. the streaming indexer and the mesh-sharded postings append: E, L and
+   M against their plain versions at the mesh append's shapes (one wave
+   of the eight documents at eight shards, re-routed by D: E into
+   [8, 2,097,152, 8], L with ``pad_lanes`` 1, M into an empty buffer);
+   the TF-IDF row's shapes through ``indexer_streaming`` (depth 2) at one
+   virtual shard with the services off (``indexer``) and on
+   (``indexer_acc``, which must overflow), at eight (``indexer_n8``, one
+   wave) and at eight with ``mesh_shards`` 8 (``indexer_mesh``), each
+   writing ``mr-out-*`` byte-equal to the sequential indexer oracle's
+   with the df top-k equal to the one the oracle's postings give; and
+   the TF-IDF row at eight shards with ``mesh_shards`` 8
+   (``tfidf_mesh``).  Each mesh path must equal its unsharded eight-shard
+   path (posting order included) and launch D, E and L again for every
+   append.
 Launch counts are zeroed just before each path and read just after; each
 path fails if a kernel of its own set never launched.
 
@@ -155,6 +169,13 @@ PATH_KERNELS = {
     # The TF-IDF wave: A-E, then L; with the device postings buffer, M.
     "tfidf": WC + ("compact",), "tfidf_n8": WC + ("compact",),
     "tfidf_acc": WC + ("compact", "postings_append"),
+    # The indexer wave is the TF-IDF wave; the df top-k folds run B and C.
+    # The mesh append re-routes with D and E, compacts with L, appends
+    # with M.
+    "indexer": WC + ("compact",), "indexer_n8": WC + ("compact",),
+    "indexer_acc": WC + ("compact", "postings_append"),
+    "indexer_mesh": WC + ("compact", "postings_append"),
+    "tfidf_mesh": WC + ("compact", "postings_append"),
 }
 MESH_SHARDS = 8
 # A table capacity far below a mesh shard's share of the corpus's
@@ -1202,7 +1223,7 @@ TFIDF_PHASES = ("materialize_s", "materialize_wait_s", "upload_s",
                 "append_s", "drain_s", "waves", "depth", "replays",
                 "max_inflight_waves", "step_pulls", "appends",
                 "append_overflows", "sync_pulls", "postings_widens",
-                "pull_bytes", "sync_every")
+                "pull_bytes", "sync_every", "mesh_shards")
 
 
 def tfidf_oracle(files, workdir) -> list:
@@ -1265,7 +1286,7 @@ def tfidf_path(files, workdir, tag, oracle, tokens, **kw):
     if got_tokens != tokens:
         failures.append(f"{tag}: the sum of tf {got_tokens} is not the "
                         f"oracle's token count {tokens}")
-    return entry, launches, failures
+    return entry, launches, failures, res
 
 
 def tfidf_kernel_rows(raws):
@@ -1377,6 +1398,174 @@ def tfidf_kernel_rows(raws):
     out = {"compact": rows_l["n_dev=1"], "postings_append": rows_m["fits"]}
     errs = {name: _merge_err(row["max_abs_err"], _worst_err(row))
             for name, row in out.items()}
+    return out, errs
+
+
+# ── phase 10: the streaming indexer and the mesh-sharded postings ────────
+
+
+INDEXER_PHASES = TFIDF_PHASES + ("folds", "fold_overflows", "widens",
+                                 "topk_snapshots", "table_cap", "fold_s",
+                                 "sync_s", "finalize_s")
+
+
+def indexer_oracle(files, workdir):
+    """The sequential indexer oracle's ``mr-out-0`` lines over ``files``,
+    and the df top-k (df descending, word ascending) taken from its
+    postings: each line is ``word df doc,doc,...``."""
+    from dsi_tpu_torch.apps import indexer
+    from dsi_tpu_torch.mr.sequential import run_sequential
+    from dsi_tpu_torch.parallel.grepstream import DEFAULT_TOPK
+
+    lines = sorted_lines([run_sequential(
+        indexer.Map, indexer.Reduce, files,
+        os.path.join(workdir, "indexer-correct.txt"))])
+    df = []
+    for ln in lines:
+        word, count, _ = ln.decode().split(" ", 2)
+        df.append((int(count), word))
+    top = tuple(sorted(df, key=lambda r: (-r[0], r[1]))[:DEFAULT_TOPK])
+    return lines, top
+
+
+def indexer_path(files, workdir, tag, oracle, oracle_top, **kw):
+    """The indexer over the TF-IDF row's shapes (``FileDocs`` over
+    ``files``, 10 partitions, u_cap 2^15, depth 2) through
+    ``indexer_streaming(**kw)``, the call alone timed, then
+    ``write_indexer_output``; returns (entry, launches, failures,
+    result)."""
+    import glob
+
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.parallel.grepstream import (indexer_streaming,
+                                                   write_indexer_output)
+    from dsi_tpu_torch.parallel.tfidf import FileDocs
+
+    docs = FileDocs(files)
+    stats: dict = {}
+    w.reset_launches()
+    t0 = time.perf_counter()
+    res = indexer_streaming(docs, n_reduce=N_REDUCE, u_cap=TFIDF_U_CAP,
+                            depth=2, stats=stats, device=DEVICE, **kw)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = w.launch_counts()
+    if res is None:
+        raise RuntimeError(f"{tag}: indexer_streaming fell back to the host")
+    postings, top = res
+    outdir = os.path.join(workdir, tag)
+    os.makedirs(outdir)
+    t0 = time.perf_counter()
+    write_indexer_output(res, files, N_REDUCE, outdir)
+    write_s = time.perf_counter() - t0
+    lines = sorted_lines(sorted(glob.glob(os.path.join(outdir, "mr-out-*"))))
+    nbytes = sum(docs.lengths)
+    entry = {"parity": lines == oracle, "topk_parity": top == oracle_top,
+             "words": len(postings),
+             "postings": sum(len(ds) for _, ds in postings.values()),
+             "top3": [list(t) for t in top[:3]], "seconds": seconds,
+             "write_s": write_s, "input_bytes": nbytes,
+             "mb_per_s": nbytes / seconds / 1e6, "launches": launches,
+             "wave_stats": {k: stats[k] for k in INDEXER_PHASES
+                            if k in stats}}
+    failures = []
+    if lines != oracle:
+        failures.append(f"{tag}: mr-out-* differ from the indexer oracle")
+    if top != oracle_top:
+        failures.append(f"{tag}: the df top-k differs from the oracle's")
+    return entry, launches, failures, res
+
+
+def mesh_append_kernel_rows(raws):
+    """E, L and M as the mesh-sharded postings append (K20b) runs them on
+    the TF-IDF row's one wave of eight documents at ``MESH_SHARDS``
+    shards: the wave's compacted rows [8, 262,144, 8] re-routed by D,
+    exchanged by E into [8, 2,097,152, 8], compacted by L (``pad_lanes``
+    1) and appended by M into an empty buffer of eight times the rung-0
+    capacity, each held against its plain version on the same device
+    tensors and timed beside it.  Returns ({kernel: entry}, {kernel:
+    max_abs_err})."""
+    import torch
+    from dsi_tpu_torch.device.postings import (postings_append,
+                                               postings_append_plain)
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.ops.meshroute import (compact_rows,
+                                             compact_rows_plain, route_dest)
+    from dsi_tpu_torch.parallel.tfidf import _wave_chunk, tfidf_wave_step
+
+    n_dev, kk = MESH_SHARDS, MWL // 4
+    size = 1 << max(8, max(len(r) for r in raws).bit_length())
+    cap = w.rung0_cap(size, TFIDF_U_CAP)
+    chunks = torch.from_numpy(_wave_chunk(raws, range(n_dev), n_dev,
+                                          size)).to(DEVICE)
+    ids = torch.arange(n_dev, dtype=torch.int32, device=DEVICE)
+    rows, scal = tfidf_wave_step(chunks, ids, n_dev=n_dev, n_reduce=N_REDUCE,
+                                 max_word_len=MWL, u_cap=cap)
+    r = rows.shape[1]
+    valid = torch.arange(r, device=DEVICE)[None, :] < scal[:, :1]
+    keys = torch.where(valid[..., None], rows[..., :kk], -1)
+    lens = torch.where(valid, rows[..., kk], 0)
+    dest = route_dest(keys.reshape(-1, kk), lens.reshape(-1),
+                      valid.reshape(-1), n_shards=n_dev,
+                      park=n_dev).view(n_dev, r)
+    out, errs = {}, {}
+
+    recv = w.shuffle_rows_plain(rows, dest, n_dev=n_dev, k=kk)
+    e_bytes = 4 * (rows.numel() + dest.numel() + recv.numel())
+    errs["route"] = _diff(w.shuffle_rows(rows, dest, n_dev=n_dev, k=kk),
+                          recv)
+    out["route"] = {
+        "max_abs_err": errs["route"],
+        "ms": cuda_ms(lambda: w.shuffle_rows(rows, dest, n_dev=n_dev,
+                                             k=kk), 10),
+        "plain_ms": cuda_ms(lambda: w.shuffle_rows_plain(
+            rows, dest, n_dev=n_dev, k=kk), 2),
+        "library_ms": None, "bytes": e_bytes,
+        "bound_ms": e_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "shape": f"mesh_append exchange: n_dev={n_dev} r={r} w={kk + 4} "
+                 f"-> {tuple(recv.shape)}"}
+
+    crows, n_recv = compact_rows_plain(recv, pad_lanes=1)
+    errs["compact"] = _worst(zip(compact_rows(recv, pad_lanes=1),
+                                 (crows, n_recv)))
+    flag = (recv[..., 0] == -1).to(torch.int8)
+    l_bytes = 2 * recv.numel() * 4 + 4 * n_dev
+    out["compact"] = {
+        "max_abs_err": errs["compact"],
+        "ms": cuda_ms(lambda: compact_rows(recv, pad_lanes=1), 10),
+        "plain_ms": cuda_ms(lambda: compact_rows_plain(recv, pad_lanes=1),
+                            2),
+        "library_ms": cuda_ms(lambda: torch.gather(
+            recv, 1, torch.argsort(flag, dim=1, stable=True)[
+                ..., None].expand_as(recv)), 2),
+        "bytes": l_bytes, "bound_ms": l_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "shape": f"{list(recv.shape)} pad_lanes 1, "
+                 f"{int(n_recv.sum())} valid"}
+
+    bcap = n_dev * cap
+    scal_m = n_recv.view(n_dev, 1).contiguous()
+    opts = {"dtype": torch.int32, "device": DEVICE}
+    zeros = torch.zeros(n_dev, **opts)
+    kb = torch.zeros((n_dev, bcap, kk + 4), **opts)
+    pb = kb.clone()
+    got = postings_append(kb, zeros, zeros, crows, scal_m)
+    want = postings_append_plain(pb, zeros, zeros, crows, scal_m)
+    errs["postings_append"] = _worst(zip((kb,) + tuple(got),
+                                         (pb,) + tuple(want)))
+    if int(got[2][:, 0].max()) != 0:
+        errs["postings_append"] = -1  # the wave fits: it had to commit
+    nr = int(n_recv.sum())
+    m_bytes = 2 * nr * (kk + 4) * 4 + 4 * 5 * n_dev
+    out["postings_append"] = {
+        "max_abs_err": errs["postings_append"],
+        "ms": cuda_ms(lambda: postings_append(kb, zeros, zeros, crows,
+                                              scal_m), 20),
+        "plain_ms": cuda_ms(lambda: postings_append_plain(
+            pb, zeros, zeros, crows, scal_m), 2),
+        "library_ms": None, "bytes": m_bytes,
+        "bound_ms": m_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "shape": f"rows {list(crows.shape)} into cap {bcap}, {nr} rows"}
     return out, errs
 
 
@@ -1729,12 +1918,12 @@ def main() -> int:
                                "its oracle covers one")
         tokens = sum(want_counts.values())
         tfidf_path(files, work, "tfidf_warm", tf_oracle, tokens)
-        tfidf = {}
+        tfidf, tf_res = {}, {}
         for tag, kw in (("tfidf", {}),
                         ("tfidf_acc", {"device_accumulate": True}),
                         ("tfidf_n8", {"n_dev": MESH_SHARDS})):
-            entry, _, fails = tfidf_path(files, work, tag, tf_oracle,
-                                         tokens, **kw)
+            entry, _, fails, tf_res[tag] = tfidf_path(
+                files, work, tag, tf_oracle, tokens, **kw)
             tfidf[tag] = entry
             failures += fails
             log({tag: {**entry, "gpu": gpu,
@@ -1746,6 +1935,70 @@ def main() -> int:
         if tfidf["tfidf_n8"]["wave_stats"].get("waves") != 1:
             failures.append("tfidf_n8: the eight documents took more than "
                             "one wave")
+
+        # Phase 10: the streaming indexer and the mesh-sharded postings.
+        ma_rows, ma_err = mesh_append_kernel_rows(raws)
+        log({"mesh_append_shapes": ma_rows, "gpu": gpu})
+        for name, e in ma_err.items():
+            err[name] = _merge_err(err[name], e)
+            if e != 0:
+                failures.append(f"{name} differs from its plain version at "
+                                "the mesh_append shape")
+        t0 = time.perf_counter()
+        idx_oracle, idx_top = indexer_oracle(files, work)
+        idx_oracle_s = time.perf_counter() - t0
+        indexer_path(files, work, "indexer_warm", idx_oracle, idx_top)
+        indexer, idx_res = {}, {}
+        for tag, kw in (("indexer", {}),
+                        ("indexer_acc", {"device_accumulate": True}),
+                        ("indexer_n8", {"n_dev": MESH_SHARDS}),
+                        ("indexer_mesh", {"n_dev": MESH_SHARDS,
+                                          "mesh_shards": MESH_SHARDS})):
+            entry, _, fails, idx_res[tag] = indexer_path(
+                files, work, tag, idx_oracle, idx_top, **kw)
+            indexer[tag] = entry
+            failures += fails
+            log({tag: {**entry, "gpu": gpu, "oracle_s": idx_oracle_s}})
+        entry, _, fails, tf_res["tfidf_mesh"] = tfidf_path(
+            files, work, "tfidf_mesh", tf_oracle, tokens, n_dev=MESH_SHARDS,
+            mesh_shards=MESH_SHARDS)
+        tfidf["tfidf_mesh"] = entry
+        failures += fails
+        log({"tfidf_mesh": {**entry, "gpu": gpu, "oracle_s": tf_oracle_s}})
+        ist = {k: v["wave_stats"] for k, v in indexer.items()}
+        if ist["indexer_acc"].get("append_overflows", 0) < 1:
+            failures.append("indexer_acc: no postings append overflowed")
+        for tag in ("indexer_acc", "indexer_mesh"):
+            if ist[tag].get("step_pulls", 1) != 0 or \
+                    ist[tag].get("folds", 0) < 1:
+                failures.append(f"{tag}: the device services did not take "
+                                "the waves")
+        if ist["indexer_n8"].get("waves") != 1:
+            failures.append("indexer_n8: the eight documents took more "
+                            "than one wave")
+        # The mesh paths against the same walk unsharded, posting order
+        # included, and their second route: D, E and L launch again in
+        # every mesh append (and D, E in every mesh df fold).
+        for tag, base_tag, same in (
+                ("indexer_mesh", "indexer_n8",
+                 idx_res["indexer_mesh"] == idx_res["indexer_n8"]),
+                ("tfidf_mesh", "tfidf_n8",
+                 tf_res["tfidf_mesh"].to_dict()
+                 == tf_res["tfidf_n8"].to_dict())):
+            runs = indexer if tag in indexer else tfidf
+            st = runs[tag]["wave_stats"]
+            if not same:
+                failures.append(f"{tag}: differs from {base_tag}")
+            if st.get("mesh_shards") != MESH_SHARDS:
+                failures.append(f"{tag}: the postings were not "
+                                "mesh-sharded")
+            for name in ("fnv", "route", "compact"):
+                extra = (runs[tag]["launches"][name]
+                         - runs[base_tag]["launches"][name])
+                if extra < max(1, st.get("appends", 0)):
+                    failures.append(f"{tag}: the mesh append launched "
+                                    f"{name} {extra} times for "
+                                    f"{st.get('appends')} appends")
 
     total_s = sum(phases.values())
     log({"slice": {
@@ -1768,7 +2021,10 @@ def main() -> int:
         "stream_mb_per_s": {k: v["mb_per_s"] for k, v in stream.items()},
         "grep_mb_per_s": {k: v["mb_per_s"] for k, v in grep.items()},
         "grep_oracle_mb_per_s": grep_bytes / grep_oracle_s / 1e6,
-        "tfidf_mb_per_s": {k: v["mb_per_s"] for k, v in tfidf.items()}}})
+        "tfidf_mb_per_s": {k: v["mb_per_s"] for k, v in tfidf.items()},
+        "indexer_mb_per_s": {k: v["mb_per_s"] for k, v in indexer.items()},
+        "indexer_oracle_mb_per_s": (indexer["indexer"]["input_bytes"]
+                                    / idx_oracle_s / 1e6)}})
 
     by_path = {"corpus": launch_main, "corpus_mwl64": launch64,
                "split": launch_split, "sharded": sharded[1]["launches"],
@@ -1779,7 +2035,8 @@ def main() -> int:
                "sharded_hash": launch_sharded_hash,
                "grep_tiers": launch_grep_tiers,
                **{k: v["launches"] for k, v in grep.items()},
-               **{k: v["launches"] for k, v in tfidf.items()}}
+               **{k: v["launches"] for k, v in tfidf.items()},
+               **{k: v["launches"] for k, v in indexer.items()}}
     for path, names in PATH_KERNELS.items():
         failures += [f"{name} never launched on the {path} path"
                      for name in names if by_path[path][name] < 1]
@@ -1807,6 +2064,8 @@ def main() -> int:
             row["at_shapes"] = {"mesh_fold": mesh_shapes[name]}
         if name == "hash_group":
             row["at_shapes"] = hash_shapes
+        if name in ma_rows:
+            row["at_shapes"]["mesh_append"] = ma_rows[name]
         kernels.append(row)
     log({"kernels": kernels})
     if failures:

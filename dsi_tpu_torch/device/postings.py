@@ -1,11 +1,13 @@
-"""Append-only postings buffer on the card for the TF-IDF wave walk.
+"""Append-only postings buffer on the card for the TF-IDF and indexer
+wave walks.
 
-Port of ``dsi_tpu/device/postings.py`` (``_append_device`` and the
-unsharded ``DevicePostings``).  A wave's output is postings, (word, len,
-tf, doc, part) rows that accumulate rather than merge, so the buffer is
-an append: each confirmed wave's valid rows go to ``[n_dev, cap, width]``
-at the shard's write offset, and the host pulls the buffer once per
-``sync_every`` waves (``device/policy.py``) or when it fills.
+Port of ``dsi_tpu/device/postings.py`` (``_append_device``,
+``_mesh_append_device`` and ``DevicePostings``).  A wave's output is
+postings, (word, len, tf, doc, part) rows that accumulate rather than
+merge, so the buffer is an append: each confirmed wave's valid rows go
+to ``[n_dev, cap, width]`` at the shard's write offset, and the host
+pulls the buffer once per ``sync_every`` waves (``device/policy.py``) or
+when it fills.
 
 * ``postings_append`` (K20a): kernel M (``csrc/postings_append.cu``).
   The write offsets, the sticky ``dirty`` bit and the wave's row counts
@@ -13,6 +15,15 @@ at the shard's write offset, and the host pulls the buffer once per
   a max over the leading dimension) and a no-op keeps the old buffer
   byte for byte, so the committed buffer is always an order-exact prefix
   of the appended waves.
+* ``mesh_postings_append`` (K20b, ``mesh_shards``): every valid row is
+  re-routed to shard ``ihash(word) % n_shards`` before the append, a
+  chain of the port's kernels: D (``route_dest``; rows past a shard's
+  count park on ``n_dev``), E (``exchange_rows``), L
+  (``compact_received``, the received rows valid-first in received
+  order) and M, given the compacted rows and L's counts.  A word's rows
+  come from one source shard (the wave's shuffle grouped them) and E
+  keeps source order, so per-word posting order survives the re-route;
+  the overflow stays global and ``dirty`` sticky, as M computes them.
 * flags are confirmed ``lag`` appends late, as the device table's are:
   a ``non_blocking`` copy into pinned memory with a CUDA event, waited
   on only when the append leaves the window.  An append that overflowed
@@ -21,8 +32,7 @@ at the shard's write offset, and the host pulls the buffer once per
   an empty buffer that one wave does not fit.  Overflow is an early sync
   or a widen, never a loss, and wave order in the sink is kept.
 
-The mesh-sharded append (``_mesh_append_device``, K20b) and the
-checkpoint image are not ported yet.  ``stats`` receives ``appends``,
+The checkpoint image is not ported yet.  ``stats`` receives ``appends``,
 ``append_overflows``, ``sync_pulls``, ``postings_widens``,
 ``pull_bytes``, ``append_s`` and ``drain_s``.
 """
@@ -35,7 +45,10 @@ from typing import Callable, Deque, Optional, Tuple
 import numpy as np
 import torch
 
+from dsi_tpu_torch.ops.meshroute import (compact_received, exchange_rows,
+                                         route_dest)
 from dsi_tpu_torch.ops.wordcount import (
+    _PAD_KEY32,
     HostCopy,
     _launch,
     _lib,
@@ -111,6 +124,27 @@ def postings_append(buf, n, dirty, rows, scal):
     return n_out, dirty_out, flags
 
 
+def mesh_postings_append(buf, n, dirty, rows, scal, *, kk: int,
+                         n_shards: int):
+    """K20b (reference ``_mesh_append_device`` :104-141): re-route the
+    wave's rows ``rows`` [n_dev, r, w] (the first ``scal[d, 0]`` of each
+    shard valid; ``kk`` key lanes then the length) to shard ``ihash(word)
+    % n_shards`` with D and E, compact what each shard received with L,
+    and append it with M.  The received rows can number ``n_dev * r`` on
+    one shard.  Returns M's (n_out, dirty_out, flags)."""
+    n_dev, r, _ = rows.shape
+    valid = (torch.arange(r, device=rows.device)[None, :]
+             < scal[:, :1])
+    keys = torch.where(valid[..., None], rows[..., :kk], _PAD_KEY32)
+    lens = torch.where(valid, rows[..., kk], 0)
+    dest = route_dest(keys.reshape(-1, kk), lens.reshape(-1),
+                      valid.reshape(-1), n_shards=n_shards, park=n_dev)
+    recv = exchange_rows(rows, dest.view(n_dev, r), n_dev=n_dev, kk=kk)
+    crows, n_recv = compact_received(recv)
+    return postings_append(buf, n, dirty, crows,
+                           n_recv.view(n_dev, 1))
+
+
 def _not_ported(what: str) -> NotImplementedError:
     from dsi_tpu_torch.parallel.streaming import _not_ported as nie
 
@@ -123,17 +157,30 @@ class DevicePostings:
     confirmed ``lag`` appends later.  Drains hand each shard's occupied
     rows to ``sink`` (one ``[n, width]`` uint32 block per shard, shard
     order, wave order kept), on ``sync`` (the K-wave cadence), ``close``
-    (end of walk) or overflow recovery."""
+    (end of walk) or overflow recovery.
+
+    ``mesh_shards`` > 0 (at most ``n_dev``) appends through
+    :func:`mesh_postings_append`: buffered postings shard by key, not by
+    the wave's partition placement.  ``kk`` is the key-lane count
+    (default ``width - 4``, the (keys, len, payload...) layout of both
+    wave walks)."""
 
     def __init__(self, n_dev: int, *, width: int, cap: int,
                  sink: Callable[[np.ndarray], None], device,
-                 lag: int = 0, stats: Optional[dict] = None):
+                 lag: int = 0, stats: Optional[dict] = None,
+                 mesh_shards: int = 0, kk: Optional[int] = None):
         self.n_dev = int(n_dev)
         self.width = int(width)
         self.cap = _pow2(cap)
         self.sink = sink
         self.device = torch.device(device)
         self.lag = max(0, int(lag))
+        self.mesh_shards = max(0, int(mesh_shards))
+        self.kk = int(kk) if kk is not None else self.width - 4
+        if self.mesh_shards > self.n_dev:
+            raise ValueError(
+                f"mesh_shards={self.mesh_shards} exceeds the mesh size "
+                f"({self.n_dev} shards)")
         self.stats = stats if stats is not None else {}
         for key in ("appends", "append_overflows", "sync_pulls",
                     "postings_widens", "pull_bytes"):
@@ -157,8 +204,13 @@ class DevicePostings:
     # ── the append path ──
 
     def _dispatch(self, rows_dev, scal_dev) -> HostCopy:
-        self._n, self._dirty, flags = postings_append(
-            self._buf, self._n, self._dirty, rows_dev, scal_dev)
+        if self.mesh_shards:
+            self._n, self._dirty, flags = mesh_postings_append(
+                self._buf, self._n, self._dirty, rows_dev, scal_dev,
+                kk=self.kk, n_shards=self.mesh_shards)
+        else:
+            self._n, self._dirty, flags = postings_append(
+                self._buf, self._n, self._dirty, rows_dev, scal_dev)
         return HostCopy(flags)
 
     def append(self, rows_dev, scal_dev) -> None:
@@ -213,7 +265,11 @@ class DevicePostings:
             if flags_np[:, 0].any():
                 # A lone wave larger than the whole empty buffer: grow
                 # it to hold the wave (the new allocation clears dirty).
-                self.cap = _pow2(max(4 * self.cap, int(rows_dev.shape[-2])))
+                # The mesh route can deliver every shard's rows of one
+                # wave to one shard.
+                wave_rows = int(rows_dev.shape[-2]) * (
+                    self.n_dev if self.mesh_shards else 1)
+                self.cap = _pow2(max(4 * self.cap, wave_rows))
                 self._alloc(self.cap)
                 self._nrows[:] = 0
                 self.stats["postings_widens"] += 1

@@ -1,4 +1,4 @@
-"""Streaming grep on the card: the grep half of
+"""Streaming grep and the streaming indexer on the card: port of
 ``dsi_tpu/parallel/grepstream.py``.
 
 The grep engine on the port's shared pipeline core (``pipeline.py``): a
@@ -25,17 +25,28 @@ Per-(step, shard) top-k pruning is exact: a line in the global top-k is in
 the top-k of its own step and shard under the same order.
 
 The engine returns None only when the stream needs the host path (a
-non-literal pattern, or a line wider than the chunk).  Not ported yet,
-each raising ``NotImplementedError`` naming its ROADMAP item: ``aot``,
-checkpoints and ``resume``, ``line_sink`` (the plan layer's emit
-handoff) and ``input_range``; the indexer half of the reference module
-waits for the indexer.
+non-literal pattern, or a line wider than the chunk).
+
+The indexer (``indexer_streaming``) is the TF-IDF wave walk
+(``parallel/tfidf.py``) with one posting row per distinct word per
+document: a wave (K19, :func:`indexer_wave_step`) is the TF-IDF wave
+with the tf lane 1, plus the df rows in the device table's layout.
+Confirmed waves go to the host's ``PostingsTable``, or with
+``device_accumulate`` append into ``DevicePostings`` (kernel M; with
+``mesh_shards`` the re-routed append, D, E, L, M) while their df rows
+fold into a ``DeviceTopK``.  The result is the postings (per-word doc
+order = wave order) and the df top-k (df descending, word ascending);
+``write_indexer_output`` writes the host indexer app's ``mr-out-*``.
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: ``aot``, checkpoints and ``resume``, ``line_sink``,
+``keep_services`` (the plan layer's handoffs) and ``input_range``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterable, List, NamedTuple, Optional, Tuple
+from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +55,7 @@ from dsi_tpu_torch.device.policy import SyncPolicy, mesh_shards_default
 from dsi_tpu_torch.device.table import _pow2
 from dsi_tpu_torch.device.topk import DeviceHistogram, DeviceTopK, KeyCounts
 from dsi_tpu_torch.ops.grepk import is_literal_pattern, line_cap_rungs
+from dsi_tpu_torch.ops.meshroute import compact_rows
 from dsi_tpu_torch.ops.wordcount import (
     HostCopy,
     _launch,
@@ -53,8 +65,12 @@ from dsi_tpu_torch.ops.wordcount import (
     _require,
     _stream,
     _u32_bits,
+    grouper_ladder,
     resolve_device,
+    rung0_cap,
+    to_device,
 )
+from dsi_tpu_torch.parallel.merge import PackedCounts, PostingsTable
 from dsi_tpu_torch.parallel.pipeline import (
     BufferPool,
     StepPipeline,
@@ -62,8 +78,18 @@ from dsi_tpu_torch.parallel.pipeline import (
     pipeline_depth,
     timed,
 )
+from dsi_tpu_torch.parallel.shuffle import occupied_prefix
 from dsi_tpu_torch.parallel.stepobj import EngineStep
 from dsi_tpu_torch.parallel.streaming import _not_ported
+from dsi_tpu_torch.parallel.tfidf import (
+    WaveWalkStep,
+    _check_rung,
+    _postings_buffer,
+    _replay_ladder,
+    _wave_items,
+    plan_waves,
+    wave_received,
+)
 
 #: Histogram buckets for per-line match counts: bucket b < bins-1 holds
 #: lines with exactly b occurrences, the last bucket everything wider.
@@ -586,3 +612,316 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
 
     step._on_complete = on_complete
     step._release = release
+
+
+# ── the streaming indexer ──────────────────────────────────────────────
+
+
+def indexer_wave_step(chunks: torch.Tensor, doc_ids: torch.Tensor, *,
+                      n_dev: int, n_reduce: int, max_word_len: int,
+                      u_cap: int, t_cap_frac: int = 4,
+                      grouper: str = "sort"):
+    """One indexer wave (K19, reference ``_idx_device_step`` :1101 under
+    ``_idx_wave_step_impl`` :1148): the TF-IDF wave (kernels A-E, then
+    L) with the tf lane 1 on every row, one posting row per distinct word
+    per document.  ``chunks`` [n_dev, L] uint8, one zero-padded document
+    a shard; ``doc_ids`` [n_dev] int32.  Runs where the tensors lie and
+    never waits on the card.
+
+    Returns per-shard posting rows [n_dev, n_dev*u_cap, K+4] int32 (u32
+    bits: key lanes, len, 1, doc, part), valid rows first in received
+    order, then the pad rows; the df rows [n_dev, n_dev*u_cap, K+3], the
+    same rows without the doc lane (``DeviceTable``'s (keys, len, count,
+    part) layout, count 1); and [n_dev, 5] int32 scalars (n_rows,
+    n_unique, max_len, has_high, token_overflow)."""
+    k = max_word_len // 4
+    recv, map_scal = wave_received(
+        chunks, doc_ids, n_dev=n_dev, n_reduce=n_reduce,
+        max_word_len=max_word_len, u_cap=u_cap, t_cap_frac=t_cap_frac,
+        grouper=grouper, tf_ones=True)
+    srecv, n_rows = compact_rows(recv, pad_lanes=2)
+    df = torch.cat([srecv[..., :k + 2], srecv[..., k + 3:k + 4]], dim=2)
+    return srecv, df, torch.cat([n_rows[:, None], map_scal], dim=1)
+
+
+class IndexerStep(WaveWalkStep):
+    """Step object over the streaming indexer's wave walk
+    (``parallel/stepobj.py`` lifecycle, the word-window ladder of
+    ``parallel/tfidf.py WaveWalkStep``); parameters as
+    :func:`indexer_streaming`."""
+
+    def __init__(self, docs: Sequence[bytes], n_dev: int = 1,
+                 n_reduce: int = 10, max_word_len: int = 16,
+                 u_cap: int = 1 << 15, depth: Optional[int] = None,
+                 device_accumulate: bool = False,
+                 sync_every: Optional[int] = None,
+                 mesh_shards: Optional[int] = None,
+                 topk: int = DEFAULT_TOPK, stats: Optional[dict] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: Optional[int] = None,
+                 checkpoint_async: Optional[bool] = None,
+                 checkpoint_delta: Optional[bool] = None,
+                 resume: bool = False, keep_services: bool = False,
+                 input_range: Optional[Tuple[int, int]] = None,
+                 device=None):
+        super().__init__()
+        if (checkpoint_dir or checkpoint_every or checkpoint_async
+                or checkpoint_delta or resume):
+            raise _not_ported("checkpointing", "checkpoints")
+        if keep_services or input_range is not None:
+            raise _not_ported("keep_services/input_range",
+                              "the plan and serving layers")
+        _indexer_setup(self, docs, n_dev, n_reduce, max_word_len, u_cap,
+                       depth, device_accumulate, sync_every, mesh_shards,
+                       topk, stats, resolve_device(device))
+
+
+def indexer_streaming(
+        docs: Sequence[bytes], n_dev: int = 1, n_reduce: int = 10,
+        max_word_len: int = 16, u_cap: int = 1 << 15,
+        depth: Optional[int] = None, device_accumulate: bool = False,
+        sync_every: Optional[int] = None,
+        mesh_shards: Optional[int] = None, topk: int = DEFAULT_TOPK,
+        stats: Optional[dict] = None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: Optional[int] = None,
+        checkpoint_async: Optional[bool] = None,
+        checkpoint_delta: Optional[bool] = None, resume: bool = False,
+        device=None):
+    """Whole-corpus inverted index in waves of ``n_dev`` documents over
+    ``n_dev`` virtual shards on ``device`` (None = the card), ``depth``
+    waves in flight (default ``DSI_STREAM_PIPELINE_DEPTH``, 2).
+
+    Returns ``(postings, topk)``: ``postings`` is ``{word: (part, [doc
+    indices in wave order])}`` and ``topk`` ``((df, word), ...)``, the
+    ``topk`` words of highest document frequency, df descending, word
+    ascending; or None when a document needs the host path (non-ASCII
+    bytes, a word longer than 64).  The exactness discipline is
+    ``tfidf_sharded``'s: waves dispatch at a sticky (capacity, grouper,
+    frac) rung, a wave's scalars are checked when it leaves the window, a
+    failed check replays exactly that wave, and a word wider than the
+    packed window restarts the walk at the 64-byte rung.
+
+    ``device_accumulate=True`` appends each confirmed wave's posting rows
+    into the card's :class:`~dsi_tpu_torch.device.postings.DevicePostings`
+    and folds its df rows into a
+    :class:`~dsi_tpu_torch.device.topk.DeviceTopK` on the same
+    confirmation; both are pulled every ``sync_every`` waves (default
+    ``DSI_STREAM_SYNC_EVERY``, 8; the top-k as a k-row snapshot) and
+    drained at the end.  ``DSI_DEVICE_POSTINGS_CAP`` and
+    ``DSI_DEVICE_TOPK_CAP`` set their starting capacities.
+    ``mesh_shards`` (default ``DSI_STREAM_MESH_SHARDS``, 0 = off; implies
+    ``device_accumulate``) re-routes both services by ``ihash(word) %
+    mesh_shards``.  Postings (per-word order included) and the top-k are
+    the same in every mode.
+
+    ``stats`` receives ``tfidf_sharded``'s wave counters and seconds,
+    ``finalize_s`` (building the result on the host) and the services'
+    counters (``folds``, ``widens``, ``topk_snapshots``, ...).  The
+    checkpoint arguments keep the reference's signature and raise
+    ``NotImplementedError``.
+    """
+    return IndexerStep(
+        docs, n_dev=n_dev, n_reduce=n_reduce, max_word_len=max_word_len,
+        u_cap=u_cap, depth=depth, device_accumulate=device_accumulate,
+        sync_every=sync_every, mesh_shards=mesh_shards, topk=topk,
+        stats=stats, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every, checkpoint_async=checkpoint_async,
+        checkpoint_delta=checkpoint_delta, resume=resume,
+        device=device).close()
+
+
+def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
+                   depth, device_accumulate, sync_every, mesh_shards, topk,
+                   stats, dev: torch.device):
+    """The engine body behind :class:`IndexerStep`: corpus-wide setup,
+    then ``begin_rung`` arms the pipeline and attaches the lifecycle
+    hooks."""
+    depth = pipeline_depth(depth)
+    # ``mesh_shards`` re-routes the postings buffer AND the df top-k by
+    # ``ihash(word) % n_shards``: word state shards by key.
+    mesh_shards = mesh_shards_default(mesh_shards)
+    if mesh_shards:
+        device_accumulate = True
+    doc_lens = getattr(docs, "lengths", None)
+    if doc_lens is None:
+        doc_lens = [len(d) for d in docs]
+    waves = plan_waves(doc_lens, n_dev)
+    longest = max(doc_lens, default=1)
+    size_max = 1 << max(8, int(longest).bit_length())
+    n_real = len(docs)
+    st = {"waves": len(waves), "step_pulls": 0, "depth": depth,
+          "replays": 0, "device_accumulate": device_accumulate,
+          "upload_s": 0.0, "dispatch_s": 0.0, "kernel_s": 0.0,
+          "pull_s": 0.0, "merge_s": 0.0, "replay_s": 0.0,
+          "finalize_s": 0.0, "sync_pulls": 0}
+    groupers = grouper_ladder(dev)
+
+    def begin_rung(mwl: int):
+        kk = mwl // 4
+        table = PostingsTable()
+        # Sticky dispatch rung: only ever moves toward more headroom.
+        state = {"cap": rung0_cap(size_max, u_cap),
+                 "grouper": groupers[0], "frac": 4}
+        outcome = {"high": False}
+
+        def buffer_rows(r: np.ndarray) -> None:
+            """One shard's pulled posting rows into the host table, the
+            short last wave's padding documents filtered first."""
+            r = r[r[:, kk + 2] < n_real]
+            if len(r):
+                table.add(r, kk)
+
+        # The df table is made at the first confirmed wave, sized by it.
+        topk_svc: Optional[DeviceTopK] = None
+        df_acc = PackedCounts()
+        buf_dev = policy = None
+        if device_accumulate:
+            buf_dev, policy = _postings_buffer(
+                n_dev, kk, n_dev * state["cap"], buffer_rows, dev, depth, st,
+                mesh_shards, sync_every)
+
+        def wave_call(chunk_np, ids_np, cap, frac, g):
+            """Upload and launch one wave at one rung; no waiting."""
+            with timed(st, "upload_s"):
+                chunks = to_device(chunk_np.reshape(-1), dev).view(n_dev, -1)
+                ids = torch.as_tensor(ids_np, device=dev)
+            with timed(st, "dispatch_s"):
+                return indexer_wave_step(chunks, ids, n_dev=n_dev,
+                                         n_reduce=n_reduce, max_word_len=mwl,
+                                         u_cap=cap, t_cap_frac=frac,
+                                         grouper=g)
+
+        def dispatch(item):
+            chunk_np, ids_np = item
+            rows, df, scal = wave_call(chunk_np, ids_np, state["cap"],
+                                       state["frac"], state["grouper"])
+            return (chunk_np, ids_np, rows, df, scal, HostCopy(scal),
+                    state["cap"])
+
+        def replay_wave(chunk_np, ids_np):
+            """The exactness ladder for ONE wave; the rung that cleared
+            sticks."""
+            st["replays"] += 1
+            with timed(st, "replay_s"):
+                (rows, df, scal), scal_np, rung = _replay_ladder(
+                    lambda cap, frac, g: wave_call(chunk_np, ids_np, cap,
+                                                   frac, g),
+                    groupers, state["cap"], mwl, outcome)
+            state["cap"], state["grouper"], state["frac"] = rung
+            return rows, df, scal, scal_np
+
+        def commit(rows, df, scal, scal_np):
+            nonlocal topk_svc
+            m = int(scal_np[:, 0].max())
+            if m == 0:
+                return
+            if buf_dev is not None:
+                # The df fold rides the SAME confirmation: only waves the
+                # postings path accepted fold their frequency rows.
+                if topk_svc is None:
+                    # Rung-0 capacity: the wave's row count (one fold
+                    # never overflows it) unless DSI_DEVICE_TOPK_CAP asks
+                    # for less.
+                    topk_svc = DeviceTopK(
+                        n_dev, kk=kk, cap=_topk_cap_env() or int(df.shape[1]),
+                        k=topk, acc=df_acc, device=dev,
+                        lag=max(0, depth - 1), stats=st,
+                        mesh_shards=mesh_shards)
+                pulls_before = st["sync_pulls"]
+                buf_dev.append(rows, scal)
+                topk_svc.fold(df, scal, scal_np)
+                policy.note_fold()
+                if st["sync_pulls"] != pulls_before:
+                    policy.reset()  # an overflow recovery just drained:
+                    # that was this window's pull
+                elif policy.due():
+                    buf_dev.sync()
+                    topk_svc.sync()
+                    policy.reset()
+                return
+            # Pull only the occupied prefix (pow2-rounded): the copy
+            # tracks this wave's postings, not the capacity.
+            with timed(st, "pull_s"):
+                mp = occupied_prefix(m, rows.shape[1])
+                rows_np = rows[:, :mp].cpu().numpy().view(np.uint32)
+                st["step_pulls"] += 1
+            with timed(st, "merge_s"):
+                for d in range(n_dev):
+                    nr = int(scal_np[d, 0])
+                    if nr:
+                        buffer_rows(rows_np[d, :nr])
+
+        def finish(rec):
+            """Retire the oldest in-flight wave: deferred scalar check,
+            then commit (clean) or replay at a wider rung (overflow)."""
+            chunk_np, ids_np, rows, df, scal, scal_host, cap = rec
+            with timed(st, "kernel_s"):
+                scal_np = scal_host.wait()  # blocks until the wave lands
+            _check_rung(scal_np, mwl, outcome)
+            if scal_np[:, 4].any() or int(scal_np[:, 1].max()) > cap:
+                # Late-found overflow: replay just this wave, exactly once.
+                rows, df, scal, scal_np = replay_wave(chunk_np, ids_np)
+            commit(rows, df, scal, scal_np)
+
+        pipe = StepPipeline(depth=depth, dispatch=dispatch, finish=finish,
+                            stats=st, produce_key="materialize_s",
+                            wait_key="materialize_wait_s",
+                            inflight_key="max_inflight_waves",
+                            thread_name="dsi-idx-materializer")
+        step._pipe = pipe
+        step._mwl = mwl
+        step._outcome = outcome
+        pipe.begin(lambda: _wave_items(docs, waves, n_dev))
+
+        def end_ok():
+            if buf_dev is not None:
+                buf_dev.close()  # end-of-walk drain
+                if topk_svc is not None:
+                    topk_svc.close()
+            with timed(st, "finalize_s"):
+                postings = {w: (part, [d for d, _ in pairs])
+                            for w, (part, pairs) in table.finalize().items()}
+                if topk_svc is not None:
+                    df_map = {w: c for w, (c, _) in df_acc.finalize().items()}
+                else:
+                    df_map = {w: len(ds) for w, (_, ds) in postings.items()}
+                top = tuple(sorted(((c, w) for w, c in df_map.items()),
+                                   key=lambda r: (-r[0], r[1]))[:topk])
+            step.result = (postings, top)
+
+        step._on_complete = end_ok
+
+    # The word-window ladder: a word wider than the packed window re-keys
+    # every row, so that overflow class restarts the walk at 64.
+    step._rungs = ((max_word_len, 64) if max_word_len < 64
+                   else (max_word_len,))
+    step._begin_rung = begin_rung
+
+    released = []
+
+    def release():
+        if released:
+            return
+        released.append(True)
+        fold_source_stats(st, docs)  # a doc source may pool-read too
+        if stats is not None:
+            stats.update(st)
+
+    step._release = release
+    begin_rung(step._rungs[0])
+
+
+def write_indexer_output(result, doc_names: Sequence[str], n_reduce: int,
+                         workdir: str = ".") -> List[str]:
+    """``mr-out-<r>`` files byte-identical to the host indexer app's
+    reduce output (``"<count> <doc1>,<doc2>,..."``, documents sorted and
+    deduplicated), through the shared partitioned writer."""
+    from dsi_tpu_torch.parallel.shuffle import write_partitioned_output
+
+    postings, _ = result if isinstance(result, tuple) else (result, ())
+    formatted = {}
+    for w, (part, doc_ids) in postings.items():
+        names = sorted({doc_names[d] for d in doc_ids})
+        formatted[w] = (f"{len(names)} {','.join(names)}", part)
+    return write_partitioned_output(formatted, n_reduce, workdir)

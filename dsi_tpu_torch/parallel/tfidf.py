@@ -24,12 +24,13 @@ its rung replays alone through the ladder at a wider, then sticky,
 ``PostingsTable`` (``parallel/merge.py``), one sliced pull a wave, or,
 with ``device_accumulate``, append into the card's postings buffer
 (``device/postings.py``, kernel M) that the host drains every
-``sync_every`` waves.  Scores are formatted at output time by the app's
+``sync_every`` waves; with ``mesh_shards`` the buffer re-routes every
+appended row to shard ``ihash(word) % n_shards`` first (kernels D, E, L,
+then M).  Scores are formatted at output time by the app's
 ``format_value``, so ``mr-out-*`` equal the sequential oracle's bytes.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh_shards`` (the mesh-sharded postings append), checkpoints
-and ``input_range``.
+item): checkpoints and ``input_range``.
 """
 
 from __future__ import annotations
@@ -65,11 +66,15 @@ from dsi_tpu_torch.parallel.streaming import _not_ported
 
 def wave_received(chunks: torch.Tensor, doc_ids: torch.Tensor, *,
                   n_dev: int, n_reduce: int, max_word_len: int, u_cap: int,
-                  t_cap_frac: int = 4, grouper: str = "sort"):
+                  t_cap_frac: int = 4, grouper: str = "sort",
+                  tf_ones: bool = False):
     """The wave's map and shuffle (kernels A-E): per shard, its received
     rows [n_dev, n_dev*u_cap, K+4] int32 in received order (source blocks
     in shard order, each its rows then pad rows), and the map's [n_dev, 4]
-    int32 scalars (n_unique, max_len, has_high, token_overflow)."""
+    int32 scalars (n_unique, max_len, has_high, token_overflow).
+
+    The tf lane carries each word's count in its document, or 1 with
+    ``tf_ones`` (the indexer's posting rows, one per distinct word)."""
     if chunks.dim() != 2 or chunks.shape[0] != n_dev \
             or tuple(doc_ids.shape) != (n_dev,):
         raise ValueError(f"tfidf wave: chunks {tuple(chunks.shape)} "
@@ -82,6 +87,8 @@ def wave_received(chunks: torch.Tensor, doc_ids: torch.Tensor, *,
             max_word_len=max_word_len, u_cap=u_cap, t_cap_frac=t_cap_frac,
             grouper=grouper)
         doc = doc_ids[s:s + 1].expand(u_cap)
+        if tf_ones:
+            cnt_u = torch.ones_like(cnt_u)
         rows.append(torch.cat([packed_u, len_u[:, None], cnt_u[:, None],
                                doc[:, None], part[:, None]], dim=1))
         dests.append(dest)
@@ -144,14 +151,97 @@ class _AbortRung(Exception):
     pipeline."""
 
 
-class TfidfStep(EngineStep):
-    """Step object over the TF-IDF wave walk (``parallel/stepobj.py``
-    lifecycle); parameters as :func:`tfidf_sharded`.  A wave proving the
-    word window too narrow tears the rung down and the walk restarts at
-    the 64-byte rung; non-ASCII input, or a word wider than 64 bytes,
-    routes to the host path."""
+def _check_rung(scal_np: np.ndarray, mwl: int, outcome: dict) -> None:
+    """A wave's word-window check: non-ASCII input (``outcome["high"]``)
+    or a word wider than ``mwl`` discards the rung (``_AbortRung``)."""
+    if bool(scal_np[:, 3].any()):
+        outcome["high"] = True
+        raise _AbortRung
+    if int(scal_np[:, 2].max()) > mwl:
+        raise _AbortRung
+
+
+def _replay_ladder(call, groupers: Sequence[str], cap: int, mwl: int,
+                   outcome: dict):
+    """The full exactness ladder for ONE wave, the replay path of a
+    failed deferred check: ``call(cap, frac, grouper)`` launches the wave
+    (its last output the scalars), through each grouper and token-buffer
+    fraction until the tokens fit, then x4 capacity until the uniques
+    do.  Returns (outputs, scalars on the host, (cap, grouper, frac)),
+    the rung that cleared."""
+    while True:
+        for g in groupers:
+            for frac in (4, 2):
+                out = call(cap, frac, g)
+                scal_np = out[-1].cpu().numpy()
+                if not scal_np[:, 4].any():
+                    break
+            if not scal_np[:, 4].any():
+                break
+        _check_rung(scal_np, mwl, outcome)
+        if int(scal_np[:, 1].max()) > cap:
+            cap *= 4  # uniques <= tokens <= size/2: terminates
+            continue
+        return out, scal_np, (cap, g, frac)
+
+
+def _wave_items(docs, waves, n_dev: int):
+    """Each wave's (chunk [n_dev, size] uint8, doc ids [n_dev] int32),
+    built when it comes up.  Padding slots of a short last wave carry doc
+    id ``len(docs)``, which the engines' sinks discard."""
+    n_real = len(docs)
+    for idxs, size in waves:
+        ids = np.array(list(idxs) + [n_real] * (n_dev - len(idxs)),
+                       dtype=np.int32)
+        yield _wave_chunk(docs, idxs, n_dev, size), ids
+
+
+def _postings_buffer(n_dev: int, kk: int, cap: int, sink, dev, depth: int,
+                     stats: dict, mesh_shards: int, sync_every):
+    """A rung's postings buffer on the card and its sync policy.  The
+    capacity is ``cap`` (one worst-case wave, so drain-and-retry always
+    fits) unless ``DSI_DEVICE_POSTINGS_CAP`` trims it (overflow then just
+    syncs earlier, or widens for a lone larger wave)."""
+    try:
+        pcap = int(os.environ.get("DSI_DEVICE_POSTINGS_CAP", "0"))
+    except ValueError:
+        pcap = 0
+    buf = DevicePostings(n_dev, width=kk + 4, cap=pcap if pcap > 0 else cap,
+                         sink=sink, device=dev, lag=max(0, depth - 1),
+                         stats=stats, mesh_shards=mesh_shards, kk=kk)
+    policy = SyncPolicy(sync_every)
+    stats["sync_every"] = policy.sync_every
+    stats["mesh_shards"] = mesh_shards
+    return buf, policy
+
+
+class WaveWalkStep(EngineStep):
+    """Step object base of the wave walks (TF-IDF here, the indexer in
+    ``parallel/grepstream.py``): a wave proving the word window too
+    narrow tears the rung down and the walk restarts at the 64-byte
+    rung; non-ASCII input, or a word wider than 64 bytes, routes to the
+    host path.  The engine's setup sets ``_rungs``, ``_begin_rung``,
+    ``_mwl`` and ``_outcome``."""
 
     _rung_excs = (_AbortRung,)
+
+    def _next_rung(self) -> bool:
+        self._pipe.end()
+        if not self._outcome["high"]:
+            nxt = [m for m in self._rungs if m > self._mwl]
+            if nxt:
+                self._begin_rung(nxt[0])
+                return True
+        # Non-ASCII, or a word wider than 64 bytes: the host path's job.
+        self.result = None
+        self._phase = "hostpath"
+        return False
+
+
+class TfidfStep(WaveWalkStep):
+    """Step object over the TF-IDF wave walk (``parallel/stepobj.py``
+    lifecycle, the word-window ladder of :class:`WaveWalkStep`);
+    parameters as :func:`tfidf_sharded`."""
 
     def __init__(self, docs: Sequence[bytes], n_dev: int = 1,
                  n_reduce: int = 10, max_word_len: int = 16,
@@ -174,24 +264,9 @@ class TfidfStep(EngineStep):
             raise _not_ported("checkpointing", "checkpoints")
         if input_range is not None:
             raise _not_ported("input_range", "the plan and serving layers")
-        if mesh_shards_default(mesh_shards):
-            raise _not_ported("mesh_shards",
-                              "the mesh-sharded postings append")
         _tfidf_setup(self, docs, n_dev, n_reduce, max_word_len, u_cap,
                      partitions, packed, device_accumulate, sync_every,
-                     wave_stats, depth, resolve_device(device))
-
-    def _next_rung(self) -> bool:
-        self._pipe.end()
-        if not self._outcome["high"]:
-            nxt = [m for m in self._rungs if m > self._mwl]
-            if nxt:
-                self._begin_rung(nxt[0])
-                return True
-        # Non-ASCII, or a word wider than 64 bytes: the host path's job.
-        self.result = None
-        self._phase = "hostpath"
-        return False
+                     mesh_shards, wave_stats, depth, resolve_device(device))
 
 
 def tfidf_sharded(
@@ -240,9 +315,13 @@ def tfidf_sharded(
     ``sync_pulls``, ``postings_widens``, ``pull_bytes``, ``append_s``,
     ``drain_s`` and ``sync_every``.
 
-    ``mesh_shards`` (also ``DSI_STREAM_MESH_SHARDS``), the checkpoint
-    arguments and ``input_range`` keep the reference's signature and
-    raise ``NotImplementedError``.
+    ``mesh_shards`` (default ``DSI_STREAM_MESH_SHARDS``, 0 = off; at
+    most ``n_dev``; implies ``device_accumulate``) re-routes the buffered
+    rows by ``ihash(word) % mesh_shards`` inside the append
+    (``device/postings.py mesh_postings_append``); the result, posting
+    order included, is the same.  The checkpoint arguments and
+    ``input_range`` keep the reference's signature and raise
+    ``NotImplementedError``.
     """
     return TfidfStep(
         docs, n_dev=n_dev, n_reduce=n_reduce, max_word_len=max_word_len,
@@ -257,10 +336,15 @@ def tfidf_sharded(
 
 def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
                  partitions, packed, device_accumulate, sync_every,
-                 wave_stats, depth, dev: torch.device):
+                 mesh_shards, wave_stats, depth, dev: torch.device):
     """The engine body behind :class:`TfidfStep`: corpus-wide setup, then
     ``begin_rung`` arms the pipeline and attaches the lifecycle hooks."""
     depth = pipeline_depth(depth)
+    # ``mesh_shards`` re-routes the postings buffer by ``ihash(word) %
+    # n_shards`` inside its append; it needs the buffer.
+    mesh_shards = mesh_shards_default(mesh_shards)
+    if mesh_shards:
+        device_accumulate = True
     doc_lens = getattr(docs, "lengths", None)
     if doc_lens is None:
         doc_lens = [len(d) for d in docs]
@@ -300,32 +384,11 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
             if len(r):
                 table.add(r, kk)
 
-        buf_dev = None
-        policy = None
+        buf_dev = policy = None
         if device_accumulate:
-            # One worst-case wave by default (so drain-and-retry always
-            # fits); DSI_DEVICE_POSTINGS_CAP trims it (overflow then just
-            # syncs earlier, or widens for a lone larger wave).
-            try:
-                pcap = int(os.environ.get("DSI_DEVICE_POSTINGS_CAP", "0"))
-            except ValueError:
-                pcap = 0
-            buf_dev = DevicePostings(
-                n_dev, width=kk + 4,
-                cap=pcap if pcap > 0 else n_dev * state["cap"],
-                sink=buffer_rows, device=dev, lag=max(0, depth - 1),
-                stats=stats)
-            policy = SyncPolicy(sync_every)
-            stats["sync_every"] = policy.sync_every
-
-        def materialize():
-            for idxs, size in waves:
-                chunk_np = _wave_chunk(docs, idxs, n_dev, size)
-                # Padding slots of a short last wave carry doc id n_real,
-                # which buffer_rows discards.
-                ids_np = np.array(list(idxs) + [n_real] * (n_dev - len(idxs)),
-                                  dtype=np.int32)
-                yield (size, chunk_np, ids_np)
+            buf_dev, policy = _postings_buffer(
+                n_dev, kk, n_dev * state["cap"], buffer_rows, dev, depth,
+                stats, mesh_shards, sync_every)
 
         def wave_call(chunk_np, ids_np, cap, frac, g):
             """Upload and launch one wave at one rung; no waiting."""
@@ -338,38 +401,22 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
                                        u_cap=cap, t_cap_frac=frac, grouper=g)
 
         def dispatch(item):
-            size, chunk_np, ids_np = item
+            chunk_np, ids_np = item
             rows, scal = wave_call(chunk_np, ids_np, state["cap"],
                                    state["frac"], state["grouper"])
             return (chunk_np, ids_np, rows, scal, HostCopy(scal),
                     state["cap"])
 
         def replay_wave(chunk_np, ids_np):
-            """The full exactness ladder for ONE wave, the replay path of
-            a failed deferred check.  The rung that cleared sticks."""
+            """The exactness ladder for ONE wave; the rung that cleared
+            sticks."""
             stats["replays"] += 1
-            cap = state["cap"]
             with timed(stats, "replay_s"):
-                while True:
-                    for g in groupers:
-                        for frac in (4, 2):
-                            rows, scal = wave_call(chunk_np, ids_np, cap,
-                                                   frac, g)
-                            scal_np = scal.cpu().numpy()
-                            if not scal_np[:, 4].any():
-                                break
-                        if not scal_np[:, 4].any():
-                            break
-                    if bool(scal_np[:, 3].any()):
-                        outcome["high"] = True
-                        raise _AbortRung
-                    if int(scal_np[:, 2].max()) > mwl:
-                        raise _AbortRung
-                    if int(scal_np[:, 1].max()) > cap:
-                        cap *= 4  # uniques <= tokens <= size/2: terminates
-                        continue
-                    break
-            state["cap"], state["grouper"], state["frac"] = cap, g, frac
+                (rows, scal), scal_np, rung = _replay_ladder(
+                    lambda cap, frac, g: wave_call(chunk_np, ids_np, cap,
+                                                   frac, g),
+                    groupers, state["cap"], mwl, outcome)
+            state["cap"], state["grouper"], state["frac"] = rung
             return rows, scal, scal_np
 
         def commit(rows, scal, scal_np):
@@ -405,11 +452,7 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
             chunk_np, ids_np, rows, scal, scal_host, cap = rec
             with timed(stats, "kernel_s"):
                 scal_np = scal_host.wait()  # blocks until the wave lands
-            if bool(scal_np[:, 3].any()):
-                outcome["high"] = True
-                raise _AbortRung
-            if int(scal_np[:, 2].max()) > mwl:
-                raise _AbortRung
+            _check_rung(scal_np, mwl, outcome)
             if scal_np[:, 4].any() or int(scal_np[:, 1].max()) > cap:
                 # Late-found overflow: replay just this wave.  Exactly
                 # once: the optimistic attempt's rows are dropped
@@ -425,7 +468,7 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
         step._pipe = pipe
         step._mwl = mwl
         step._outcome = outcome
-        pipe.begin(materialize)
+        pipe.begin(lambda: _wave_items(docs, waves, n_dev))
 
         def end_ok():
             if buf_dev is not None:

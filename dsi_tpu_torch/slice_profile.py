@@ -3,6 +3,7 @@
     python -m dsi_tpu_torch.slice_profile [--baseline-csrc DIR] [--stream]
     python -m dsi_tpu_torch.slice_profile --grep
     python -m dsi_tpu_torch.slice_profile --tfidf
+    python -m dsi_tpu_torch.slice_profile --indexer
 
 On the bench corpus (8 files x (2 MiB - 64), seed 1234) it prints JSON
 lines:
@@ -34,7 +35,12 @@ lines:
   TF-IDF row (``bench.py run_tfidf_row``: the 8 files as 8 documents,
   u_cap 2^15, packed) through ``tfidf_sharded`` at one shard with the
   postings buffer off and on, and at 8 virtual shards (one wave), each
-  the same way.
+  the same way;
+* with ``--indexer`` (and nothing else): ``indexer_profile``, the same
+  documents through ``indexer_streaming`` (u_cap 2^15, depth 2) at one
+  shard with the services off and on, at 8 virtual shards, and at 8 with
+  ``mesh_shards`` 8; and ``tfidf_sharded`` at 8 with ``mesh_shards`` 8;
+  each the same way.
 
 Needs one CUDA card; the card's name and power limit head the output.
 """
@@ -175,6 +181,36 @@ def _tfidf_profile(files) -> dict:
     return out
 
 
+def _indexer_profile(files) -> dict:
+    from dsi_tpu_torch.parallel.grepstream import indexer_streaming
+    from dsi_tpu_torch.parallel.tfidf import FileDocs, tfidf_sharded
+
+    out = {}
+    for tag, kw in (("indexer", {}),
+                    ("indexer_acc", {"device_accumulate": True}),
+                    ("indexer_n8", {"n_dev": 8}),
+                    ("indexer_mesh", {"n_dev": 8, "mesh_shards": 8}),
+                    ("tfidf_mesh", {"n_dev": 8, "mesh_shards": 8})):
+        stats: dict = {}
+
+        def run():
+            stats.clear()
+            if tag == "tfidf_mesh":
+                tfidf_sharded(FileDocs(files), n_reduce=10, u_cap=1 << 15,
+                              packed=True, wave_stats=stats, device="cuda",
+                              **kw)
+            else:
+                indexer_streaming(FileDocs(files), n_reduce=10,
+                                  u_cap=1 << 15, depth=2, stats=stats,
+                                  device="cuda", **kw)
+
+        prof = _profile(run)
+        prof["idle_share"] = 1.0 - prof["device_s"] / prof["wall_s"]
+        prof["waves"] = stats["waves"]
+        out[tag] = prof
+    return out
+
+
 @contextlib.contextmanager
 def env_set(**values):
     """Environment variables set for the duration; the old values come
@@ -232,6 +268,9 @@ def main() -> int:
                          "(grep_profile)")
     ap.add_argument("--tfidf", action="store_true",
                     help="profile the TF-IDF row alone (tfidf_profile)")
+    ap.add_argument("--indexer", action="store_true",
+                    help="profile the indexer and the mesh-sharded TF-IDF "
+                         "alone (indexer_profile)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("slice_profile: needs a CUDA card")
@@ -246,6 +285,10 @@ def main() -> int:
         raws = [Path(p).read_bytes() for p in files]
         if args.tfidf:
             print(json.dumps({"tfidf_profile": _tfidf_profile(files)}),
+                  flush=True)
+            return 0
+        if args.indexer:
+            print(json.dumps({"indexer_profile": _indexer_profile(files)}),
                   flush=True)
             return 0
         if args.grep:

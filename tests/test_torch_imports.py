@@ -69,7 +69,8 @@ def test_every_module_is_listed():
             "dsi_tpu_torch.parallel.grepstream",
             "dsi_tpu_torch.cli.grepstream", "dsi_tpu_torch.apps.tfidf",
             "dsi_tpu_torch.device.postings",
-            "dsi_tpu_torch.parallel.tfidf", "chip_smoke"} <= set(MODULES)
+            "dsi_tpu_torch.parallel.tfidf", "dsi_tpu_torch.apps.indexer",
+            "chip_smoke"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("name", MODULES)

@@ -245,17 +245,12 @@ def test_plan_waves_matches_reference():
 
 def test_not_ported_and_device_default(monkeypatch):
     docs = [b"a b c"]
-    for kw, item in (({"mesh_shards": 2}, "mesh-sharded postings"),
-                     ({"checkpoint_dir": "ck"}, "checkpoints"),
+    for kw, item in (({"checkpoint_dir": "ck"}, "checkpoints"),
                      ({"resume": True}, "checkpoints"),
                      ({"checkpoint_async": True}, "checkpoints"),
                      ({"input_range": (0, 1)}, "plan and serving")):
         with pytest.raises(NotImplementedError, match=item):
             ttf.tfidf_sharded(docs, device="cpu", **kw)
-    monkeypatch.setenv("DSI_STREAM_MESH_SHARDS", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ttf.tfidf_sharded(docs, device="cpu")
-    monkeypatch.delenv("DSI_STREAM_MESH_SHARDS")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttf.tfidf_sharded(docs)
