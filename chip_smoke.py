@@ -87,7 +87,31 @@ Phases (any failure exits non-zero before the last line is printed):
    the TF-IDF row at eight shards with ``mesh_shards`` 8
    (``tfidf_mesh``).  Each mesh path must equal its unsharded eight-shard
    path (posting order included) and launch D, E and L again for every
-   append.
+   append;
+11. the compressed chunk upload: kernel N (``csrc/wire_decode.cu``)
+   against ``decode_chunk_plain`` and the encoder's input at [1, 2 MiB]
+   and [8, 2 MiB]: the bench stream's first batch (the 7-bit mode), the
+   low-entropy text of ``tests/test_wire_ingest.py`` (the first nibble
+   rung), text at the second rung, and a packed tensor whose escapes
+   exceed its literal region (the clamp); ``pack_rows``/``unpack_rows``
+   over one step's pulled table; the bench's wire A/B row (the corpus
+   cycled to 16 MB, 2 MiB chunks, u_cap 2^15, depth 2) raw and with
+   ``wire_upload`` at one shard with the table off (``wire_stream``) and
+   on (``wire_stream_acc``), at 8 with ``mesh_shards`` 8
+   (``wire_stream_mesh``), over 16 MB of the low-entropy text
+   (``wire_stream_nib``, which must run the nibble mode) and through
+   ``wcstream --wire-upload`` (``wire_cli``), each wire run equal to the
+   oracle's counts and to its raw run, with N launched at least once a
+   wire step;
+12. the crash model checker: kernel O (``csrc/crash_sim.cu``) against
+   the plain version, every output of every instance, at 1,000 instances
+   in the CLI's configuration and the reference tests' two others and at
+   2^16 in the CLI's; a fleet of 2^20, equal to the plain version too,
+   whose first 2^16 instances must equal the 2^16 run; ``run_crash_model_check`` in the three
+   configurations (``crashcheck``: every invariant holds, requeues under
+   the CLI's faults, duplicates and reference-counter breaks under
+   stalls) and ``crashcheck -n 1000`` in process (``crashcheck_cli``,
+   exit 0).
 Launch counts are zeroed just before each path and read just after; each
 path fails if a kernel of its own set never launched.
 
@@ -141,6 +165,12 @@ KERNELS = {
                 "dsi_tpu/parallel/tfidf.py:124"),
     "postings_append": ("dsi_tpu_torch/csrc/postings_append.cu",
                         "dsi_tpu/device/postings.py:57"),
+    # N also replaces _decode7_impl, dsi_tpu/ops/wirecodec.py:417.
+    "wire_decode": ("dsi_tpu_torch/csrc/wire_decode.cu",
+                    "dsi_tpu/ops/wirecodec.py:397"),
+    # O also replaces simulate_job (:179) and its vmap (:223).
+    "crash_sim": ("dsi_tpu_torch/csrc/crash_sim.cu",
+                  "dsi_tpu/parallel/simulate.py:76"),
 }
 # The kernels each path must launch.
 WC = ("tokenize", "radix_sort", "group", "fnv", "route")  # A-E
@@ -176,6 +206,13 @@ PATH_KERNELS = {
     "indexer_acc": WC + ("compact", "postings_append"),
     "indexer_mesh": WC + ("compact", "postings_append"),
     "tfidf_mesh": WC + ("compact", "postings_append"),
+    # The wire streams decode every packed batch with N before the step.
+    "wire_stream": WC + ("wire_decode",),
+    "wire_stream_acc": WC + ("wire_decode",),
+    "wire_stream_mesh": WC + ("wire_decode",),
+    "wire_stream_nib": WC + ("wire_decode",),
+    "wire_cli": WC + ("wire_decode",),
+    "crashcheck": ("crash_sim",), "crashcheck_cli": ("crash_sim",),
 }
 MESH_SHARDS = 8
 # A table capacity far below a mesh shard's share of the corpus's
@@ -190,6 +227,9 @@ NFA_PATTERNS = {16: "th[a-z]*e", 32: "a{5,20}b", 48: "a{20,40}b"}
 # TF-IDF: the bench's engine row (bench.py:949-1000): the corpus once
 # (16 MB asked, one cycle), eight 2 MiB documents, u_cap 2^15, packed.
 TFIDF_MB, TFIDF_U_CAP = 16.0, 1 << 15
+# The wire A/B row (bench.py:1125-1250): the corpus cycled to 16 MB at the
+# stream row's shapes.
+WIRE_MB = 16.0
 # H100 SXM float32 outside the tensor cores, NVIDIA data sheet: the peak
 # rate taken for the 32-bit integer work of kernel I's bit sets.
 SCALAR_OPS_PER_S = 67e12
@@ -913,10 +953,12 @@ def stream_parity(counts: dict, want: dict, cycles: int) -> bool:
 
 
 def stream_path(files, cycles: int, want: dict, device_accumulate: bool,
-                n_dev: int = 1, mesh_shards: int = 0):
+                n_dev: int = 1, mesh_shards: int = 0, wire_upload=None,
+                blocks=None):
     """The stream row through ``wordcount_streaming``, the bench's input
-    (``cycle_files``) and window: the call alone, so the table off and on
-    are timed alike; (parity, seconds, stats, launches, result)."""
+    (``cycle_files``, or the ``blocks`` given) and window: the call alone,
+    so the table off and on are timed alike; (parity, seconds, stats,
+    launches, result)."""
     from dsi_tpu_torch.mr.sequential import ihash
     from dsi_tpu_torch.ops import wordcount as w
     from dsi_tpu_torch.parallel.streaming import (cycle_files,
@@ -925,12 +967,13 @@ def stream_path(files, cycles: int, want: dict, device_accumulate: bool,
     stats: dict = {}
     w.reset_launches()
     t0 = time.perf_counter()
-    res = wordcount_streaming(cycle_files(files, cycles), n_dev=n_dev,
+    res = wordcount_streaming(cycle_files(files, cycles) if blocks is None
+                              else blocks, n_dev=n_dev,
                               n_reduce=N_REDUCE, chunk_bytes=STREAM_CHUNK,
                               u_cap=STREAM_U_CAP,
                               device_accumulate=device_accumulate,
                               mesh_shards=mesh_shards, pipeline_stats=stats,
-                              device=DEVICE)
+                              wire_upload=wire_upload, device=DEVICE)
     sync()
     seconds = time.perf_counter() - t0
     launches = w.launch_counts()
@@ -943,10 +986,12 @@ def stream_path(files, cycles: int, want: dict, device_accumulate: bool,
     return parity, seconds, stats, launches, res
 
 
-def stream_cli_path(files, cycles: int, want: dict, workdir: str):
+def stream_cli_path(files, cycles: int, want: dict, workdir: str,
+                    extra=()):
     """The stream row with the device table on, through the ``wcstream``
     CLI in-process (argument parsing, reading, the stream and writing
-    ``mr-out-*``); (parity, seconds, stats, launches)."""
+    ``mr-out-*``), with the ``extra`` arguments; (parity, seconds, stats,
+    launches)."""
     import ast
     import contextlib
     import io
@@ -963,7 +1008,7 @@ def stream_cli_path(files, cycles: int, want: dict, workdir: str):
         rc = wcstream.main(
             ["--device-accumulate", "--chunk-bytes", str(STREAM_CHUNK),
              "--u-cap", str(STREAM_U_CAP), "--nreduce", str(N_REDUCE),
-             "--workdir", outdir, "--stats", "--device", DEVICE]
+             "--workdir", outdir, "--stats", "--device", DEVICE, *extra]
             + list(files) * cycles)
     sync()
     seconds = time.perf_counter() - t0
@@ -1569,6 +1614,371 @@ def mesh_append_kernel_rows(raws):
     return out, errs
 
 
+# ── phase 11: the compressed chunk upload (kernel N) ─────────────────────
+
+
+def _rare_text(n_dev: int, n: int, rare_frac: float):
+    """[n_dev, n] ASCII of 14 frequent symbols and, at ``rare_frac``, 16
+    rare ones that escape the nibble dictionary: the second literal rung."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    common = np.frombuffer(b"etaoinshrdlu \n", np.uint8)
+    rare = np.frombuffer(b"vwxyzqjkVWXYZQJK", np.uint8)
+    pick = rng.random((n_dev, n)) < rare_frac
+    return np.where(pick, rng.choice(rare, (n_dev, n)),
+                    rng.choice(common, (n_dev, n))).astype(np.uint8)
+
+
+def wire_cases(files):
+    """(name, n_dev, batch or None, packed, mode, lit_cap) for kernel N:
+    the bench stream's first batch at 1 and 8 shards (the 7-bit mode), the
+    low-entropy text at each nibble rung, and a packed tensor whose
+    escapes exceed its literal region (the clamp)."""
+    import numpy as np
+    from dsi_tpu_torch.ops import wirecodec as wcd
+    from dsi_tpu_torch.parallel.streaming import batch_stream, cycle_files
+    from dsi_tpu_torch.slice_profile import lowent_unit
+
+    n = STREAM_CHUNK
+    unit = lowent_unit()
+    cases = []
+    for n_dev in (1, 8):
+        bench = next(batch_stream(cycle_files(files, 1), n_dev, n))
+        reps = n_dev * n // len(unit) + 1
+        lowent = np.frombuffer(unit * reps, np.uint8)[:n_dev * n].reshape(
+            n_dev, n).copy()
+        for name, batch, want in (
+                ("bench", bench, ("b7", 0)),
+                ("lowent", lowent, ("nib", n // 8)),
+                ("rare18", _rare_text(n_dev, n, 0.18), ("nib", n // 4))):
+            mode, packed, cap = wcd.encode_chunk(batch)
+            if (mode, cap) != want:
+                raise RuntimeError(f"wire case {name} n_dev={n_dev} encoded "
+                                   f"as {mode}/{cap}, want {want}")
+            cases.append((f"{name}_{mode}_n{n_dev}", n_dev, batch, packed,
+                          mode, cap))
+        rng = np.random.default_rng(SEED + n_dev)
+        cap = n // 8
+        packed = rng.integers(0, 256, (n_dev, wcd.packed_width(n, cap)),
+                              dtype=np.uint8)
+        packed[:, 16:16 + n // 4] = 0xFF  # n/2 escapes, 4x the region
+        cases.append((f"clamp_nib_n{n_dev}", n_dev, None, packed, "nib", cap))
+    return cases
+
+
+def wire_kernel_rows(files):
+    """Kernel N against ``decode_chunk_plain`` on the card (and against the
+    encoder's input), each case timed beside its plain version and its
+    bound: the packed bytes read and n_dev * n written once.  Returns
+    (times entry, max_abs_err)."""
+    import torch
+    from dsi_tpu_torch.ops import wirecodec as wcd
+
+    n = STREAM_CHUNK
+    err, shapes = 0, {}
+    for name, n_dev, batch, packed_np, mode, cap in wire_cases(files):
+        pk = torch.from_numpy(packed_np).to(DEVICE)
+        kw = dict(n=n, lit_cap=cap, mode=mode)
+        got = wcd.decode_chunk_device(pk, **kw)
+        d = _diff(got, wcd.decode_chunk_plain(pk, **kw))
+        if batch is not None:
+            d = _merge_err(d, _diff(got, torch.from_numpy(batch).to(DEVICE)))
+        sync()
+        err = _merge_err(err, d)
+        nbytes = pk.numel() + n_dev * n
+        shapes[name] = {
+            "ms": cuda_ms(lambda: wcd.decode_chunk_device(pk, **kw), 50),
+            "plain_ms": cuda_ms(lambda: wcd.decode_chunk_plain(pk, **kw), 5),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": d,
+            "shape": f"packed {list(pk.shape)} -> [{n_dev}, {n}], {mode}"
+                     + (f" lit_cap {cap}" if mode == "nib" else "")}
+        log({"wire_case": name, **shapes[name]})
+    main = shapes["bench_b7_n1"]
+    return {**main, "at_shapes": {k: v for k, v in shapes.items()
+                                  if k != "bench_b7_n1"}}, err
+
+
+def wire_pack_rows(files):
+    """``pack_rows``/``unpack_rows`` over one real port step's pulled table,
+    as the bench's wire row does: (round trip exact, ratio, entry)."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.ops import wirecodec as wcd
+    from dsi_tpu_torch.parallel.shuffle import (_slice_pack, mapreduce_step,
+                                                occupied_prefix)
+    from dsi_tpu_torch.parallel.streaming import batch_stream, stream_files
+
+    chunk = next(batch_stream(stream_files(files), 1, STREAM_CHUNK))
+    keys, lens, cnts, parts, scal = mapreduce_step(
+        torch.from_numpy(chunk).to(DEVICE), n_dev=1, n_reduce=N_REDUCE,
+        max_word_len=MWL, u_cap=STREAM_U_CAP, t_cap_frac=4)
+    scal_np = scal.cpu().numpy()
+    if scal_np[:, 3].any() or scal_np[:, 4].any() or \
+            int(scal_np[:, 1].max()) > keys.shape[1]:
+        raise RuntimeError("the pack_rows probe step overflowed")
+    nus = scal_np[:, 0].astype(np.int64)
+    mp = occupied_prefix(int(nus.max()), keys.shape[1])
+    packed = _slice_pack(keys, lens, cnts, parts,
+                         mp=mp).cpu().numpy().view(np.uint32)
+    t0 = time.perf_counter()
+    blob = wcd.pack_rows(packed, nus)
+    pack_s = time.perf_counter() - t0
+    rows2, nus2 = wcd.unpack_rows(blob)
+    ok = np.array_equal(nus2, nus) and all(
+        np.array_equal(rows2[d, :int(nus[d])], packed[d, :int(nus[d])])
+        for d in range(len(nus)))
+    raw = wcd.rows_raw_bytes(nus, keys.shape[2])
+    return ok, {"parity": ok, "rows": int(nus.sum()), "raw_bytes": raw,
+                "packed_bytes": len(blob), "ratio": raw / len(blob),
+                "pack_s": pack_s}
+
+
+WIRE_STATS = ("wire_steps", "wire_raw_steps", "wire_packed_bytes",
+              "wire_ratio", "wire_modes", "decode_s", "upload_s")
+
+
+def wire_stream_runs(files, data, want, work, gpu, failures):
+    """The bench's wire A/B row on the card: each stream raw and with
+    ``wire_upload``, both held to the oracle's counts and to each other;
+    returns ({tag: entry}, {tag: wire run's launches})."""
+    import collections
+
+    from dsi_tpu_torch.slice_profile import lowent_unit
+
+    cycles = max(1, round(WIRE_MB * 1e6 / len(data)))
+    unit = lowent_unit()
+    reps = int(WIRE_MB * 1e6) // len(unit)
+    lowent_want = {w_: c * reps for w_, c in collections.Counter(
+        unit.decode().split()).items()}
+
+    def lowent_blocks():
+        step = (4 << 20) // len(unit)
+        for i in range(0, reps, step):
+            yield unit * min(step, reps - i)
+
+    runs, launches = {}, {}
+    for tag, kw, want_, cyc in (
+            ("wire_stream", {"device_accumulate": False}, want, cycles),
+            ("wire_stream_acc", {"device_accumulate": True}, want, cycles),
+            ("wire_stream_mesh", {"device_accumulate": True,
+                                  "n_dev": MESH_SHARDS,
+                                  "mesh_shards": MESH_SHARDS}, want, cycles),
+            ("wire_stream_nib", {"device_accumulate": True}, lowent_want, 1)):
+        if tag == "wire_stream_nib":
+            kw = {**kw, "blocks": lowent_blocks()}
+        raw_ok, raw_s, _, _, raw_res = stream_path(files, cyc, want_, **kw)
+        if tag == "wire_stream_nib":
+            kw = {**kw, "blocks": lowent_blocks()}
+        ok, secs, st, lc, res = stream_path(files, cyc, want_,
+                                            wire_upload=True, **kw)
+        mb = (len(unit) * reps if tag == "wire_stream_nib"
+              else len(data) * cyc) / 1e6
+        runs[tag] = {"parity": ok and raw_ok and res == raw_res,
+                     "seconds": secs, "raw_seconds": raw_s,
+                     "mb_per_s": mb / secs, "raw_mb_per_s": mb / raw_s,
+                     **{k: st.get(k) for k in WIRE_STATS},
+                     "pipeline_stats": {k: st[k] for k in STREAM_PHASES
+                                        if k in st}}
+        launches[tag] = lc
+        log({tag: {**runs[tag], "launches": lc, "gpu": gpu,
+                   "input_mb": mb}})
+        if not (ok and raw_ok):
+            failures.append(f"{tag}: counts differ from the oracle's")
+        if res != raw_res:
+            failures.append(f"{tag}: the wire run differs from the raw run")
+    cli_ok, secs, st, lc, _ = stream_cli_path(
+        files, cycles, want, os.path.join(work, "wire"),
+        extra=("--wire-upload",))
+    runs["wire_cli"] = {"parity": cli_ok, "seconds": secs,
+                        "mb_per_s": len(data) * cycles / secs / 1e6,
+                        **{k: st.get(k) for k in WIRE_STATS}}
+    launches["wire_cli"] = lc
+    log({"wire_cli": {**runs["wire_cli"], "launches": lc, "gpu": gpu}})
+    if not cli_ok:
+        failures.append("wire_cli: mr-out-* differ from the oracle's counts")
+    for tag, r in runs.items():
+        if not r["wire_steps"]:
+            failures.append(f"{tag}: no step went through the wire codec")
+        elif launches[tag].get("wire_decode", 0) < r["wire_steps"]:
+            failures.append(f"{tag}: wire_decode launched "
+                            f"{launches[tag].get('wire_decode', 0)} times for "
+                            f"{r['wire_steps']} wire steps")
+    if not any(m.startswith("nib") for m in runs["wire_stream_nib"][
+            "wire_modes"] or {}):
+        failures.append("wire_stream_nib: the nibble mode never ran")
+    return runs, launches
+
+
+# ── phase 12: the crash model checker (kernel O) ─────────────────────────
+
+# The CLI's defaults and the reference tests' two other configurations
+# (tests/test_simulate.py), 8 map and 10 reduce tasks, 3 workers.
+CRASH_CONFIGS = {
+    "cli_default": dict(exit_prob=0.25, stall_prob=0.2, timeout=10,
+                        horizon=800),
+    "no_faults": dict(exit_prob=0.0, stall_prob=0.0, horizon=200),
+    "stalls": dict(exit_prob=0.0, stall_prob=0.5, timeout=5, horizon=800),
+}
+CRASH_N, CRASH_LARGE, CRASH_FLEET = 1000, 1 << 16, 1 << 20
+# Hopper's INT32 lanes are half its FP32 lanes, and an FP32 FMA counts two
+# operations in the 67 TFLOP/s: 67e12 / 2 / 2 integer operations a second
+# (132 SMs x 64 INT32 lanes x 1.98 GHz).
+INT32_OPS_PER_S = SCALAR_OPS_PER_S / 4
+# One threefry-2x32 block: the key schedule (2 xors), the first injection
+# (2 adds), 20 rounds of an add, a rotation (one funnel shift) and an xor,
+# and 5 injections of 3 adds.
+THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
+
+
+def crash_ops(n: int, ticks: int, work: dict) -> int:
+    """Integer operations that ``n`` instances' run needs, from the plain
+    version's ``work`` counts of the same run: the instance keys (one
+    threefry block each), a tick key (one block) on each tick where some
+    worker takes a task, and per assignment the worker's key and its draw
+    (two blocks) and 12 more (the float: xor, shift, or, subtract; two
+    fate compares; the duration's multiply, conversion, modulo and add;
+    the deadline and busy adds); per completion report 3 (the duplicate
+    test and two counters); per tick 2 (the clock and the loop test).
+    The state machine's scans are left out, so no layout of the state
+    could beat the bound."""
+    blocks = n + work["keyed_ticks"] + 2 * work["assignments"]
+    return (blocks * THREEFRY_OPS + 12 * work["assignments"]
+            + 3 * work["reports"] + 2 * ticks)
+
+
+def crash_kernel_rows():
+    """Kernel O against the plain version on the card, every output of
+    every instance, at 1,000 instances in each configuration and at 2^16
+    in the CLI's; then a fleet of 2^20, held to the plain version as well,
+    whose first 2^16 instances must equal the 2^16 run.  Each bound counts
+    the work the plain version's run reports (:func:`crash_ops`).
+    Returns (times entry, max_abs_err, failures)."""
+    import torch
+    from dsi_tpu_torch.parallel import simulate as sim
+
+    err, shapes, fails, large = 0, {}, [], None
+    for tag, cfg in CRASH_CONFIGS.items():
+        for n in ((CRASH_N, CRASH_LARGE) if tag == "cli_default"
+                  else (CRASH_N,)):
+            got = sim.simulate_batch(0, n, device=DEVICE, **cfg)
+            sync()
+            work: dict = {}
+            t0 = time.perf_counter()
+            want = sim.simulate_batch_plain(0, n, device=DEVICE, work=work,
+                                            **cfg)
+            sync()
+            plain_s = time.perf_counter() - t0
+            d = 0
+            for k in sim.OUTPUTS:
+                d = _merge_err(d, _diff(got[k], want[k]))
+            err = _merge_err(err, d)
+            if n == CRASH_LARGE:
+                large = got
+            ticks = int(got["ticks"].sum())
+            ops = crash_ops(n, ticks, work)
+            nbytes = 8 + 16 * n  # the root key; 4 bool and 3 int32 outputs
+            shapes[f"{tag}_{n}"] = {
+                "ms": cuda_ms(lambda: sim.simulate_batch(
+                    0, n, device=DEVICE, **cfg), 5),
+                "plain_ms": plain_s * 1e3,
+                "bound_ms": max(ops / INT32_OPS_PER_S,
+                                nbytes / HBM_BYTES_PER_S) * 1e3,
+                "bound_by": ("operations" if ops / INT32_OPS_PER_S
+                             >= nbytes / HBM_BYTES_PER_S else "bytes"),
+                "ops": ops, "ticks_sum": ticks, **work,
+                "max_ticks": int(got["ticks"].max()),
+                "library_ms": None, "max_abs_err": d,
+                "shape": f"{n} instances, 8 map, 10 reduce, 3 workers, "
+                         + ", ".join(f"{k} {v}" for k, v in cfg.items())}
+            log({"crash_case": f"{tag}_{n}", **shapes[f"{tag}_{n}"]})
+    cfg = CRASH_CONFIGS["cli_default"]
+    sync()
+    t0 = time.perf_counter()
+    fleet = sim.simulate_batch(0, CRASH_FLEET, device=DEVICE, **cfg)
+    sync()
+    fleet_s = time.perf_counter() - t0
+    if not all(torch.equal(fleet[k][:CRASH_LARGE], large[k])
+               for k in sim.OUTPUTS):
+        fails.append(f"crash_sim: the {CRASH_FLEET}-instance fleet's first "
+                     f"{CRASH_LARGE} instances differ from the {CRASH_LARGE} "
+                     "run")
+    work = {}
+    t0 = time.perf_counter()
+    want = sim.simulate_batch_plain(0, CRASH_FLEET, device=DEVICE, work=work,
+                                    **cfg)
+    sync()
+    plain_s = time.perf_counter() - t0
+    d = 0
+    for k in sim.OUTPUTS:
+        d = _merge_err(d, _diff(fleet[k], want[k]))
+    err = _merge_err(err, d)
+    del want
+    ticks = int(fleet["ticks"].sum())
+    ops = crash_ops(CRASH_FLEET, ticks, work)
+    ms = cuda_ms(lambda: sim.simulate_batch(0, CRASH_FLEET, device=DEVICE,
+                                            **cfg), 3)
+    shapes[f"cli_default_{CRASH_FLEET}"] = {
+        "ms": ms, "plain_ms": plain_s * 1e3,
+        "bound_ms": ops / INT32_OPS_PER_S * 1e3,
+        "bound_by": "operations", "ops": ops, "ticks_sum": ticks, **work,
+        "max_ticks": int(fleet["ticks"].max()), "library_ms": None,
+        "max_abs_err": d,
+        "wall_s": fleet_s, "instances_per_s": CRASH_FLEET / (ms / 1e3),
+        "wall_instances_per_s": CRASH_FLEET / fleet_s,
+        "all_finished": bool(fleet["finished"].all()),
+        "shape": f"{CRASH_FLEET} instances, the CLI's configuration"}
+    log({"crash_fleet": shapes[f"cli_default_{CRASH_FLEET}"]})
+    main = shapes[f"cli_default_{CRASH_N}"]
+    return {**main, "at_shapes": {k: v for k, v in shapes.items()
+                                  if k != f"cli_default_{CRASH_N}"}}, \
+        err, fails
+
+
+def crash_paths(gpu, failures):
+    """The model checker's main path: ``run_crash_model_check`` in each
+    configuration at 1,000 instances, then ``crashcheck -n 1000`` in
+    process; returns ({path: launches}, {path: entry})."""
+    import contextlib
+    import io
+
+    from dsi_tpu_torch.cli import crashcheck
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.parallel.simulate import run_crash_model_check
+
+    w.reset_launches()
+    t0 = time.perf_counter()
+    aggs = {tag: run_crash_model_check(CRASH_N, device=DEVICE, **cfg)
+            for tag, cfg in CRASH_CONFIGS.items()}
+    secs = time.perf_counter() - t0
+    launches = {"crashcheck": w.launch_counts()}
+    for tag, agg in aggs.items():
+        if not (agg["all_finished"] and agg["all_consistent"]
+                and agg["all_safe"]):
+            failures.append(f"crashcheck {tag}: an invariant failed: {agg}")
+    if aggs["cli_default"]["total_requeues"] < 1:
+        failures.append("crashcheck: no requeue under the CLI's faults")
+    st = aggs["stalls"]
+    if st["total_duplicate_completions"] < 1 or \
+            st["instances_where_reference_counter_breaks_barrier"] < 1:
+        failures.append("crashcheck stalls: no duplicate completion or no "
+                        "reference-counter break")
+    out = io.StringIO()
+    w.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = crashcheck.main(["-n", str(CRASH_N)])
+    cli_s = time.perf_counter() - t0
+    launches["crashcheck_cli"] = w.launch_counts()
+    if rc != 0:
+        failures.append(f"crashcheck -n {CRASH_N} exited {rc}")
+    entry = {"aggregates": aggs, "seconds": secs, "cli_rc": rc,
+             "cli_seconds": cli_s, "cli_line": out.getvalue().strip()}
+    log({"crashcheck": {**entry, "launches": launches, "gpu": gpu}})
+    return launches, entry
+
+
 def main() -> int:
     import torch
 
@@ -2000,6 +2410,24 @@ def main() -> int:
                                     f"{name} {extra} times for "
                                     f"{st.get('appends')} appends")
 
+        # Phase 11: the compressed chunk upload.
+        times["wire_decode"], err["wire_decode"] = wire_kernel_rows(files)
+        if err["wire_decode"] != 0:
+            failures.append("wire_decode differs from its plain version")
+        ok, pack_row = wire_pack_rows(files)
+        log({"wire_pack_rows": pack_row, "gpu": gpu})
+        if not ok:
+            failures.append("pack_rows/unpack_rows do not round-trip a step")
+        wire, launch_wire = wire_stream_runs(files, data, want_counts, work,
+                                             gpu, failures)
+
+        # Phase 12: the crash model checker.
+        times["crash_sim"], err["crash_sim"], fails = crash_kernel_rows()
+        failures += fails
+        if err["crash_sim"] != 0:
+            failures.append("crash_sim differs from its plain version")
+        launch_crash, crash = crash_paths(gpu, failures)
+
     total_s = sum(phases.values())
     log({"slice": {
         "gpu": gpu, "input_bytes": nbytes, "mb_per_s": nbytes / total_s / 1e6,
@@ -2024,7 +2452,12 @@ def main() -> int:
         "tfidf_mb_per_s": {k: v["mb_per_s"] for k, v in tfidf.items()},
         "indexer_mb_per_s": {k: v["mb_per_s"] for k, v in indexer.items()},
         "indexer_oracle_mb_per_s": (indexer["indexer"]["input_bytes"]
-                                    / idx_oracle_s / 1e6)}})
+                                    / idx_oracle_s / 1e6),
+        "wire_mb_per_s": {k: {"wire": v["mb_per_s"],
+                              "raw": v.get("raw_mb_per_s")}
+                          for k, v in wire.items()},
+        "crashcheck_s": {"run_crash_model_check_x3": crash["seconds"],
+                         "cli": crash["cli_seconds"]}}})
 
     by_path = {"corpus": launch_main, "corpus_mwl64": launch64,
                "split": launch_split, "sharded": sharded[1]["launches"],
@@ -2036,22 +2469,24 @@ def main() -> int:
                "grep_tiers": launch_grep_tiers,
                **{k: v["launches"] for k, v in grep.items()},
                **{k: v["launches"] for k, v in tfidf.items()},
-               **{k: v["launches"] for k, v in indexer.items()}}
+               **{k: v["launches"] for k, v in indexer.items()},
+               **launch_wire, **launch_crash}
     for path, names in PATH_KERNELS.items():
         failures += [f"{name} never launched on the {path} path"
-                     for name in names if by_path[path][name] < 1]
+                     for name in names if by_path[path].get(name, 0) < 1]
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         tm = times[name]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
-               "launches": sum(p[name] for p in by_path.values()),
+               "launches": sum(p.get(name, 0) for p in by_path.values()),
                "max_abs_err": err[name], "match": err[name] == 0,
                "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                "bound_ms": tm["bound_ms"],
                "bound_by": tm.get("bound_by", "bytes"),
                "library_ms": tm["library_ms"], "shape": tm["shape"],
-               "launches_by_path": {k: p[name] for k, p in by_path.items()}}
+               "launches_by_path": {k: p.get(name, 0)
+                                    for k, p in by_path.items()}}
         if "radix_bound_ms" in tm:
             row["radix_bound_ms"] = tm["radix_bound_ms"]
         if name in ("radix_sort", "group"):
@@ -2066,6 +2501,8 @@ def main() -> int:
             row["at_shapes"] = hash_shapes
         if name in ma_rows:
             row["at_shapes"]["mesh_append"] = ma_rows[name]
+        if name in ("wire_decode", "crash_sim"):
+            row["at_shapes"] = tm["at_shapes"]
         kernels.append(row)
     log({"kernels": kernels})
     if failures:

@@ -15,7 +15,7 @@ Usage:
         [--devices D] [--workdir DIR] [--check] [--u-cap U]
         [--pipeline-depth D] [--device-accumulate] [--sync-every K]
         [--mesh-shards N] [--grouper sort|hash] [--ingest-readers N]
-        [--stats] [--device cuda|cpu] inputfiles...
+        [--wire-upload] [--stats] [--device cuda|cpu] inputfiles...
 """
 
 from __future__ import annotations
@@ -78,6 +78,13 @@ def main(argv=None) -> int:
                    help="parallel mmap'd input readers with readahead "
                         "(utils/ioread.py; default: DSI_INGEST_READERS or "
                         "0 = inline reads)")
+    p.add_argument("--wire-upload", action="store_true", default=None,
+                   dest="wire_upload",
+                   help="compress chunk uploads on the host and decode them "
+                        "on the card (ops/wirecodec.py, kernel N): the link "
+                        "moves 0.63-0.88x the bytes, the step reads the "
+                        "same chunk (env DSI_STREAM_WIRE; results are the "
+                        "same either way)")
     p.add_argument("--stats", action="store_true",
                    help="print the pipeline_stats dict to stderr")
     p.add_argument("--device", default=None, choices=("cuda", "cpu"),
@@ -99,7 +106,7 @@ def main(argv=None) -> int:
         depth=args.pipeline_depth,
         device_accumulate=args.device_accumulate,
         sync_every=args.sync_every, mesh_shards=args.mesh_shards,
-        pipeline_stats=pstats,
+        pipeline_stats=pstats, wire_upload=args.wire_upload,
         device=args.device)
     if args.stats:
         print(f"wcstream: pipeline_stats={pstats}", file=sys.stderr)

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 # name -> (restype, argtypes) of every C entry point in csrc/.
 SIGNATURES = {
     "dsi_tokenize_scratch_bytes": (_I64, [_I64]),
@@ -59,6 +60,10 @@ SIGNATURES = {
     "dsi_compact": (_INT, [_P, _INT, _I64, _INT, _INT, _P, _P, _P, _P]),
     "dsi_postings_append": (_INT, [_P, _INT, _I64, _INT, _P, _P, _P, _I64,
                                    _P, _INT, _P, _P, _P, _P]),
+    "dsi_wire_decode_scratch_bytes": (_I64, [_INT, _I64]),
+    "dsi_wire_decode": (_INT, [_P, _INT, _I64, _I64, _I64, _INT, _P, _P, _P]),
+    "dsi_crash_sim": (_INT, [_I64, _I64, _I64, _I64, _INT, _INT, _INT, _INT,
+                             _INT, _F32, _F32, _P, _P, _P]),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,458 @@
+"""Wire codecs: pack the bytes where the link is the bottleneck.
+
+Port of ``dsi_tpu/ops/wirecodec.py``.  The host side is a copy (numpy,
+the same bytes): the LEB128 varints, the shuffle-row codec
+(``pack_rows``/``unpack_rows``: a key dictionary plus varint row
+triples), the line codec (``pack_kv``/``unpack_kv``) and the chunk
+encoder (``encode_chunk``: the nibble mode at the smallest literal rung
+that fits, else the 7-bit mode for an all-ASCII batch, else None and the
+caller uploads raw) with its numpy decode (``decode_chunk_host``).
+
+The device side is kernel N (``csrc/wire_decode.cu``), which replaces the
+reference's decode programs (``_decode_impl`` :397, ``_decode7_impl``
+:417, ``decode_chunk_device`` :481): :func:`decode_chunk_device` rebuilds
+the ``[n_dev, chunk_bytes]`` uint8 chunk on the card from the uploaded
+packed tensor, and :func:`decode_chunk_plain` holds the same contract in
+plain torch.  The decoded bytes equal the encoder's input, so every
+tensor after the decode is the same with the codec on or off.
+
+Not ported: the AOT program cache (``_decode_program``,
+``aot_decode_fn``, ``warm_wire_aot``, ``wire_programs_persisted``), which
+goes with the kernel build and warm cache.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from dsi_tpu_torch.ops.wordcount import (
+    _launch,
+    _lib,
+    _on_cuda,
+    _ptr,
+    _require,
+    _stream,
+)
+
+#: Literal-region rung ladder for the nibble mode: lit_cap =
+#: chunk_bytes // frac, tried smallest-first per batch.  At frac 8 the
+#: packed tensor is ~0.63x raw (16 B dict + n/2 nibbles + n/8
+#: literals, ratio ~1.6); at frac 4 ~0.77x (ratio ~1.31).  Beyond that
+#: the nibble mode would ship MORE than raw, so the ladder stops and
+#: the batch falls to the 7-bit mode (all-ASCII, guaranteed 8/7) or
+#: raw.
+LIT_FRACS = (8, 4)
+
+_WIRE_ENV = "DSI_STREAM_WIRE"
+
+
+def wire_upload_default(flag: Optional[bool] = None) -> bool:
+    """Resolve the chunk-upload codec switch: explicit wins, else
+    ``DSI_STREAM_WIRE`` (default off — off is the bit-identical
+    historical path, and on only pays off where the wire is the
+    bottleneck)."""
+    if flag is None:
+        return os.environ.get(_WIRE_ENV, "").strip().lower() in (
+            "1", "true", "on", "yes")
+    return bool(flag)
+
+
+# ── varint streams (LEB128, vectorized) ────────────────────────────────
+
+
+def varint_encode(vals) -> bytes:
+    """LEB128-encode an integer array (values < 2**63) as one byte
+    stream, vectorized: per-value byte counts from threshold ladders,
+    then one fill pass per byte position (<= 10, not per value)."""
+    v = np.asarray(vals, dtype=np.uint64).ravel()
+    if v.size == 0:
+        return b""
+    nb = np.ones(v.size, dtype=np.int64)
+    for b in range(1, 10):
+        nb += (v >= np.uint64(1) << np.uint64(7 * b)).astype(np.int64)
+    ends = np.cumsum(nb)
+    starts = ends - nb
+    out = np.zeros(int(ends[-1]), dtype=np.uint8)
+    for b in range(int(nb.max())):
+        m = nb > b
+        byte = ((v[m] >> np.uint64(7 * b)) & np.uint64(0x7F)).astype(
+            np.uint8)
+        cont = ((nb[m] > b + 1).astype(np.uint8)) << 7
+        out[starts[m] + b] = byte | cont
+    return out.tobytes()
+
+
+def varint_decode(buf: bytes, count: int,
+                  offset: int = 0) -> Tuple[np.ndarray, int]:
+    """Decode exactly ``count`` LEB128 values from ``buf[offset:]``;
+    returns ``(uint64 array, offset past the stream)``.  Vectorized the
+    same way encode is: terminator positions locate the values, then
+    one or-in pass per byte position."""
+    if count == 0:
+        return np.zeros(0, dtype=np.uint64), offset
+    b = np.frombuffer(buf, dtype=np.uint8, offset=offset)
+    ends = np.flatnonzero(b < 128)
+    if ends.size < count:
+        raise ValueError("varint stream truncated")
+    ends = ends[:count]
+    starts = np.concatenate(([0], ends[:-1] + 1))
+    nb = ends - starts + 1
+    if int(nb.max()) > 10:
+        raise ValueError("varint wider than 63 bits")
+    vals = np.zeros(count, dtype=np.uint64)
+    for k in range(int(nb.max())):
+        m = nb > k
+        vals[m] |= (b[starts[m] + k] & np.uint8(0x7F)).astype(
+            np.uint64) << np.uint64(7 * k)
+    return vals, offset + int(ends[-1]) + 1
+
+
+# ── shuffle-row payload codec ──────────────────────────────────────────
+
+_ROWS_MAGIC = b"DSW1"
+
+
+def rows_raw_bytes(nus, kk: int) -> int:
+    """What the valid rows cost uncompressed — the codec's denominator
+    (``wire_ratio`` = raw / packed)."""
+    return int(np.asarray(nus, dtype=np.int64).sum()) * (kk + 3) * 4
+
+
+def pack_rows(rows: np.ndarray, nus) -> bytes:
+    """Dictionary + varint encoding of one step's packed result table
+    (``[n_dev, mp, kk+3]`` uint32, per-device occupied counts ``nus``).
+    Only the valid prefix rows are shipped; ``unpack_rows`` rebuilds
+    them bit-identically (padding zero-filled)."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint32)
+    nus = np.asarray(nus, dtype=np.int64)
+    n_dev, mp, w = rows.shape
+    kk = w - 3
+    valid = np.concatenate([rows[d, :int(nus[d])] for d in range(n_dev)]
+                           or [np.zeros((0, w), np.uint32)], axis=0)
+    n = valid.shape[0]
+    keybytes = np.ascontiguousarray(
+        valid[:, :kk].astype(">u4")).view(np.uint8).reshape(n, kk * 4)
+    if n:
+        uniq, first, inv = np.unique(keybytes, axis=0, return_index=True,
+                                     return_inverse=True)
+    else:
+        uniq = np.zeros((0, kk * 4), np.uint8)
+        first = inv = np.zeros(0, np.int64)
+    lens_u = valid[first, kk].astype(np.int64) if n else first
+    # Trimmed entries are sound only when every byte past a key's length
+    # is zero (true for the step programs' zero-padded lanes); fall back
+    # to full-width entries when an exotic payload violates it.
+    trim_ok = bool(uniq.size == 0 or (
+        np.all(lens_u <= kk * 4)
+        and not np.any(uniq[np.arange(kk * 4)[None, :]
+                            >= lens_u[:, None]])))
+    parts = [_ROWS_MAGIC,
+             varint_encode([kk, n_dev, mp, uniq.shape[0],
+                            1 if trim_ok else 0]),
+             varint_encode(nus)]
+    if trim_ok:
+        parts.append(varint_encode(lens_u))
+        if uniq.size:
+            flat = np.arange(kk * 4)[None, :] < lens_u[:, None]
+            parts.append(uniq[flat].tobytes())
+    else:
+        parts.append(varint_encode(lens_u))
+        parts.append(uniq.tobytes())
+    parts.append(varint_encode(inv))
+    parts.append(varint_encode(valid[:, kk + 1]))  # counts
+    parts.append(varint_encode(valid[:, kk + 2]))  # partitions
+    return b"".join(parts)
+
+
+def unpack_rows(buf: bytes) -> Tuple[np.ndarray, np.ndarray]:
+    """Inverse of :func:`pack_rows`: ``(rows [n_dev, mp, kk+3] uint32,
+    nus [n_dev] int64)`` with padding rows zeroed."""
+    if buf[:4] != _ROWS_MAGIC:
+        raise ValueError("not a packed-rows payload")
+    hdr, off = varint_decode(buf, 5, 4)
+    kk, n_dev, mp, n_uniq, trim = (int(x) for x in hdr)
+    nus, off = varint_decode(buf, n_dev, off)
+    nus = nus.astype(np.int64)
+    lens_u, off = varint_decode(buf, n_uniq, off)
+    lens_u = lens_u.astype(np.int64)
+    uniq = np.zeros((n_uniq, kk * 4), dtype=np.uint8)
+    if trim:
+        total = int(lens_u.sum())
+        flat = np.frombuffer(buf, np.uint8, count=total, offset=off)
+        off += total
+        mask = np.arange(kk * 4)[None, :] < lens_u[:, None]
+        uniq[mask] = flat
+    else:
+        total = n_uniq * kk * 4
+        uniq = np.frombuffer(buf, np.uint8, count=total,
+                             offset=off).reshape(n_uniq, kk * 4).copy()
+        off += total
+    n = int(nus.sum())
+    inv, off = varint_decode(buf, n, off)
+    cnts, off = varint_decode(buf, n, off)
+    pts, off = varint_decode(buf, n, off)
+    keys_u = np.ascontiguousarray(uniq).view(">u4").reshape(
+        n_uniq, kk).astype(np.uint32)
+    valid = np.zeros((n, kk + 3), dtype=np.uint32)
+    idx = inv.astype(np.int64)
+    valid[:, :kk] = keys_u[idx]
+    valid[:, kk] = lens_u[idx].astype(np.uint32)
+    valid[:, kk + 1] = cnts.astype(np.uint32)
+    valid[:, kk + 2] = pts.astype(np.uint32)
+    rows = np.zeros((n_dev, mp, kk + 3), dtype=np.uint32)
+    at = 0
+    for d in range(n_dev):
+        nu = int(nus[d])
+        rows[d, :nu] = valid[at:at + nu]
+        at += nu
+    return rows, nus
+
+
+# ── shuffle-partition line codec (network data plane) ──────────────────
+
+_KV_MAGIC = b"DSK1"
+
+
+def kv_raw_bytes(payload: bytes) -> int:
+    """The codec's denominator for ``net_ratio`` attribution — spelled
+    as a function for symmetry with :func:`rows_raw_bytes`."""
+    return len(payload)
+
+
+def pack_kv(payload: bytes) -> bytes:
+    """Dictionary + varint encoding of one line-oriented shuffle payload.
+
+    The classic map partitions are JSON lines ``{"Key": k, "Value": v}``
+    where every occurrence of a key repeats the ENTIRE line verbatim
+    (word-count values are all ``"1"``), so a unique-LINE dictionary plus
+    varint line indexes collapses them the same way ``pack_rows``
+    collapses key lanes — without parsing JSON, which keeps the
+    round-trip byte-identical by construction for any line-oriented
+    payload (shard outputs included).  Returns magic ``DSK1`` + header
+    varints (n_uniq, n_lines, trailing-newline flag) + per-entry length
+    varints + dictionary bytes + line-index varints.
+    """
+    trail = payload.endswith(b"\n")
+    body = payload[:-1] if trail else payload
+    lines = body.split(b"\n") if body else []
+    index: dict = {}
+    uniq: list = []
+    inv = np.empty(len(lines), dtype=np.int64)
+    for i, ln in enumerate(lines):
+        at = index.get(ln)
+        if at is None:
+            at = index[ln] = len(uniq)
+            uniq.append(ln)
+        inv[i] = at
+    parts = [_KV_MAGIC,
+             varint_encode([len(uniq), len(lines), 1 if trail else 0]),
+             varint_encode([len(u) for u in uniq]),
+             b"".join(uniq),
+             varint_encode(inv)]
+    return b"".join(parts)
+
+
+def unpack_kv(buf: bytes) -> bytes:
+    """Inverse of :func:`pack_kv`: the exact original payload bytes."""
+    if buf[:4] != _KV_MAGIC:
+        raise ValueError("not a packed-kv payload")
+    hdr, off = varint_decode(buf, 3, 4)
+    n_uniq, n_lines, trail = (int(x) for x in hdr)
+    lens, off = varint_decode(buf, n_uniq, off)
+    uniq = []
+    for ln in lens.astype(np.int64):
+        uniq.append(buf[off:off + int(ln)])
+        off += int(ln)
+    inv, off = varint_decode(buf, n_lines, off)
+    body = b"\n".join(uniq[int(i)] for i in inv)
+    return body + (b"\n" if trail else b"")
+
+
+# ── chunk-upload codec ─────────────────────────────────────────────────
+
+
+def lit_caps(chunk_bytes: int) -> Tuple[int, ...]:
+    """The literal-region rung ladder for one chunk shape, smallest
+    first."""
+    return tuple(max(1, chunk_bytes // f) for f in LIT_FRACS)
+
+
+def packed_width(chunk_bytes: int, lit_cap: int) -> int:
+    """Bytes per device row of the nibble-mode packed tensor."""
+    return 16 + chunk_bytes // 2 + lit_cap
+
+
+def packed7_width(chunk_bytes: int) -> int:
+    """Bytes per device row of the 7-bit-mode packed tensor."""
+    return (chunk_bytes // 8) * 7
+
+
+def encode_chunk(batch: np.ndarray) -> Optional[Tuple[str, np.ndarray,
+                                                      int]]:
+    """Encode one ``[n_dev, chunk_bytes]`` uint8 batch for the wire:
+    the nibble mode at the smallest literal rung that fits (frequency-
+    skewed bytes, ratio 1.3-1.6), else the 7-bit mode (any all-ASCII
+    batch, ratio 8/7 — the word-count device path requires ASCII
+    anyway), else None (the caller ships the batch raw — exactness
+    never depends on the codec).  Returns ``(mode, packed, lit_cap)``
+    with mode ``"nib"`` or ``"b7"`` (lit_cap 0 for b7)."""
+    batch = np.asarray(batch, dtype=np.uint8)
+    n_dev, n = batch.shape
+    if n < 8 or n % 8:
+        return None
+    counts = np.bincount(batch.ravel(), minlength=256)
+    top15 = np.argsort(-counts, kind="stable")[:15].astype(np.uint8)
+    map_tbl = np.full(256, 15, dtype=np.uint8)
+    map_tbl[top15] = np.arange(15, dtype=np.uint8)
+    nib = map_tbl[batch]
+    esc = nib == 15
+    lit_counts = esc.sum(axis=1)
+    need = int(lit_counts.max()) if n_dev else 0
+    cap = next((c for c in lit_caps(n) if c >= need), None)
+    if cap is not None:
+        packed = np.zeros((n_dev, packed_width(n, cap)), dtype=np.uint8)
+        packed[:, :15] = top15[None, :]
+        packed[:, 16:16 + n // 2] = (nib[:, 0::2] << 4) | nib[:, 1::2]
+        lit0 = 16 + n // 2
+        for d in range(n_dev):
+            lc = int(lit_counts[d])
+            if lc:
+                packed[d, lit0:lit0 + lc] = batch[d, esc[d]]
+        return "nib", packed, cap
+    if not (counts[128:].any()):
+        return "b7", _pack7(batch), 0
+    return None
+
+
+def _pack7(batch: np.ndarray) -> np.ndarray:
+    """Pack 8 ASCII bytes (< 128) into 7: groups of 8 symbols become a
+    56-bit little-endian field.  Vectorized over all groups at once."""
+    n_dev, n = batch.shape
+    sym = batch.reshape(n_dev, n // 8, 8).astype(np.uint64)
+    val = np.zeros((n_dev, n // 8), dtype=np.uint64)
+    for k in range(8):
+        val |= sym[:, :, k] << np.uint64(7 * k)
+    le = val[..., None] >> (np.uint64(8) * np.arange(7, dtype=np.uint64))
+    return (le & np.uint64(0xFF)).astype(np.uint8).reshape(n_dev,
+                                                           (n // 8) * 7)
+
+
+def _unpack7_np(packed: np.ndarray, n: int) -> np.ndarray:
+    n_dev = packed.shape[0]
+    grp = packed.reshape(n_dev, n // 8, 7).astype(np.uint16)
+    out = np.empty((n_dev, n // 8, 8), dtype=np.uint8)
+    for k in range(8):
+        bit = 7 * k
+        a, s = bit // 8, bit % 8
+        v = grp[:, :, a] >> s
+        if s + 7 > 8 and a + 1 < 7:
+            v |= grp[:, :, a + 1] << (8 - s)
+        out[:, :, k] = (v & 0x7F).astype(np.uint8)
+    return out.reshape(n_dev, n)
+
+
+def decode_chunk_host(mode: str, packed: np.ndarray,
+                      chunk_bytes: int) -> np.ndarray:
+    """Numpy decode on the host: the round-trip check of the
+    encoder."""
+    packed = np.asarray(packed, dtype=np.uint8)
+    n = chunk_bytes
+    if mode == "b7":
+        return _unpack7_np(packed, n)
+    n_dev = packed.shape[0]
+    d16 = packed[:, :16]
+    nibs = packed[:, 16:16 + n // 2]
+    lits = packed[:, 16 + n // 2:]
+    nib = np.empty((n_dev, n), dtype=np.uint8)
+    nib[:, 0::2] = nibs >> 4
+    nib[:, 1::2] = nibs & 15
+    esc = nib == 15
+    lit_idx = np.clip(np.cumsum(esc, axis=1) - 1, 0,
+                      max(0, lits.shape[1] - 1))
+    out = np.take_along_axis(d16, nib.astype(np.int64), axis=1)
+    out_lit = np.take_along_axis(lits, lit_idx, axis=1)
+    return np.where(esc, out_lit, out)
+
+
+# ── kernel N: the chunk decode on the card ─────────────────────────────
+
+_MODES = {"nib": 0, "b7": 1}
+
+
+def _check_packed(packed: torch.Tensor, n: int, lit_cap: int,
+                  mode: str) -> None:
+    _require(packed, torch.uint8, 2, "wire packed chunk")
+    if packed.shape[0] < 1:
+        raise ValueError("wire decode: no rows")
+    if mode not in _MODES:
+        raise ValueError(f"unknown wire mode {mode!r}")
+    if n < 8 or n % 8:
+        raise ValueError(f"wire decode: chunk_bytes {n} is not a positive "
+                         "multiple of 8")
+    if mode == "nib" and lit_cap < 1:
+        raise ValueError(f"wire decode: lit_cap {lit_cap} < 1")
+    width = packed7_width(n) if mode == "b7" else packed_width(n, lit_cap)
+    if packed.shape[1] != width:
+        raise ValueError(f"wire decode: packed width {packed.shape[1]}, "
+                         f"want {width} for mode {mode} n={n} "
+                         f"lit_cap={lit_cap}")
+
+
+def decode_chunk_plain(packed: torch.Tensor, *, n: int, lit_cap: int,
+                       mode: str) -> torch.Tensor:
+    """Plain version of kernel N, the reference's ``_decode_impl`` (nibble
+    mode: ``out[r, i] = d16[r, nib]`` unless ``nib`` is the escape 15,
+    then ``lits[r, clamp(e - 1, 0, lit_cap - 1)]`` with ``e`` the row's
+    escapes up to and including ``i``) and ``_decode7_impl`` (7-bit mode:
+    each 7-byte group is a 56-bit little-endian field of eight 7-bit
+    lanes).  Returns the uint8 ``[n_dev, n]`` chunk."""
+    _check_packed(packed, n, lit_cap, mode)
+    n_dev = packed.shape[0]
+    if mode == "b7":
+        grp = packed.view(n_dev, n // 8, 7).to(torch.int32)
+        lanes = []
+        for k in range(8):
+            bit = 7 * k
+            a, s = bit // 8, bit % 8
+            v = grp[:, :, a] >> s
+            if s + 7 > 8 and a + 1 < 7:
+                v = v | (grp[:, :, a + 1] << (8 - s))
+            lanes.append((v & 0x7F).to(torch.uint8))
+        return torch.stack(lanes, dim=2).reshape(n_dev, n)
+    d16 = packed[:, :16].to(torch.int64)
+    nibs = packed[:, 16:16 + n // 2].to(torch.int64)
+    lits = packed[:, 16 + n // 2:].to(torch.int64)
+    nib = torch.stack([nibs >> 4, nibs & 15], dim=2).reshape(n_dev, n)
+    esc = nib == 15
+    lit_idx = torch.clamp(torch.cumsum(esc.to(torch.int64), dim=1) - 1, 0,
+                          lits.shape[1] - 1)
+    out = torch.gather(d16, 1, nib)
+    out_lit = torch.gather(lits, 1, lit_idx)
+    return torch.where(esc, out_lit, out).to(torch.uint8)
+
+
+def decode_chunk_device(packed: torch.Tensor, *, n: int, lit_cap: int,
+                        mode: str) -> torch.Tensor:
+    """Kernel N (``csrc/wire_decode.cu``); see :func:`decode_chunk_plain`.
+    Replaces ``dsi_tpu/ops/wirecodec.py`` ``_decode_impl`` (:397),
+    ``_decode7_impl`` (:417) and ``decode_chunk_device`` (:481).  A CUDA
+    ``packed`` launches the kernel on the current stream (the decode is
+    asynchronous, like the reference's dispatch); a CPU one runs the plain
+    version."""
+    _check_packed(packed, n, lit_cap, mode)
+    if not _on_cuda(packed):
+        return decode_chunk_plain(packed, n=n, lit_cap=lit_cap, mode=mode)
+    lib = _lib()
+    n_dev, width = packed.shape
+    out = torch.empty((n_dev, n), dtype=torch.uint8, device=packed.device)
+    scratch = torch.empty(lib.dsi_wire_decode_scratch_bytes(n_dev, n),
+                          dtype=torch.uint8, device=packed.device)
+    with torch.cuda.device(packed.device):
+        _launch("wire_decode", lib.dsi_wire_decode(
+            _ptr(packed), n_dev, n, width, lit_cap, _MODES[mode], _ptr(out),
+            _ptr(scratch), _stream(packed)))
+    return out

@@ -36,7 +36,9 @@ The grep and TF-IDF kernels launch from their own modules through the same
 ``csrc/grep_step.cu`` (K16); ``compact`` (``ops/meshroute.py``) —
 ``csrc/compact.cu`` (K18's partition, ``compact_received``);
 ``postings_append`` (``device/postings.py``) —
-``csrc/postings_append.cu`` (K20a).
+``csrc/postings_append.cu`` (K20a); ``wire_decode`` (``ops/wirecodec.py``)
+— ``csrc/wire_decode.cu`` (K22); ``crash_sim`` (``parallel/simulate.py``)
+— ``csrc/crash_sim.cu`` (K23).
 
 A wrapper given a CUDA tensor launches its kernel (adding one to its
 count in ``LAUNCHES``) or raises; given a CPU tensor it runs the plain
@@ -67,9 +69,9 @@ _SIGN64 = torch.iinfo(torch.int64).min  # 1 << 63 as int64 bits
 _BYTE_MASKS = (0, 0xFF000000, 0xFFFF0000, 0xFFFFFF00, 0xFFFFFFFF)
 
 # Launches of each kernel in this process; a plain-version call adds none.
-# The TF-IDF kernels' names enter the dict at their first launch, so a
-# process that never launches them sees the dict it always saw;
-# ``launch_counts`` lists every kernel, zeros included.
+# The names of the kernels after J enter the dict at their first launch, so
+# a process that never launches them sees the dict it always saw;
+# ``launch_counts`` lists A-M, zeros included, and N and O once launched.
 LAUNCHES: Dict[str, int] = {"tokenize": 0, "radix_sort": 0, "group": 0,
                             "fnv": 0, "route": 0, "hash_group": 0,
                             "pack6": 0, "grep": 0, "nfa": 0,
@@ -83,8 +85,10 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel's launch count in this process, by name."""
-    return {name: LAUNCHES.get(name, 0) for name in KERNEL_NAMES}
+    """Every kernel's launch count in this process, by name: each of
+    ``KERNEL_NAMES``, and each later kernel (``wire_decode``,
+    ``crash_sim``) once it has launched in this process."""
+    return {**{name: 0 for name in KERNEL_NAMES}, **LAUNCHES}
 
 
 def resolve_device(device=None) -> torch.device:

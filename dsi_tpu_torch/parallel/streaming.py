@@ -25,9 +25,13 @@ token buffer) sticks for later steps.  A batch buffer goes back to the
 pool only once its step is confirmed and its upload has completed.
 Nothing on the dispatch side waits on the card.
 
+With ``wire_upload`` the host encodes each batch (``ops/wirecodec.py``
+``encode_chunk``), uploads the packed tensor and decodes it on the card
+(kernel N) into the chunk the step reads; a batch the codec cannot shrink
+uploads raw.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``aot``, checkpoints, ``wire_upload``, ``device_batches`` and
-``input_range``.
+item): ``aot``, checkpoints, ``device_batches`` and ``input_range``.
 """
 
 from __future__ import annotations
@@ -40,12 +44,18 @@ import torch
 
 from dsi_tpu_torch.device.policy import SyncPolicy, mesh_shards_default
 from dsi_tpu_torch.device.table import DeviceTable
+from dsi_tpu_torch.ops.wirecodec import (
+    decode_chunk_device,
+    encode_chunk,
+    wire_upload_default,
+)
 from dsi_tpu_torch.ops.wordcount import (
     HostCopy,
     exactness_retry,
     grouper_ladder,
     resolve_device,
     rung0_cap,
+    to_device,
 )
 from dsi_tpu_torch.parallel.merge import PackedCounts
 from dsi_tpu_torch.parallel.pipeline import (
@@ -203,15 +213,13 @@ class WordcountStep(EngineStep):
         if (checkpoint_dir or checkpoint_every or checkpoint_async
                 or checkpoint_delta or resume):
             raise _not_ported("checkpointing", "checkpoints")
-        if wire_upload:
-            raise _not_ported("wire_upload", "the upload path")
         if device_batches is not None or input_range is not None:
             raise _not_ported("device_batches/input_range",
                               "the plan and serving layers")
         _wordcount_setup(self, blocks, n_dev, n_reduce, chunk_bytes,
                          max_word_len, u_cap, on_attempt, depth,
                          pipeline_stats, device_accumulate, sync_every,
-                         mesh_shards, resolve_device(device))
+                         mesh_shards, wire_upload, resolve_device(device))
 
 
 def wordcount_streaming(
@@ -266,6 +274,16 @@ def wordcount_streaming(
     ``mesh_shards``, ``shard_widens``, ``shard_imbalance`` and
     ``pull_bytes``.  Results are the same either way.
 
+    ``wire_upload`` (default ``DSI_STREAM_WIRE``, off) compresses each
+    chunk upload on the host (``ops/wirecodec.py encode_chunk``) and
+    decodes it on the card (kernel N); a batch the codec cannot shrink
+    uploads raw (``wire_raw_steps``).  Results are the same either way.
+    ``pipeline_stats`` gains ``wire_upload``, ``wire_steps``,
+    ``wire_raw_steps``, ``wire_packed_bytes``, ``wire_ratio`` (raw bytes
+    over packed bytes of the packed steps, 3 places), ``decode_s`` (the
+    encode and the decode launch) and, beyond the reference's keys,
+    ``wire_modes`` (packed steps by mode and literal rung).
+
     ``on_attempt(max_word_len, u_cap)`` is called before every step
     attempt.  The remaining parameters keep the reference's signature and
     raise ``NotImplementedError`` when set.
@@ -286,7 +304,7 @@ def wordcount_streaming(
 def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
                      max_word_len, u_cap, on_attempt, depth, pipeline_stats,
                      device_accumulate, sync_every, mesh_shards,
-                     dev: torch.device):
+                     wire_upload, dev: torch.device):
     """The engine body behind :class:`WordcountStep`: setup ending with
     the pipeline armed and the lifecycle hooks attached to ``step``."""
     depth = pipeline_depth(depth)
@@ -308,6 +326,14 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
              "batch_wait_s": 0.0, "upload_s": 0.0, "kernel_s": 0.0,
              "pull_s": 0.0, "merge_s": 0.0, "replay_s": 0.0,
              "dispatch_s": 0.0, "finalize_s": 0.0}
+    # Compressed chunk uploads: the knob changes only what crosses the
+    # link, never the chunk the step reads, so results are the same.
+    wire = wire_upload_default(wire_upload)
+    wire_raw_total = 0  # raw-equivalent bytes of the packed uploads
+    if wire:
+        stats.update({"wire_upload": True, "wire_steps": 0,
+                      "wire_raw_steps": 0, "wire_packed_bytes": 0,
+                      "decode_s": 0.0, "wire_modes": {}})
     # The table allocates lazily at the first fold (its key width and
     # capacity come from that step's shapes); the fold-flag lag is the
     # pipeline window, so confirming a fold never waits on kernels the
@@ -420,6 +446,32 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
 
         return exactness_retry(run, chunk_bytes, state["mwl"], state["cap"])
 
+    def wire_upload_batch(buf: np.ndarray):
+        """The batch encoded on the host, its packed tensor uploaded and
+        decoded on the card (kernel N); None when the codec cannot shrink
+        it (the caller uploads it raw)."""
+        nonlocal wire_raw_total
+        with timed(stats, "decode_s"):
+            enc = encode_chunk(buf)
+        if enc is None:
+            stats["wire_raw_steps"] += 1
+            return None
+        mode, packed_np, lit_cap = enc
+        with timed(stats, "upload_s"):
+            packed = to_device(packed_np.reshape(-1), dev).view(
+                packed_np.shape)
+        with timed(stats, "decode_s"):
+            chunks = decode_chunk_device(packed, n=chunk_bytes,
+                                         lit_cap=lit_cap, mode=mode)
+        stats["wire_steps"] += 1
+        stats["wire_packed_bytes"] += int(packed_np.nbytes)
+        wire_raw_total += n_dev * chunk_bytes
+        stats["wire_ratio"] = round(wire_raw_total
+                                    / stats["wire_packed_bytes"], 3)
+        tag = mode if mode == "b7" else f"{mode}_l{lit_cap}"
+        stats["wire_modes"][tag] = stats["wire_modes"].get(tag, 0) + 1
+        return chunks
+
     def dispatch(buf: np.ndarray):
         """Optimistically launch one step at the sticky rung — upload and
         kernel launches, no waiting.  With device accumulation the pack
@@ -427,8 +479,11 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
         mwl, cap = state["mwl"], state["cap"]
         if on_attempt is not None:
             on_attempt(mwl, cap)
-        with timed(stats, "upload_s"):
-            chunks, uploaded = upload(buf)
+        chunks = wire_upload_batch(buf) if wire else None
+        uploaded = None  # a packed upload leaves buf free at once
+        if chunks is None:
+            with timed(stats, "upload_s"):
+                chunks, uploaded = upload(buf)
         with timed(stats, "dispatch_s"):
             keys, lens, cnts, parts, scal = step_call(
                 chunks, mwl, cap, state["frac"], state["grouper"])

@@ -4,6 +4,8 @@
     python -m dsi_tpu_torch.slice_profile --grep
     python -m dsi_tpu_torch.slice_profile --tfidf
     python -m dsi_tpu_torch.slice_profile --indexer
+    python -m dsi_tpu_torch.slice_profile --wire
+    python -m dsi_tpu_torch.slice_profile --crashcheck
 
 On the bench corpus (8 files x (2 MiB - 64), seed 1234) it prints JSON
 lines:
@@ -40,7 +42,17 @@ lines:
   documents through ``indexer_streaming`` (u_cap 2^15, depth 2) at one
   shard with the services off and on, at 8 virtual shards, and at 8 with
   ``mesh_shards`` 8; and ``tfidf_sharded`` at 8 with ``mesh_shards`` 8;
-  each the same way.
+  each the same way;
+* with ``--wire`` (and nothing else): ``wire_profile``, the bench's wire
+  A/B row (the corpus cycled to 16 MB, 2 MiB chunks, u_cap 2^15, depth
+  2) through ``wordcount_streaming`` raw and with ``wire_upload``, with
+  the device table off and on, and 16 MB of low-entropy text (the nibble
+  mode) raw and wired, each the same way, with the pipeline's phases
+  (``decode_s`` holds the host encoder) and the encoder's share of the
+  wall;
+* with ``--crashcheck`` (and nothing else): ``crash_profile``,
+  ``run_crash_model_check`` at 1,000 instances and ``simulate_batch`` at
+  2^20 in the CLI's configuration (kernel O), each the same way.
 
 Needs one CUDA card; the card's name and power limit head the output.
 """
@@ -211,6 +223,67 @@ def _indexer_profile(files) -> dict:
     return out
 
 
+def lowent_unit() -> bytes:
+    """The low-entropy text of ``tests/test_wire_ingest.py`` (``WC_TEXT``'s
+    line): 120 three-letter words and a newline, 480 bytes.  Repeated, it
+    takes the wire codec's nibble mode at its first literal rung."""
+    words = ["".join(chr(97 + (i // 26 ** j) % 26) for j in range(3))
+             for i in range(120)]
+    return (" ".join(words) + "\n").encode()
+
+
+def _wire_profile(files, total_bytes: int) -> dict:
+    from dsi_tpu_torch.parallel.streaming import (cycle_files,
+                                                  wordcount_streaming)
+
+    cycles = max(1, round(16e6 / total_bytes))
+    unit = lowent_unit()
+    reps = 16_000_000 // len(unit)
+    out = {"cycles": cycles}
+    for tag, acc, wire, lowent in (
+            ("raw", False, False, False), ("wire", False, True, False),
+            ("raw_acc", True, False, False), ("wire_acc", True, True, False),
+            ("raw_lowent", True, False, True),
+            ("wire_lowent", True, True, True)):
+        stats: dict = {}
+
+        def run():
+            stats.clear()
+            blocks = ([unit * (reps // 4)] * 4 if lowent
+                      else cycle_files(files, cycles))
+            wordcount_streaming(blocks, n_dev=1, n_reduce=10,
+                                chunk_bytes=1 << 21, u_cap=1 << 15,
+                                device_accumulate=acc, wire_upload=wire,
+                                pipeline_stats=stats, device="cuda")
+
+        prof = _profile(run)
+        prof["idle_share"] = 1.0 - prof["device_s"] / prof["wall_s"]
+        prof["stats"] = {k: v for k, v in stats.items()
+                         if k.endswith("_s") or k.startswith("wire")
+                         or k == "steps"}
+        if wire:
+            prof["encoder_share"] = stats["decode_s"] / prof["wall_s"]
+        out[tag] = prof
+    return out
+
+
+def _crash_profile() -> dict:
+    from dsi_tpu_torch.parallel.simulate import (run_crash_model_check,
+                                                 simulate_batch)
+
+    cfg = dict(exit_prob=0.25, stall_prob=0.2, timeout=10, horizon=800)
+    out = {}
+    for tag, fn in (
+            ("check_1000", lambda: run_crash_model_check(
+                1000, device="cuda", **cfg)),
+            ("fleet_2^20", lambda: simulate_batch(0, 1 << 20,
+                                                  device="cuda", **cfg))):
+        prof = _profile(fn)
+        prof["idle_share"] = 1.0 - prof["device_s"] / prof["wall_s"]
+        out[tag] = prof
+    return out
+
+
 @contextlib.contextmanager
 def env_set(**values):
     """Environment variables set for the duration; the old values come
@@ -271,6 +344,11 @@ def main() -> int:
     ap.add_argument("--indexer", action="store_true",
                     help="profile the indexer and the mesh-sharded TF-IDF "
                          "alone (indexer_profile)")
+    ap.add_argument("--wire", action="store_true",
+                    help="profile the wire A/B row alone (wire_profile)")
+    ap.add_argument("--crashcheck", action="store_true",
+                    help="profile the crash model checker alone "
+                         "(crash_profile)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("slice_profile: needs a CUDA card")
@@ -279,6 +357,9 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip(), flush=True)
     w.resolve_device("cuda")
     build.library()
+    if args.crashcheck:
+        print(json.dumps({"crash_profile": _crash_profile()}), flush=True)
+        return 0
     with tempfile.TemporaryDirectory() as work:
         files = ensure_corpus(os.path.join(work, "c"), 8, (2 << 20) - 64,
                               1234)
@@ -290,6 +371,11 @@ def main() -> int:
         if args.indexer:
             print(json.dumps({"indexer_profile": _indexer_profile(files)}),
                   flush=True)
+            return 0
+        if args.wire:
+            print(json.dumps({"wire_profile": _wire_profile(
+                files, sum(len(r) for r in raws) + len(raws) - 1)}),
+                flush=True)
             return 0
         if args.grep:
             print(json.dumps({"grep_profile": _grep_profile(files,

@@ -70,7 +70,8 @@ def test_every_module_is_listed():
             "dsi_tpu_torch.cli.grepstream", "dsi_tpu_torch.apps.tfidf",
             "dsi_tpu_torch.device.postings",
             "dsi_tpu_torch.parallel.tfidf", "dsi_tpu_torch.apps.indexer",
-            "chip_smoke"} <= set(MODULES)
+            "dsi_tpu_torch.ops.wirecodec", "dsi_tpu_torch.parallel.simulate",
+            "dsi_tpu_torch.cli.crashcheck", "chip_smoke"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("name", MODULES)

@@ -155,7 +155,7 @@ def test_streaming_host_path_is_none(blocks):
 
 @pytest.mark.parametrize("kw", [
     {"aot": True}, {"checkpoint_dir": "ck"}, {"resume": True},
-    {"wire_upload": True}, {"input_range": (0, 10)},
+    {"input_range": (0, 10)},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
