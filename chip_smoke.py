@@ -111,7 +111,27 @@ Phases (any failure exits non-zero before the last line is printed):
    configurations (``crashcheck``: every invariant holds, requeues under
    the CLI's faults, duplicates and reference-counter breaks under
    stalls) and ``crashcheck -n 1000`` in process (``crashcheck_cli``,
-   exit 0).
+   exit 0);
+13. the plan layer: J with its emit epilogue (K16e, ``grep_emit``)
+   against ``grep_step_plain(emit=True)``, every output, at [1, 2 MiB] and
+   [8, 2 MiB] for ``the`` and ``dsi``, on the optimistic ``l_cap`` rung and
+   on short lines that overflow it; P (``csrc/relay_pack.cu``) against
+   ``relay_pack_plain`` at [1, 1 MiB] and [8, 1 MiB] with the offsets 0,
+   mid-row and ``cap - kept``; a ``DeviceRelay`` fed 64 appends against
+   the host concatenation; then ``run_plan`` on the bench's plan row
+   (``bench.py:1884``: 8 MB of its corpus, ``grep-wc``, ``dsi``, 1 MiB
+   chunks) chained, staged and pipelined at one shard and chained at 8
+   with ``device_accumulate`` and ``mesh_shards`` 8, with ``stage_shards``
+   4, the pg corpus cycled to 64 MB (``the``, 2 MiB chunks) chained and
+   staged, and with ``th`` (which seals many buffers) chained, staged and
+   under a spill budget, the grep→grep cascade (``the``, then
+   ``and``) and word count → top-k over it, the indexer chain over the 8
+   files as 8 documents (u_cap 2^15) with the services off and on, and
+   ``planrun --chain grep-wc --check`` in process; each equal to its
+   staged twin and to ``grep_host_oracle``, the sequential word count of
+   the matching lines (``mr-out-*`` byte-equal for ``planrun``) or the
+   sequential indexer's df top-k and postings, with
+   ``plan_intermediate_bytes`` 0 in every chained run without a spill.
 Launch counts are zeroed just before each path and read just after; each
 path fails if a kernel of its own set never launched.
 
@@ -171,10 +191,16 @@ KERNELS = {
     # O also replaces simulate_job (:179) and its vmap (:223).
     "crash_sim": ("dsi_tpu_torch/csrc/crash_sim.cu",
                   "dsi_tpu/parallel/simulate.py:76"),
+    # J's emit epilogue: _grep_step_device(emit=True), :243, its :324-339.
+    "grep_emit": ("dsi_tpu_torch/csrc/grep_step.cu",
+                  "dsi_tpu/parallel/grepstream.py:324"),
+    "relay_pack": ("dsi_tpu_torch/csrc/relay_pack.cu",
+                   "dsi_tpu/device/relay.py:58"),
 }
 # The kernels each path must launch.
 WC = ("tokenize", "radix_sort", "group", "fnv", "route")  # A-E
 HASH = ("tokenize", "radix_sort", "group", "fnv", "hash_group")
+GREP_PLAN = ("grep_step", "grep_emit", "relay_pack")
 PATH_KERNELS = {
     "corpus": ("tokenize", "radix_sort", "group"),
     "split": ("tokenize", "radix_sort", "group", "fnv"),
@@ -213,6 +239,21 @@ PATH_KERNELS = {
     "wire_stream_nib": WC + ("wire_decode",),
     "wire_cli": WC + ("wire_decode",),
     "crashcheck": ("crash_sim",), "crashcheck_cli": ("crash_sim",),
+    # The plan layer: J with its emit epilogue feeds the relay, P packs
+    # each step after the open buffer's fill point, and the word-count
+    # stage runs A-E over the relay's buffers.  The staged runs pull every
+    # step instead (no P); at 8 shards the 8 MB row is one step (no pack,
+    # the services' folds run B and C).
+    "plan_chained": WC + GREP_PLAN, "plan_pipelined": WC + GREP_PLAN,
+    "plan_staged": WC + ("grep_step", "grep_emit"),
+    "plan_n8": WC + ("grep_step", "grep_emit"),
+    "plan_stage_shards": WC + GREP_PLAN, "plan_pg": WC + GREP_PLAN,
+    "plan_pg_th": WC + GREP_PLAN, "plan_pg_th_spill": WC + GREP_PLAN,
+    "plan_cascade": GREP_PLAN,
+    "plan_wc_topk": WC,
+    "plan_indexer": WC + ("compact",),
+    "plan_indexer_acc": WC + ("compact", "postings_append"),
+    "plan_cli": WC + GREP_PLAN,
 }
 MESH_SHARDS = 8
 # A table capacity far below a mesh shard's share of the corpus's
@@ -384,6 +425,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, name: str) -> float:
+    """Mean device milliseconds a call of ``fn()`` spends in the CUDA
+    kernels whose names contain ``name``, from ``torch.profiler`` over
+    ``reps`` calls after one warm-up call: the kernels alone, where
+    :func:`cuda_ms` also holds the host's launch gaps of a short kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total",
+                                                      0.0))
+             for e in prof.key_averages() if name in e.key)
+    return us / 1e3 / reps
 
 
 def time_kernels(corpus_buf, split_buf):
@@ -1801,9 +1861,9 @@ def wire_stream_runs(files, data, want, work, gpu, failures):
     for tag, r in runs.items():
         if not r["wire_steps"]:
             failures.append(f"{tag}: no step went through the wire codec")
-        elif launches[tag].get("wire_decode", 0) < r["wire_steps"]:
+        elif launches[tag]["wire_decode"] < r["wire_steps"]:
             failures.append(f"{tag}: wire_decode launched "
-                            f"{launches[tag].get('wire_decode', 0)} times for "
+                            f"{launches[tag]['wire_decode']} times for "
                             f"{r['wire_steps']} wire steps")
     if not any(m.startswith("nib") for m in runs["wire_stream_nib"][
             "wire_modes"] or {}):
@@ -1977,6 +2037,506 @@ def crash_paths(gpu, failures):
              "cli_seconds": cli_s, "cli_line": out.getvalue().strip()}
     log({"crashcheck": {**entry, "launches": launches, "gpu": gpu}})
     return launches, entry
+
+
+# ── phase 13: the plan layer (K16e on J, kernel P) ───────────────────────
+
+# The bench's plan row (bench.py:1884 run_plan_row): 8 MB of its corpus
+# (dsi_tpu_torch.utils.corpus.plan_corpus), pattern dsi, 1 MiB chunks,
+# planrun's defaults (u_cap 2^12, 10 partitions, depth 2), one shard.
+PLAN_MB, PLAN_PATTERN, PLAN_CHUNK, PLAN_U_CAP = 8.0, "dsi", 1 << 20, 1 << 12
+# The pg corpus cycled to 64 MB, grepped for `the` in 2 MiB chunks.  In
+# this synthetic corpus `the` keeps 0.3% of the bytes (216 KB of 64 MB, one
+# relay buffer), so the seals and the spill run with `th` (17%, about 11 MB
+# in 2 MiB buffers); under PLAN_SPILL_MB, less than two [1, 2 MiB]
+# buffers, every seal spills.
+PLAN_PG_MB, PLAN_PG_PATTERN, PLAN_PG_CHUNK = 64.0, "the", 1 << 21
+PLAN_SEAL_PATTERN, PLAN_SPILL_MB = "th", 3.0
+PLAN_CASCADE = ("the", "and")
+PLAN_STAGE_SHARDS = 4
+PLAN_RELAY_APPENDS = 64
+PLAN_STATS = ("plan_s", "plan_stage_walls", "plan_relay_buffers",
+              "plan_spilled_bytes", "plan_intermediate_bytes",
+              "plan_handoff_bytes", "plan_overlap_s", "plan_handoff",
+              "plan_pipelined", "plan_stage_shards")
+
+
+def _line_batch(raw: bytes, n_dev: int, n: int):
+    """[n_dev, n] uint8 rows of ``raw`` cut after a newline, with lens."""
+    import numpy as np
+
+    b = np.zeros((n_dev, n), np.uint8)
+    lens = np.zeros(n_dev, np.int32)
+    rest = raw
+    for r in range(n_dev):
+        cut = rest.rfind(b"\n", 0, n) + 1
+        b[r, :cut] = np.frombuffer(rest[:cut], np.uint8)
+        lens[r] = cut
+        rest = rest[cut:]
+    return b, lens
+
+
+def _keep_mask(ch, pats, dl):
+    """The bytes the emit keeps (a step that does not overflow): valid
+    bytes of lines with a match, each line's newline included."""
+    import torch
+
+    n_dev, n = ch.shape
+    c = ch.to(torch.int64)
+    padded = torch.cat([c, torch.zeros((n_dev, pats.shape[1]),
+                                       dtype=torch.int64, device=c.device)], 1)
+    match = torch.ones((n_dev, n), dtype=torch.bool, device=c.device)
+    for j in range(pats.shape[1]):
+        match &= padded[:, j:j + n] == pats[:, j:j + 1].to(torch.int64)
+    valid = (torch.arange(n, device=c.device)[None, :]
+             < dl[:, None].to(torch.int64))
+    nl = ((c == 10) & valid).to(torch.int64)
+    line = torch.cumsum(nl, 1) - nl
+    occ = torch.zeros((n_dev, n + 1), dtype=torch.int64, device=c.device)
+    occ.scatter_add_(1, line, match.to(torch.int64))
+    return valid & (occ.gather(1, line) > 0)
+
+
+def emit_kernel_rows(plan_raw: bytes, pg_raw: bytes):
+    """J with its emit epilogue (K16e) against ``grep_step_plain(emit=True)``
+    on the same device tensors, every output: [1, 2 MiB] and [8, 2 MiB] for
+    ``the`` (pg) and ``dsi`` (the plan corpus) at the optimistic l_cap rung,
+    and short lines that overflow it (and clear at n + 1); then the times:
+    the emit step, J alone, the epilogue alone (its C entry point on J's
+    scratch), the plain version and a stable ``argsort`` + ``gather`` of the
+    same compaction.  Returns (times entry, max_abs_err)."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.ops import grepk
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.parallel.grepstream import (grep_step,
+                                                   grep_step_plain)
+
+    n = PLAN_PG_CHUNK
+    rung0 = grepk.line_cap_rungs(n)[0]
+    short = b"".join(b"the\n" if i % 3 == 0 else b"x\n"
+                     for i in range(2 * n))
+    cases = []
+    for n_dev in (1, 8):
+        for tag, raw, pat, l_cap in (
+                ("the", pg_raw, "the", rung0),
+                ("dsi", plan_raw, "dsi", rung0),
+                ("short", short, "the", rung0),
+                ("short_n1", short, "the", n + 1)):
+            cases.append((f"{tag}_d{n_dev}", raw, pat, l_cap, n_dev))
+    err, shapes = 0, {}
+    for name, raw, pat, l_cap, n_dev in cases:
+        b, lens = _line_batch(raw, n_dev, n)
+        args = (torch.from_numpy(b).to(DEVICE),
+                torch.from_numpy(np.tile(np.frombuffer(
+                    pat.encode(), np.uint8), (n_dev, 1))).to(DEVICE),
+                torch.from_numpy(lens).to(DEVICE),
+                torch.zeros(n_dev, dtype=torch.int64, device=DEVICE))
+        kw = dict(l_cap=l_cap, bins=8, k=16, emit=True)
+        got = grep_step(*args, **kw)
+        want = grep_step_plain(*args, **kw)
+        d = _worst(zip(got, want))
+        err = _merge_err(err, d)
+        kept = want[4].cpu().numpy()
+        overflow = bool(want[2][:, 2].any())
+        log({"emit_case": name, "n_dev": n_dev, "N": n, "l_cap": l_cap,
+             "overflow": overflow, "kept": int(kept.sum()),
+             "max_abs_err": d})
+        if name.startswith("short_d") and not overflow:
+            raise RuntimeError("the short-line batch did not overflow rung 0")
+        if name in ("the_d1", "the_d8", "dsi_d1"):
+            shapes[name] = (args, kw, kept, n_dev)
+    lib = w._lib()
+    rows = {}
+    for name, (args, kw, kept, n_dev) in shapes.items():
+        ch, pats, dl, bases = args
+        hist, cand, scal = grep_step(*args, **dict(kw, emit=False))
+        scratch = torch.empty(lib.dsi_grep_step_scratch_bytes(
+            n_dev, n, kw["l_cap"], kw["k"]), dtype=torch.uint8,
+            device=DEVICE)
+        emit_scratch = torch.empty(lib.dsi_grep_emit_scratch_bytes(n_dev, n),
+                                   dtype=torch.uint8, device=DEVICE)
+        comp = torch.empty((n_dev, n), dtype=torch.uint8, device=DEVICE)
+        kept_d = torch.empty(n_dev, dtype=torch.int32, device=DEVICE)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def step_only():
+            return lib.dsi_grep_step(
+                ch.data_ptr(), n_dev, n, pats.data_ptr(), pats.shape[1],
+                dl.data_ptr(), bases.data_ptr(), kw["l_cap"], 8, kw["k"],
+                hist.data_ptr(), cand.data_ptr(), scal.data_ptr(),
+                scratch.data_ptr(), stream)
+
+        def epilogue():
+            return lib.dsi_grep_emit(
+                ch.data_ptr(), n_dev, n, dl.data_ptr(), kw["l_cap"], kw["k"],
+                scratch.data_ptr(), emit_scratch.data_ptr(),
+                comp.data_ptr(), kept_d.data_ptr(), stream)
+
+        if step_only() != 0 or epilogue() != 0:
+            raise RuntimeError("grep_emit: the direct launch failed")
+        d = _worst(zip((comp, kept_d), grep_step_plain(*args, **kw)[3:]))
+        err = _merge_err(err, d)
+        # The library yardstick: the same stable partition by a sort.
+        keep_inv = (~_keep_mask(ch, pats, dl)).to(torch.uint8)
+        nbytes = n_dev * (2 * n + pats.shape[1] + 4 + 8 + 4
+                          + 4 * (11 + 16 * 5 + 5))
+        rows[name] = {
+            "max_abs_err": d,
+            "ms": cuda_ms(lambda: grep_step(*args, **kw), 20),
+            "j_ms": cuda_ms(step_only, 20),
+            "epilogue_ms": cuda_ms(epilogue, 20),
+            "epilogue_device_ms": device_ms(epilogue, 20, "::ge_"),
+            "plain_ms": cuda_ms(lambda: grep_step_plain(*args, **kw), 3),
+            "library_ms": cuda_ms(lambda: torch.gather(
+                ch, 1, torch.argsort(keep_inv, dim=1, stable=True)), 10),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "kept": int(kept.sum()),
+            "shape": f"n_dev={n_dev} N={n} l_cap={kw['l_cap']} k=16 "
+                     f"pattern={'dsi' if name == 'dsi_d1' else 'the'}"}
+    main = rows.pop("the_d1")
+    return {**main, "at_shapes": rows}, err
+
+
+def relay_kernel_rows():
+    """P against ``relay_pack_plain`` at [1, 1 MiB] and [8, 1 MiB] with the
+    offsets 0, mid-row and ``cap - kept`` on the same device tensors, timed
+    beside it; then a DeviceRelay fed 64 appends at [8, 1 MiB], every row
+    held to the host concatenation of what was appended.  Returns (times
+    entry, max_abs_err, relay entry)."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.device.relay import (DeviceRelay, relay_pack,
+                                            relay_pack_plain)
+
+    cap = PLAN_CHUNK
+    rng = np.random.default_rng(SEED)
+    err, rows = 0, {}
+    for n_dev in (1, 8):
+        acc = torch.from_numpy(rng.integers(0, 256, (n_dev, cap),
+                                            dtype=np.uint8)).to(DEVICE)
+        kept = rng.integers(cap // 8, cap // 4, n_dev)
+        new_np = np.zeros((n_dev, cap), np.uint8)
+        for r in range(n_dev):
+            new_np[r, :kept[r]] = rng.integers(1, 256, kept[r])
+        new = torch.from_numpy(new_np).to(DEVICE)
+        for where, off_np in (("zero", np.zeros(n_dev)),
+                              ("mid", np.full(n_dev, cap // 2)),
+                              ("cap-kept", cap - kept)):
+            off = torch.from_numpy(off_np.astype(np.int32)).to(DEVICE)
+            got = relay_pack(acc.clone(), off, new)
+            d = _worst([(got, relay_pack_plain(acc, off, new))])
+            err = _merge_err(err, d)
+            work = acc.clone()
+            moved = int((cap - off_np).sum())
+            nbytes = 2 * moved + 4 * n_dev
+            rows[f"{where}_d{n_dev}"] = {
+                "max_abs_err": d,
+                "ms": cuda_ms(lambda: relay_pack(work, off, new), 50),
+                "device_ms": device_ms(lambda: relay_pack(work, off, new),
+                                       50, "relay_pack_kernel"),
+                "plain_ms": cuda_ms(lambda: relay_pack_plain(acc, off, new),
+                                    10),
+                "library_ms": None, "bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "shape": f"[{n_dev}, {cap}] off {where}"}
+    # 64 appends of up to a quarter row: packs, seals and the open tail.
+    n_dev = 8
+    relay_st: dict = {}
+    relay = DeviceRelay(n_dev, cap=cap, device=DEVICE, stats=relay_st)
+    want = [bytearray() for _ in range(n_dev)]
+    for _ in range(PLAN_RELAY_APPENDS):
+        kept = rng.integers(0, cap // 4, n_dev)
+        buf = np.zeros((n_dev, cap), np.uint8)
+        for r in range(n_dev):
+            buf[r, :kept[r]] = rng.integers(1, 256, kept[r])
+            want[r] += buf[r, :kept[r]].tobytes()
+        relay.append(torch.from_numpy(buf).to(DEVICE), kept)
+    got = [bytearray() for _ in range(n_dev)]
+    for b in relay.batches():
+        host = b.cpu().numpy()
+        for r in range(n_dev):
+            nz = np.flatnonzero(host[r])
+            got[r] += host[r, :int(nz[-1]) + 1 if nz.size else 0].tobytes()
+    relay_entry = {"appends": PLAN_RELAY_APPENDS,
+                   "bytes": relay.total_bytes,
+                   "equal_to_host_concat": got == want,
+                   **{k: relay_st[k] for k in ("plan_relay_buffers",
+                                               "plan_intermediate_bytes")}}
+    main = rows.pop("mid_d1")
+    return {**main, "at_shapes": rows}, err, relay_entry
+
+
+def matching_text(paths, pattern: str) -> bytes:
+    """The lines of ``stream_files(paths)`` that contain ``pattern``, each
+    with its newline (an unterminated last line without): the bytes a grep
+    stage hands on."""
+    from dsi_tpu_torch.parallel.streaming import stream_files
+
+    pat = pattern.encode()
+    parts = b"".join(stream_files(paths)).split(b"\n")
+    return b"".join(ln + (b"\n" if i < len(parts) - 1 else b"")
+                    for i, ln in enumerate(parts) if pat in ln)
+
+
+def wc_oracle(text: bytes, workdir: str, tag: str) -> list:
+    """The sequential word count's sorted output lines over ``text``."""
+    d = os.path.join(workdir, tag)
+    os.makedirs(d)
+    path = os.path.join(d, "input.txt")
+    with open(path, "wb") as f:
+        f.write(text)
+    return run_oracle([path], d)
+
+
+def plan_run(tag, make, paths_bytes: int, **kw):
+    """``run_plan(make(), **kw)`` on the card, the call alone timed, launch
+    counts zeroed just before and read just after; returns (result, entry)."""
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.plan import run_plan
+
+    stats: dict = {}
+    plan = make()
+    w.reset_launches()
+    t0 = time.perf_counter()
+    res = run_plan(plan, device=DEVICE, stats=stats, **kw)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = w.launch_counts()
+    entry = {"seconds": seconds, "mb_per_s": paths_bytes / seconds / 1e6,
+             "input_bytes": paths_bytes, "launches": launches,
+             # A staged run has no device relay: no buffers, no spills.
+             **{k: stats.get(k, 0) for k in PLAN_STATS},
+             "engines": {name: (st if isinstance(st, dict) else st[0])
+                         for name, st in stats["plan_engine_stats"].items()}}
+    for name, st in entry["engines"].items():
+        entry["engines"][name] = {k: v for k, v in st.items()
+                                  if isinstance(v, (int, float))}
+    return res, entry
+
+
+def _wc_parity(final: dict, want: dict, cycles: int = 1) -> bool:
+    from dsi_tpu_torch.mr.sequential import ihash
+
+    return (stream_parity({k: c for k, (c, _) in final.items()}, want,
+                          cycles)
+            and all(p == ihash(k) % N_REDUCE for k, (_, p) in final.items()))
+
+
+def plan_paths(files, corpus, want_counts, work, gpu, failures):
+    """Phase 13's paths over the plan row's ``corpus`` and the pg
+    ``files`` (``want_counts``: their sequential word count), each held to
+    its staged twin and its oracles.  Returns ({path: launches}, {path:
+    entry})."""
+    import glob
+    import io
+
+    from dsi_tpu_torch.cli import planrun
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.parallel.grepstream import (DEFAULT_TOPK,
+                                                   grep_host_oracle)
+    from dsi_tpu_torch.parallel.streaming import stream_files
+    from dsi_tpu_torch.plan import (grep_cascade_plan, grep_wordcount_plan,
+                                    indexer_join_plan, wordcount_topk_plan)
+    from dsi_tpu_torch.plan.stagehost import build_plan
+
+    runs, results = {}, {}
+
+    def run(tag, make, nbytes, chained=True, **kw):
+        res, entry = plan_run(tag, make, nbytes, **kw)
+        runs[tag], results[tag] = entry, res
+        log({tag: {k: v for k, v in entry.items() if k != "engines"},
+             "gpu": gpu})
+        log({f"{tag}_engines": entry["engines"]})
+        if chained and entry["plan_spilled_bytes"] == 0 and \
+                entry["plan_intermediate_bytes"] != 0:
+            failures.append(f"{tag}: {entry['plan_intermediate_bytes']} "
+                            "intermediate bytes crossed the host")
+        return res
+
+    def same(tag, twin):
+        if results[tag].results != results[twin].results:
+            failures.append(f"{tag}: differs from {twin}")
+
+    # The bench's plan row.
+    nbytes = os.path.getsize(corpus)
+    spec = {"chain": "grep-wc", "pattern": PLAN_PATTERN, "files": [corpus],
+            "chunk_bytes": PLAN_CHUNK, "u_cap": PLAN_U_CAP,
+            "n_reduce": N_REDUCE}
+    t0 = time.perf_counter()
+    g_want = grep_host_oracle(stream_files([corpus]), PLAN_PATTERN)
+    oracle_lines = wc_oracle(matching_text([corpus], PLAN_PATTERN), work,
+                             "plan-oracle")
+    wc_want = oracle_counts(oracle_lines)
+    log({"plan_oracle_s": time.perf_counter() - t0,
+         "matched": g_want.matched, "words": len(wc_want)})
+    run("plan_warm", lambda: build_plan(spec), nbytes)  # first use
+    run("plan_chained", lambda: build_plan(spec), nbytes)
+    run("plan_staged", lambda: build_plan(spec), nbytes, chained=False,
+        staged=True)
+    run("plan_pipelined", lambda: build_plan(spec), nbytes, pipelined=True)
+    run("plan_n8", lambda: build_plan(dict(
+        spec, device_accumulate=True, mesh_shards=MESH_SHARDS)), nbytes,
+        n_dev=MESH_SHARDS)
+    for tag in ("plan_chained", "plan_pipelined", "plan_n8"):
+        same(tag, "plan_staged")
+    res = results["plan_staged"]
+    if res.results["grep"] != g_want:
+        failures.append("plan_staged: the grep stage differs from "
+                        "grep_host_oracle")
+    if not _wc_parity(res.final, wc_want):
+        failures.append("plan_staged: the counts differ from the "
+                        "sequential word count of the matching lines")
+    if runs["plan_pipelined"]["plan_pipelined"] != 1:
+        failures.append("plan_pipelined: the pair did not pipeline")
+    sharded = lambda: build_plan(spec)  # noqa: E731
+    run("plan_stage_shards", sharded, nbytes,
+        stage_shards=PLAN_STAGE_SHARDS)
+    run("plan_stage_shards_staged", sharded, nbytes, chained=False,
+        staged=True, stage_shards=PLAN_STAGE_SHARDS)
+    same("plan_stage_shards", "plan_stage_shards_staged")
+    g = results["plan_stage_shards"].results["grep"]
+    # A stage-sharded grep merge drops the order-sensitive top-k.
+    if g != g_want._replace(topk=()) or not _wc_parity(
+            results["plan_stage_shards"].final, wc_want):
+        failures.append("plan_stage_shards: differs from the oracles")
+
+    # The pg corpus cycled to 64 MB.
+    corpus_bytes = sum(os.path.getsize(p) for p in files) + len(files) - 1
+    cycles = max(1, round(PLAN_PG_MB * 1e6 / corpus_bytes))
+    pg = list(files) * cycles
+    pg_bytes = corpus_bytes * cycles + cycles - 1
+    t0 = time.perf_counter()
+    pg_grep = grep_host_oracle(stream_files(pg), PLAN_PG_PATTERN)
+    # Every cycle hands on the same lines, so one cycle's counts times
+    # the cycles are the stream's.
+    pg_wc = oracle_counts(wc_oracle(matching_text(files, PLAN_PG_PATTERN),
+                                    work, "pg-oracle"))
+    pg_lines = matching_text(pg, PLAN_CASCADE[0])
+    cascade_want = grep_host_oracle([pg_lines], PLAN_CASCADE[1])
+    th_grep = grep_host_oracle(stream_files(pg), PLAN_SEAL_PATTERN)
+    th_wc = oracle_counts(wc_oracle(matching_text(files, PLAN_SEAL_PATTERN),
+                                    work, "pg-th-oracle"))
+    log({"plan_pg_oracle_s": time.perf_counter() - t0, "cycles": cycles,
+         "matched": pg_grep.matched, "th_matched": th_grep.matched})
+
+    def pg_plan(pattern, **kw):
+        return lambda: grep_wordcount_plan(
+            pattern, paths=pg, chunk_bytes=PLAN_PG_CHUNK,
+            u_cap=STREAM_U_CAP, **kw)
+
+    for tag, pattern, g_want_, wc_want_ in (
+            ("plan_pg", PLAN_PG_PATTERN, pg_grep, pg_wc),
+            ("plan_pg_th", PLAN_SEAL_PATTERN, th_grep, th_wc)):
+        run(tag, pg_plan(pattern), pg_bytes)
+        run(f"{tag}_staged", pg_plan(pattern), pg_bytes, chained=False,
+            staged=True)
+        same(tag, f"{tag}_staged")
+        res = results[tag]
+        if res.results["grep"] != g_want_ or not _wc_parity(
+                res.final, wc_want_, cycles):
+            failures.append(f"{tag}: differs from the oracles")
+    run("plan_pg_th_spill", pg_plan(PLAN_SEAL_PATTERN,
+                                    spill_mb=PLAN_SPILL_MB), pg_bytes)
+    same("plan_pg_th_spill", "plan_pg_th_staged")
+    if runs["plan_pg_th"]["plan_relay_buffers"] < 4:
+        failures.append("plan_pg_th: fewer than 4 relay buffers sealed")
+    sp = runs["plan_pg_th_spill"]
+    if sp["plan_spilled_bytes"] < 1 or \
+            sp["plan_intermediate_bytes"] != sp["plan_spilled_bytes"]:
+        failures.append(f"plan_pg_th_spill: spilled "
+                        f"{sp['plan_spilled_bytes']}"
+                        f", intermediate {sp['plan_intermediate_bytes']}")
+
+    def cascade():
+        return grep_cascade_plan(*PLAN_CASCADE, paths=pg,
+                                 chunk_bytes=PLAN_PG_CHUNK)
+
+    def topk():
+        return wordcount_topk_plan(DEFAULT_TOPK, paths=pg,
+                                   chunk_bytes=PLAN_PG_CHUNK,
+                                   u_cap=STREAM_U_CAP)
+
+    run("plan_cascade", cascade, pg_bytes, chained=False)
+    run("plan_cascade_staged", cascade, pg_bytes, chained=False,
+        staged=True)
+    run("plan_wc_topk", topk, pg_bytes)
+    run("plan_wc_topk_staged", topk, pg_bytes, chained=False, staged=True)
+    same("plan_cascade", "plan_cascade_staged")
+    same("plan_wc_topk", "plan_wc_topk_staged")
+    c = results["plan_cascade"].results
+    if c["grep1"] != pg_grep or c["grep2"] != cascade_want._replace(topk=()):
+        failures.append("plan_cascade: differs from grep_host_oracle")
+    # The cascade pulls its first relay through the host, counted.
+    if runs["plan_cascade"]["plan_intermediate_bytes"] != len(pg_lines):
+        failures.append("plan_cascade: the host crossing was not counted")
+    top_want = tuple(sorted(((c * cycles, w_)
+                             for w_, c in want_counts.items()),
+                            key=lambda r: (-r[0], r[1]))[:DEFAULT_TOPK])
+    if results["plan_wc_topk"].final != top_want:
+        failures.append("plan_wc_topk: differs from the sequential top-k")
+
+    # The indexer chain: the 8 pg files as 8 documents, u_cap 2^15.
+    idx_lines, idx_top = indexer_oracle(files, work)
+    idx_want = {}
+    for ln in idx_lines:
+        word, df, docs = ln.decode().split(" ", 2)
+        idx_want[word] = (int(df), docs.split(","))
+    docs = []
+    for p in files:
+        with open(p, "rb") as f:
+            docs.append(f.read())
+    for tag, dacc in (("plan_indexer", False), ("plan_indexer_acc", True)):
+        def make(dacc=dacc):
+            return indexer_join_plan(docs, topk=DEFAULT_TOPK,
+                                     u_cap=TFIDF_U_CAP,
+                                     device_accumulate=dacc)
+
+        run(tag, make, sum(map(len, docs)))
+        run(f"{tag}_staged", make, sum(map(len, docs)), chained=False,
+            staged=True)
+        r = results[tag]
+        if r.results["dftopk"] != results[f"{tag}_staged"].results[
+                "dftopk"] or r.final != results[f"{tag}_staged"].final:
+            failures.append(f"{tag}: differs from its staged twin")
+        if r.results["dftopk"] != idx_top:
+            failures.append(f"{tag}: the df top-k differs from the oracle's")
+        if len(r.final) != len(idx_top) or any(
+                (df, sorted(files[d] for d in ds)) != idx_want.get(w_)
+                for w_, (df, _, ds) in r.final.items()):
+            failures.append(f"{tag}: the postings join differs from the "
+                            "oracle's")
+
+    # planrun --chain grep-wc --check in process, mr-out-* written.
+    outdir = os.path.join(work, "planrun")
+    out, err = io.StringIO(), io.StringIO()
+    w.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = planrun.main(["--chain", "grep-wc", "--pattern", PLAN_PATTERN,
+                           "--chunk-bytes", str(PLAN_CHUNK), "--check",
+                           "--workdir", outdir, "--device", DEVICE,
+                           corpus])
+    sync()
+    cli_s = time.perf_counter() - t0
+    launches = {"plan_cli": w.launch_counts()}
+    text = err.getvalue()
+    if rc != 0 or "parity OK" not in text:
+        failures.append(f"planrun rc={rc}: {text[-1000:]}")
+    cli_lines = sorted_lines(sorted(glob.glob(os.path.join(outdir,
+                                                           "mr-out-*"))))
+    if cli_lines != oracle_lines:
+        failures.append("planrun: mr-out-* differ from the sequential word "
+                        "count of the matching lines")
+    runs["plan_cli"] = {"seconds": cli_s, "mb_per_s": nbytes / cli_s / 1e6,
+                        "rc": rc, "parity": cli_lines == oracle_lines,
+                        "launches": launches["plan_cli"],
+                        "stderr": text.splitlines()[-4:]}
+    log({"plan_cli": runs["plan_cli"], "gpu": gpu})
+    runs.pop("plan_warm")
+    return ({**{k: v["launches"] for k, v in runs.items()}, **launches},
+            runs)
 
 
 def main() -> int:
@@ -2428,6 +2988,27 @@ def main() -> int:
             failures.append("crash_sim differs from its plain version")
         launch_crash, crash = crash_paths(gpu, failures)
 
+        # Phase 13: the plan layer.
+        from dsi_tpu_torch.utils.corpus import plan_corpus
+
+        plan_file = plan_corpus(os.path.join(work, "plan-corpus.txt"),
+                                PLAN_MB)
+        with open(plan_file, "rb") as f:
+            plan_raw = f.read()
+        times["grep_emit"], err["grep_emit"] = emit_kernel_rows(plan_raw,
+                                                                data)
+        times["relay_pack"], err["relay_pack"], relay_entry = \
+            relay_kernel_rows()
+        log({"relay_appends": relay_entry, "gpu": gpu})
+        for name in ("grep_emit", "relay_pack"):
+            if err[name] != 0:
+                failures.append(f"{name} differs from its plain version")
+        if not relay_entry["equal_to_host_concat"]:
+            failures.append("the relay's rows differ from the host "
+                            "concatenation of its appends")
+        launch_plan, plan = plan_paths(files, plan_file, want_counts, work,
+                                       gpu, failures)
+
     total_s = sum(phases.values())
     log({"slice": {
         "gpu": gpu, "input_bytes": nbytes, "mb_per_s": nbytes / total_s / 1e6,
@@ -2457,7 +3038,8 @@ def main() -> int:
                               "raw": v.get("raw_mb_per_s")}
                           for k, v in wire.items()},
         "crashcheck_s": {"run_crash_model_check_x3": crash["seconds"],
-                         "cli": crash["cli_seconds"]}}})
+                         "cli": crash["cli_seconds"]},
+        "plan_mb_per_s": {k: v["mb_per_s"] for k, v in plan.items()}}})
 
     by_path = {"corpus": launch_main, "corpus_mwl64": launch64,
                "split": launch_split, "sharded": sharded[1]["launches"],
@@ -2470,22 +3052,22 @@ def main() -> int:
                **{k: v["launches"] for k, v in grep.items()},
                **{k: v["launches"] for k, v in tfidf.items()},
                **{k: v["launches"] for k, v in indexer.items()},
-               **launch_wire, **launch_crash}
+               **launch_wire, **launch_crash, **launch_plan}
     for path, names in PATH_KERNELS.items():
         failures += [f"{name} never launched on the {path} path"
-                     for name in names if by_path[path].get(name, 0) < 1]
+                     for name in names if by_path[path][name] < 1]
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         tm = times[name]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
-               "launches": sum(p.get(name, 0) for p in by_path.values()),
+               "launches": sum(p[name] for p in by_path.values()),
                "max_abs_err": err[name], "match": err[name] == 0,
                "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                "bound_ms": tm["bound_ms"],
                "bound_by": tm.get("bound_by", "bytes"),
                "library_ms": tm["library_ms"], "shape": tm["shape"],
-               "launches_by_path": {k: p.get(name, 0)
+               "launches_by_path": {k: p[name]
                                     for k, p in by_path.items()}}
         if "radix_bound_ms" in tm:
             row["radix_bound_ms"] = tm["radix_bound_ms"]
@@ -2501,8 +3083,12 @@ def main() -> int:
             row["at_shapes"] = hash_shapes
         if name in ma_rows:
             row["at_shapes"]["mesh_append"] = ma_rows[name]
-        if name in ("wire_decode", "crash_sim"):
+        if name in ("wire_decode", "crash_sim", "grep_emit", "relay_pack"):
             row["at_shapes"] = tm["at_shapes"]
+        for key in ("j_ms", "epilogue_ms", "epilogue_device_ms",
+                    "device_ms"):
+            if key in tm:
+                row[key] = tm[key]
         kernels.append(row)
     log({"kernels": kernels})
     if failures:

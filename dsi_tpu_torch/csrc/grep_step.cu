@@ -29,6 +29,27 @@
 // per 2,048-line tile: histogram, totals and the tile's k least keys;
 // (5) gs_final, one block a row: the k least of the tiles' keys, the rows
 // and the scalars.
+//
+// The emit epilogue (K16e, the reference's emit=True branch, :324-339), a
+// separate entry point run right after the step on the same stream and
+// scratch: per row,
+//
+//   keep[i]  = i < dlen && occ[min(line_id[i], l_cap - 1)] > 0 (a line's
+//              terminating newline has the line's own id, so it is kept
+//              with the line; occ is gs_occ's, which equals the reference's
+//              line-valid-masked count at every valid byte);
+//   comp     = the kept bytes in stream order, then zeros to N;
+//   kept_n   = the count of kept bytes.
+//
+// Bound: memory bytes (the row read once, comp written once).  L's
+// structure (csrc/compact.cu), no atomics and no sort: (6) ge_count, per
+// 4 KiB tile (the tiles of gs_scan): each byte's line id from the tile's
+// newline offset (gs_scan's) and newline ballots, then keep, then the
+// tile's kept count from keep ballots; (7) ge_scan, one block a row: the
+// tiles' kept offsets and kept_n; (8) ge_write, per tile: the same ballots
+// rank each kept byte, and every byte at or past kept_n is written zero.
+// Bytes are taken round-major (byte q * 256 + thread of a tile), so a
+// ballot covers 32 neighbouring bytes and the ranks follow stream order.
 
 #include "common.cuh"
 
@@ -276,6 +297,132 @@ StepScratch carve(void* scratch, int n_dev, int64_t tiles, int64_t l_cap,
   return s;
 }
 
+// ── K16e: the emit epilogue ──────────────────────────────────────────────
+
+constexpr int kEWarps = kSThreads / 32;
+
+// One tile's ballots: newline and keep masks by (round, warp), and the
+// newline offsets before each (round, warp) inside the tile.
+struct EmitTile {
+  unsigned nl[kSItems][kEWarps];
+  unsigned keep[kSItems][kEWarps];
+  int before[kSItems][kEWarps];
+};
+
+// Fills t.nl, t.keep (and t.before with the newline offsets) for the tile
+// at `base`; byte[q] and keep[q] are this thread's byte of round q.
+__device__ __forceinline__ void emit_tile(
+    const uint8_t* c, int64_t N, int64_t dl, int64_t base, int64_t line0,
+    const int* occ_row, int64_t l_cap, EmitTile& t, uint8_t (&byte)[kSItems],
+    bool (&keep)[kSItems]) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+#pragma unroll
+  for (int q = 0; q < kSItems; ++q) {
+    const int64_t i = base + int64_t(q) * kSThreads + tid;
+    byte[q] = i < N ? c[i] : uint8_t(0);
+    const unsigned m = __ballot_sync(kFullMask, i < dl && byte[q] == 10);
+    if (lane == 0) t.nl[q][warp] = m;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int run = 0;
+    for (int q = 0; q < kSItems; ++q)
+      for (int v = 0; v < kEWarps; ++v) {
+        t.before[q][v] = run;
+        run += __popc(t.nl[q][v]);
+      }
+  }
+  __syncthreads();
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int q = 0; q < kSItems; ++q) {
+    const int64_t i = base + int64_t(q) * kSThreads + tid;
+    const int64_t lid =
+        line0 + t.before[q][warp] + __popc(t.nl[q][warp] & below);
+    const int64_t l = lid < l_cap - 1 ? lid : l_cap - 1;
+    keep[q] = i < dl && occ_row[l] > 0;
+    const unsigned m = __ballot_sync(kFullMask, keep[q]);
+    if (lane == 0) t.keep[q][warp] = m;
+  }
+  __syncthreads();
+}
+
+__global__ void ge_count(const uint8_t* chunks, int64_t N, const int* dlen,
+                         int tiles, const int* tile_offsets, const int* occ,
+                         int64_t l_cap, int* kept_counts) {
+  __shared__ EmitTile t;
+  const int row = blockIdx.y;
+  uint8_t byte[kSItems];
+  bool keep[kSItems];
+  emit_tile(chunks + int64_t(row) * N, N, clamp_dlen(dlen, row, N),
+            int64_t(blockIdx.x) * kSTile,
+            tile_offsets[int64_t(row) * tiles + blockIdx.x],
+            occ + int64_t(row) * l_cap, l_cap, t, byte, keep);
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int q = 0; q < kSItems; ++q)
+      for (int v = 0; v < kEWarps; ++v) n += __popc(t.keep[q][v]);
+    kept_counts[int64_t(row) * tiles + blockIdx.x] = n;
+  }
+}
+
+// Block `row` scans its tiles' kept counts: kept_offsets[row][tile] and
+// kept_n[row].
+__global__ void ge_scan(const int* kept_counts, int tiles, int* kept_offsets,
+                        int* kept_n) {
+  const int64_t row = int64_t(blockIdx.x) * tiles;
+  int run = 0;
+  for (int base = 0; base < tiles; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const int v = i < tiles ? kept_counts[row + i] : 0;
+    int sum;
+    const int before = block_exclusive_scan<int>(v, sum);
+    if (i < tiles) kept_offsets[row + i] = run + before;
+    run += sum;
+  }
+  if (threadIdx.x == 0) kept_n[blockIdx.x] = run;
+}
+
+__global__ void ge_write(const uint8_t* chunks, int64_t N, const int* dlen,
+                         int tiles, const int* tile_offsets, const int* occ,
+                         int64_t l_cap, const int* kept_offsets,
+                         const int* kept_n, uint8_t* comp) {
+  __shared__ EmitTile t;
+  const int row = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int64_t base = int64_t(blockIdx.x) * kSTile;
+  uint8_t byte[kSItems];
+  bool keep[kSItems];
+  emit_tile(chunks + int64_t(row) * N, N, clamp_dlen(dlen, row, N), base,
+            tile_offsets[int64_t(row) * tiles + blockIdx.x],
+            occ + int64_t(row) * l_cap, l_cap, t, byte, keep);
+  // emit_tile's last barrier: every thread has read t.before, so thread 0
+  // may overwrite it with the kept offsets.
+  if (tid == 0) {
+    int run = kept_offsets[int64_t(row) * tiles + blockIdx.x];
+    for (int q = 0; q < kSItems; ++q)
+      for (int v = 0; v < kEWarps; ++v) {
+        t.before[q][v] = run;
+        run += __popc(t.keep[q][v]);
+      }
+  }
+  __syncthreads();
+  const int64_t kn = kept_n[row];
+  const unsigned below = (1u << lane) - 1u;
+  uint8_t* out = comp + int64_t(row) * N;
+#pragma unroll
+  for (int q = 0; q < kSItems; ++q) {
+    const int64_t i = base + int64_t(q) * kSThreads + tid;
+    if (keep[q])
+      out[t.before[q][warp] + __popc(t.keep[q][warp] & below)] = byte[q];
+    if (i < N && i >= kn) out[i] = 0;  // the zero tail; kept ranks < kn
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -330,6 +477,42 @@ int dsi_grep_step(const void* chunks, int n_dev, int64_t N, const void* pats,
       w.tile_keys, int(ltiles), k, w.n_lines, l_cap, w.totals,
       static_cast<const int64_t*>(bases), bins, h, static_cast<int*>(cand),
       static_cast<int*>(scal));
+  DSI_CHECK_LAUNCH();
+  return 0;
+}
+
+int64_t dsi_grep_emit_scratch_bytes(int n_dev, int64_t N) {
+  return 2 * align8(4 * int64_t(n_dev) * ceil_div(N, kSTile));
+}
+
+// The emit epilogue: run after dsi_grep_step on the same stream with the
+// same chunks, dlen, l_cap, k and step scratch (it reads gs_scan's tile
+// offsets and gs_occ's counts there).  comp [n_dev, N] u8 (not aliasing
+// chunks); kept [n_dev] i32.
+int dsi_grep_emit(const void* chunks, int n_dev, int64_t N, const void* dlen,
+                  int64_t l_cap, int k, void* step_scratch, void* scratch,
+                  void* comp, void* kept, void* stream) {
+  if (n_dev < 1 || N < 1 || l_cap < 1 || k < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t tiles = ceil_div(N, kSTile);
+  const int64_t ltiles = ceil_div(l_cap, kLineTile);
+  StepScratch w = carve(step_scratch, n_dev, tiles, l_cap, ltiles, k);
+  int* kept_counts = static_cast<int*>(scratch);
+  int* kept_offsets = reinterpret_cast<int*>(
+      static_cast<char*>(scratch) + align8(4 * int64_t(n_dev) * tiles));
+  const uint8_t* c = static_cast<const uint8_t*>(chunks);
+  const int* dl = static_cast<const int*>(dlen);
+  const dim3 grid{unsigned(tiles), unsigned(n_dev)};
+  ge_count<<<grid, kSThreads, 0, s>>>(c, N, dl, int(tiles), w.tile_offsets,
+                                      w.occ, l_cap, kept_counts);
+  DSI_CHECK_LAUNCH();
+  ge_scan<<<unsigned(n_dev), kSThreads, 0, s>>>(
+      kept_counts, int(tiles), kept_offsets, static_cast<int*>(kept));
+  DSI_CHECK_LAUNCH();
+  ge_write<<<grid, kSThreads, 0, s>>>(c, N, dl, int(tiles), w.tile_offsets,
+                                      w.occ, l_cap, kept_offsets,
+                                      static_cast<const int*>(kept),
+                                      static_cast<uint8_t*>(comp));
   DSI_CHECK_LAUNCH();
   return 0;
 }

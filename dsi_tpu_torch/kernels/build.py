@@ -56,6 +56,10 @@ SIGNATURES = {
     "dsi_grep_step_scratch_bytes": (_I64, [_INT, _I64, _I64, _INT]),
     "dsi_grep_step": (_INT, [_P, _INT, _I64, _P, _INT, _P, _P, _I64, _INT,
                              _INT, _P, _P, _P, _P, _P]),
+    "dsi_grep_emit_scratch_bytes": (_I64, [_INT, _I64]),
+    "dsi_grep_emit": (_INT, [_P, _INT, _I64, _P, _I64, _INT, _P, _P, _P, _P,
+                             _P]),
+    "dsi_relay_pack": (_INT, [_P, _INT, _I64, _P, _P, _P]),
     "dsi_compact_scratch_bytes": (_I64, [_INT, _I64]),
     "dsi_compact": (_INT, [_P, _INT, _I64, _INT, _INT, _P, _P, _P, _P]),
     "dsi_postings_append": (_INT, [_P, _INT, _I64, _INT, _P, _P, _P, _I64,

@@ -33,7 +33,9 @@ The grep and TF-IDF kernels launch from their own modules through the same
 ``classgrep_kernel`` (``ops/grepk.py``, ``ops/regexk.py``) —
 ``csrc/grep.cu`` (K13, K14); ``nfa_kernel`` (``ops/nfak.py``) —
 ``csrc/nfa.cu`` (K15); ``grep_step`` (``parallel/grepstream.py``) —
-``csrc/grep_step.cu`` (K16); ``compact`` (``ops/meshroute.py``) —
+``csrc/grep_step.cu`` (K16), and ``grep_emit``, its emit epilogue
+(K16e); ``relay_pack`` (``device/relay.py``) — ``csrc/relay_pack.cu``
+(K21); ``compact`` (``ops/meshroute.py``) —
 ``csrc/compact.cu`` (K18's partition, ``compact_received``);
 ``postings_append`` (``device/postings.py``) —
 ``csrc/postings_append.cu`` (K20a); ``wire_decode`` (``ops/wirecodec.py``)
@@ -71,12 +73,14 @@ _BYTE_MASKS = (0, 0xFF000000, 0xFFFF0000, 0xFFFFFF00, 0xFFFFFFFF)
 # Launches of each kernel in this process; a plain-version call adds none.
 # The names of the kernels after J enter the dict at their first launch, so
 # a process that never launches them sees the dict it always saw;
-# ``launch_counts`` lists A-M, zeros included, and N and O once launched.
+# ``launch_counts`` lists every kernel, zeros included.
 LAUNCHES: Dict[str, int] = {"tokenize": 0, "radix_sort": 0, "group": 0,
                             "fnv": 0, "route": 0, "hash_group": 0,
                             "pack6": 0, "grep": 0, "nfa": 0,
                             "grep_step": 0}
-KERNEL_NAMES = tuple(LAUNCHES) + ("compact", "postings_append")
+KERNEL_NAMES = tuple(LAUNCHES) + ("compact", "postings_append",
+                                  "wire_decode", "crash_sim", "grep_emit",
+                                  "relay_pack")
 
 
 def reset_launches() -> None:
@@ -86,8 +90,7 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Every kernel's launch count in this process, by name: each of
-    ``KERNEL_NAMES``, and each later kernel (``wire_decode``,
-    ``crash_sim``) once it has launched in this process."""
+    ``KERNEL_NAMES``, zero for a kernel that has not launched."""
     return {**{name: 0 for name in KERNEL_NAMES}, **LAUNCHES}
 
 

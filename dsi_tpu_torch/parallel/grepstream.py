@@ -38,9 +38,13 @@ fold into a ``DeviceTopK``.  The result is the postings (per-word doc
 order = wave order) and the df top-k (df descending, word ascending);
 ``write_indexer_output`` writes the host indexer app's ``mr-out-*``.
 
+The plan layer's handoffs are here: ``GrepStep(line_sink=)`` emits each
+confirmed step's matching lines into a relay (kernel J's emit epilogue,
+K16e), and ``IndexerStep(keep_services=True)`` ends its walk with the
+device services live in ``step.exported``.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``aot``, checkpoints and ``resume``, ``line_sink``,
-``keep_services`` (the plan layer's handoffs) and ``input_range``.
+item: ``aot``, checkpoints and ``resume``, and ``input_range``.
 """
 
 from __future__ import annotations
@@ -193,7 +197,7 @@ def batch_lines(blocks: Iterable[bytes], n_dev: int, chunk_bytes: int,
 
 def grep_step_plain(chunks: torch.Tensor, pats: torch.Tensor,
                     dlen: torch.Tensor, bases: torch.Tensor, *, l_cap: int,
-                    bins: int, k: int):
+                    bins: int, k: int, emit: bool = False):
     """Plain version of kernel J, the reference's ``_grep_step_device``
     per row of the ``[n_dev, N]`` batch.  ``pats`` [n_dev, m] uint8,
     ``dlen`` [n_dev] int32 valid bytes, ``bases`` [n_dev] int64 (u64
@@ -201,7 +205,14 @@ def grep_step_plain(chunks: torch.Tensor, pats: torch.Tensor,
     [n_dev, bins+3] int32 holding u32: the histogram then n_lines,
     matched, occurrences; cand [n_dev, k, 5] int32 holding u32: rows [hi,
     lo, 8, occ, 0] of the top-k lines, zero past n_cand; scal [n_dev, 5]
-    int32: n_cand, n_lines, overflow, matched, occurrences)."""
+    int32: n_cand, n_lines, overflow, matched, occurrences).
+
+    ``emit=True`` (K16e, the plan layer's stage handoff) also returns comp
+    [n_dev, N] uint8, the bytes of the matching lines (each with its
+    newline) moved, stable, to the front of the row with a zero tail, and
+    kept [n_dev] int32, their count.  A byte past line ``l_cap - 1`` takes
+    that line's count, as the reference's; such a step overflows and is
+    replayed wider before anything reads its bytes."""
     n_dev, n = chunks.shape
     dev = chunks.device
     c = chunks.to(torch.int64)
@@ -242,12 +253,22 @@ def grep_step_plain(chunks: torch.Tensor, pats: torch.Tensor,
     cand = torch.stack([torch.where(cvalid, x, 0) for x in cols], 2)
     scal = torch.stack([n_cand, n_lines, (n_lines > l_cap).to(torch.int64),
                         matched, occurrences], 1)
-    return _u32_bits(hist_ext), _u32_bits(cand), scal.to(torch.int32)
+    out = (_u32_bits(hist_ext), _u32_bits(cand), scal.to(torch.int32))
+    if not emit:
+        return out
+    keep = valid & (occv.gather(1, line_id.clamp(max=l_cap - 1)) > 0)
+    rank = torch.cumsum(keep, 1) - keep.to(torch.int64)
+    comp = torch.zeros((n_dev, n + 1), dtype=torch.uint8, device=dev)
+    comp.scatter_(1, torch.where(keep, rank, n), chunks)
+    return out + (comp[:, :n].contiguous(), keep.sum(1).to(torch.int32))
 
 
 def grep_step(chunks: torch.Tensor, pats: torch.Tensor, dlen: torch.Tensor,
-              bases: torch.Tensor, *, l_cap: int, bins: int, k: int):
-    """Kernel J (``csrc/grep_step.cu``); see :func:`grep_step_plain`."""
+              bases: torch.Tensor, *, l_cap: int, bins: int, k: int,
+              emit: bool = False):
+    """Kernel J (``csrc/grep_step.cu``); see :func:`grep_step_plain`.
+    With ``emit`` J's emit epilogue (K16e, counted as ``grep_emit``) runs
+    after it on J's scratch, into a ``comp`` allocated for this call."""
     _require(chunks, torch.uint8, 2, "grep_step chunks")
     _require(pats, torch.uint8, 2, "grep_step patterns")
     _require(dlen, torch.int32, 1, "grep_step dlen")
@@ -261,7 +282,7 @@ def grep_step(chunks: torch.Tensor, pats: torch.Tensor, dlen: torch.Tensor,
                          f"bins={bins}")
     if not _on_cuda(chunks):
         return grep_step_plain(chunks, pats, dlen, bases, l_cap=l_cap,
-                               bins=bins, k=k)
+                               bins=bins, k=k, emit=emit)
     lib = _lib()
     opts = {"device": chunks.device}
     hist_ext = torch.empty((n_dev, bins + 3), dtype=torch.int32, **opts)
@@ -274,7 +295,17 @@ def grep_step(chunks: torch.Tensor, pats: torch.Tensor, dlen: torch.Tensor,
             _ptr(chunks), n_dev, n, _ptr(pats), pats.shape[1], _ptr(dlen),
             _ptr(bases), l_cap, bins, k, _ptr(hist_ext), _ptr(cand),
             _ptr(scal), _ptr(scratch), _stream(chunks)))
-    return hist_ext, cand, scal
+        if not emit:
+            return hist_ext, cand, scal
+        # comp is fresh every call: a relay adopts it as its buffer.
+        comp = torch.empty((n_dev, n), dtype=torch.uint8, **opts)
+        kept = torch.empty(n_dev, dtype=torch.int32, **opts)
+        emit_scratch = torch.empty(lib.dsi_grep_emit_scratch_bytes(n_dev, n),
+                                   dtype=torch.uint8, **opts)
+        _launch("grep_emit", lib.dsi_grep_emit(
+            _ptr(chunks), n_dev, n, _ptr(dlen), l_cap, k, _ptr(scratch),
+            _ptr(emit_scratch), _ptr(comp), _ptr(kept), _stream(chunks)))
+    return hist_ext, cand, scal, comp, kept
 
 
 # ── results and the host oracle ────────────────────────────────────────
@@ -351,7 +382,14 @@ class GrepStep(EngineStep):
     """Step object over the streaming grep (``parallel/stepobj.py``
     lifecycle); parameters as :func:`grep_streaming`.  A non-literal
     pattern routes to the host path at construction (already terminal,
-    ``close()`` -> None)."""
+    ``close()`` -> None).
+
+    ``line_sink`` (the plan layer's stage handoff, ``dsi_tpu_torch/plan``)
+    is a relay, :class:`~dsi_tpu_torch.device.relay.DeviceRelay` or
+    :class:`~dsi_tpu_torch.device.relay.HostRelay`, that receives every
+    confirmed step's matching-line bytes through ``append(comp, kept)``:
+    each step also runs J's emit epilogue (K16e), and only the confirmed
+    attempt of a replayed step reaches the sink."""
 
     def __init__(self, blocks: Iterable[bytes], pattern: str, n_dev: int = 1,
                  chunk_bytes: int = 1 << 20, depth: Optional[int] = None,
@@ -368,17 +406,22 @@ class GrepStep(EngineStep):
                  input_range: Optional[Tuple[int, int]] = None,
                  device=None):
         super().__init__()
+        if line_sink is not None and checkpoint_dir:
+            # The relay's content is not part of an engine checkpoint, so
+            # a mid-stage resume would drop lines already emitted; chains
+            # commit at stage boundaries instead.
+            raise ValueError("line_sink and checkpoint_dir are exclusive: "
+                             "chained stages commit at stage boundaries")
         if aot:
             raise _not_ported("aot", "the kernel build/warm cache")
         if (checkpoint_dir or checkpoint_every or checkpoint_async
                 or checkpoint_delta or resume):
             raise _not_ported("checkpointing", "checkpoints")
-        if line_sink is not None or input_range is not None:
-            raise _not_ported("line_sink/input_range",
-                              "the plan and serving layers")
+        if input_range is not None:
+            raise _not_ported("input_range", "the plan and serving layers")
         _grep_setup(self, blocks, pattern, n_dev, chunk_bytes, depth,
                     device_accumulate, sync_every, mesh_shards, topk, bins,
-                    pipeline_stats, resolve_device(device))
+                    pipeline_stats, resolve_device(device), line_sink)
 
 
 def grep_streaming(
@@ -431,9 +474,12 @@ def grep_streaming(
 
 def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
                 device_accumulate, sync_every, mesh_shards, topk, bins,
-                pipeline_stats, dev: torch.device):
+                pipeline_stats, dev: torch.device, line_sink=None):
     """The engine body behind :class:`GrepStep`: setup ending with the
-    pipeline armed and the lifecycle hooks attached to ``step``."""
+    pipeline armed and the lifecycle hooks attached to ``step``.  With
+    ``line_sink`` every step also runs J's emit epilogue, and each
+    confirmed step's matching-line bytes go to ``line_sink.append``."""
+    emit = line_sink is not None
     if not is_literal_pattern(pattern):
         step._phase = "hostpath"  # terminal before any device work
         return
@@ -490,7 +536,11 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
 
     def step_call(buf, lens_np, bases_np, l_cap):
         """Upload one batch (a ``non_blocking`` copy from the pinned pool
-        buffer plus the event that guards its reuse) and launch J."""
+        buffer plus the event that guards its reuse) and launch J, with
+        its emit epilogue when there is a line sink: ``emitted`` is then
+        (comp, kept in flight to the host), else None.  kept (n_dev
+        int32s) comes back with its own event, so a confirmed step's pull
+        waits for that step alone."""
         with timed(stats, "upload_s"):
             if on_card:
                 chunks = torch.from_numpy(buf).to(dev, non_blocking=True)
@@ -501,9 +551,10 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
             lens = torch.from_numpy(lens_np.copy()).to(dev)
             bases = torch.from_numpy(bases_np.copy()).to(dev)
         with timed(stats, "dispatch_s"):
-            hist_d, cand_d, scal = grep_step(chunks, pat_dev, lens, bases,
-                                             l_cap=l_cap, bins=bins, k=topk)
-        return hist_d, cand_d, scal, uploaded
+            outs = grep_step(chunks, pat_dev, lens, bases, l_cap=l_cap,
+                             bins=bins, k=topk, emit=emit)
+            emitted = (outs[3], HostCopy(outs[4])) if emit else None
+        return outs[0], outs[1], outs[2], emitted, uploaded
 
     def dispatch(item):
         buf, lens_np, row_lines = item
@@ -512,38 +563,39 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
         np.cumsum(row_lines[:-1], out=bases[1:])
         bases[1:] += next_line[0]
         next_line[0] += int(row_lines.sum())
-        hist_d, cand_d, scal, uploaded = step_call(buf, lens_np, bases,
-                                                   state["l_cap"])
+        hist_d, cand_d, scal, emitted, uploaded = step_call(
+            buf, lens_np, bases, state["l_cap"])
         stats["steps"] += 1
         return (buf, uploaded, lens_np, row_lines, bases, state["l_cap"],
-                hist_d, cand_d, scal, HostCopy(scal))
+                hist_d, cand_d, scal, HostCopy(scal), emitted)
 
     def replay_step(buf, lens_np, bases_np, used_l_cap):
         """Late-detected line-capacity overflow: replay just this step at
         the wider sticky rung.  Exactly once — the optimistic attempt's
-        tensors are dropped unmerged (occurrence counts do not depend on
-        the rung, so the replay reproduces them exactly)."""
+        tensors are dropped unmerged, its emitted bytes included
+        (occurrence counts and kept bytes do not depend on the rung, so
+        the replay reproduces them exactly)."""
         stats["replays"] += 1
         with timed(stats, "replay_s"):
             for l_cap in rungs:
                 if l_cap <= used_l_cap:
                     continue
-                hist_d, cand_d, scal, _ = step_call(buf, lens_np, bases_np,
-                                                    l_cap)
+                hist_d, cand_d, scal, emitted, _ = step_call(
+                    buf, lens_np, bases_np, l_cap)
                 scal_np = scal.cpu().numpy()  # waits for the launch
                 if not scal_np[:, 2].any():
                     state["l_cap"] = max(state["l_cap"], l_cap)
                     stats["l_cap"] = state["l_cap"]
-                    return hist_d, cand_d, scal, scal_np
+                    return hist_d, cand_d, scal, scal_np, emitted
         raise RuntimeError("grep l_cap ladder exhausted (n+1 must fit)")
 
     def finish_one(record) -> None:
         buf, uploaded, lens_np, row_lines, bases_np, l_cap_used, hist_d, \
-            cand_d, scal, scal_host = record
+            cand_d, scal, scal_host, emitted = record
         with timed(stats, "kernel_s"):
             scal_np = scal_host.wait()  # blocks until the step lands
         if scal_np[:, 2].any():  # l_cap overflow: replay wider, sticky
-            hist_d, cand_d, scal, scal_np = replay_step(
+            hist_d, cand_d, scal, scal_np, emitted = replay_step(
                 buf, lens_np, bases_np, l_cap_used)
         if not np.array_equal(scal_np[:, 1].astype(np.int64), row_lines):
             # The global line numbering depends on host/device agreeing
@@ -576,6 +628,12 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
                         line = (int(cand_np[d, i, 0]) << 32) | int(
                             cand_np[d, i, 1])
                         cand_h.append((line, int(cand_np[d, i, 3])))
+        if emitted is not None:
+            # The stage handoff: this confirmed step's matching-line bytes
+            # go to the relay, resident (DeviceRelay) or pulled
+            # (HostRelay); the kept counts are the only host metadata.
+            comp_d, kept_host = emitted
+            line_sink.append(comp_d, kept_host.wait().astype(np.int64))
         give_back(buf, uploaded)
 
     pipe = StepPipeline(depth=depth, dispatch=dispatch, finish=finish_one,
@@ -648,7 +706,16 @@ class IndexerStep(WaveWalkStep):
     """Step object over the streaming indexer's wave walk
     (``parallel/stepobj.py`` lifecycle, the word-window ladder of
     ``parallel/tfidf.py WaveWalkStep``); parameters as
-    :func:`indexer_streaming`."""
+    :func:`indexer_streaming`.
+
+    ``keep_services=True`` (the plan layer's stage handoff) ends the walk
+    without draining the device services: ``exported`` then holds the live
+    :class:`DeviceTopK` df table (``topk_svc``), the
+    :class:`~dsi_tpu_torch.device.postings.DevicePostings` buffer
+    (``postings_svc``) and the host accumulators (``df_acc``, ``table``),
+    so a downstream stage can take a k-row df snapshot and a selective
+    postings join instead of the full result; ``result`` is then a
+    handoff marker, not the (postings, topk) tuple."""
 
     def __init__(self, docs: Sequence[bytes], n_dev: int = 1,
                  n_reduce: int = 10, max_word_len: int = 16,
@@ -668,12 +735,12 @@ class IndexerStep(WaveWalkStep):
         if (checkpoint_dir or checkpoint_every or checkpoint_async
                 or checkpoint_delta or resume):
             raise _not_ported("checkpointing", "checkpoints")
-        if keep_services or input_range is not None:
-            raise _not_ported("keep_services/input_range",
-                              "the plan and serving layers")
+        if input_range is not None:
+            raise _not_ported("input_range", "the plan and serving layers")
+        self.exported: Optional[dict] = None
         _indexer_setup(self, docs, n_dev, n_reduce, max_word_len, u_cap,
                        depth, device_accumulate, sync_every, mesh_shards,
-                       topk, stats, resolve_device(device))
+                       topk, stats, resolve_device(device), keep_services)
 
 
 def indexer_streaming(
@@ -733,7 +800,7 @@ def indexer_streaming(
 
 def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
                    depth, device_accumulate, sync_every, mesh_shards, topk,
-                   stats, dev: torch.device):
+                   stats, dev: torch.device, keep_services: bool = False):
     """The engine body behind :class:`IndexerStep`: corpus-wide setup,
     then ``begin_rung`` arms the pipeline and attaches the lifecycle
     hooks."""
@@ -875,6 +942,18 @@ def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
         pipe.begin(lambda: _wave_items(docs, waves, n_dev))
 
         def end_ok():
+            if keep_services:
+                # The plan handoff: the walk is done, the device services
+                # stay resident; the downstream stages take a k-row df
+                # snapshot and close the postings buffer themselves.
+                step.exported = {
+                    "kk": kk, "n_real": n_real, "topk": topk,
+                    "device_accumulate": device_accumulate,
+                    "topk_svc": topk_svc, "postings_svc": buf_dev,
+                    "df_acc": df_acc, "table": table,
+                    "buffer_rows": buffer_rows}
+                step.result = ("plan-handoff",)
+                return
             if buf_dev is not None:
                 buf_dev.close()  # end-of-walk drain
                 if topk_svc is not None:

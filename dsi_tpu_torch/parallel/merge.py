@@ -2,7 +2,8 @@
 
 Copy of ``dsi_tpu/parallel/merge.py`` (``PackedCounts`` and its helpers,
 ``PostingsTable`` and ``PackedPostings``, without the checkpoint
-``snapshot``/``restore``).  Per-step tables of
+``restore``s and ``PostingsTable.snapshot``; ``PackedCounts.snapshot``
+is here for the plan layer's df top-k).  Per-step tables of
 packed word keys (big-endian u32 lanes) plus length / count / partition
 columns accumulate as raw numpy arrays; merging is one ``np.lexsort``
 over the key lanes, run-boundary detection and ``np.add.reduceat`` per
@@ -124,6 +125,16 @@ class PackedCounts:
         words = decode_packed(keys, lens, len(keys))
         return {w: (int(c), int(p))
                 for w, c, p in zip(words, cnts.tolist(), parts.tolist())}
+
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        """The merged table as four arrays (``keys``, ``lens``, ``cnts``,
+        ``parts``), compacted first so the image is bounded by the
+        vocabulary; an empty accumulator gives an empty dict."""
+        self._compact()
+        if not self._bufs:
+            return {}
+        keys, lens, cnts, parts = self._bufs[0]
+        return {"keys": keys, "lens": lens, "cnts": cnts, "parts": parts}
 
 
 class PostingsTable:

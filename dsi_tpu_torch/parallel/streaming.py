@@ -30,8 +30,13 @@ With ``wire_upload`` the host encodes each batch (``ops/wirecodec.py``
 (kernel N) into the chunk the step reads; a batch the codec cannot shrink
 uploads raw.
 
+With ``device_batches`` (the plan layer's stage handoff) the engine reads
+ready ``[n_dev, chunk_bytes]`` batches instead of a block stream: device
+tensors (an upstream relay's buffers) are consumed in place, host arrays
+(spilled or restored buffers) are uploaded.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``aot``, checkpoints, ``device_batches`` and ``input_range``.
+item): ``aot``, checkpoints and ``input_range``.
 """
 
 from __future__ import annotations
@@ -187,7 +192,18 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 class WordcountStep(EngineStep):
     """Step object over the streaming word count (``parallel/stepobj.py``
-    lifecycle); parameters as :func:`wordcount_streaming`."""
+    lifecycle); parameters as :func:`wordcount_streaming`.
+
+    ``device_batches`` (the plan layer's stage handoff,
+    ``dsi_tpu_torch/plan``) replaces the block stream with an iterable of
+    ready ``[n_dev, chunk_bytes]`` uint8 batches: tensors on the engine's
+    device are consumed in place (the upstream stage's resident output is
+    this stage's upload; no host bytes move, and a replay re-runs from
+    the same buffer), np.ndarrays (spilled or restored buffers) are
+    uploaded.  Batch rows must keep the engine's cut contract (no token
+    crosses a row's fill point; the zero tail ends the last token).  No
+    batch goes back to a pool, and there is no wire upload in this
+    mode."""
 
     def __init__(self, blocks: Iterable[bytes], n_dev: int = 1,
                  n_reduce: int = 10, chunk_bytes: int = 1 << 20,
@@ -208,18 +224,23 @@ class WordcountStep(EngineStep):
                  input_range: Optional[Tuple[int, int]] = None,
                  device=None):
         super().__init__()
+        if device_batches is not None and checkpoint_dir:
+            raise ValueError("device_batches and checkpoint_dir are "
+                             "exclusive: chained stages commit at stage "
+                             "boundaries (dsi_tpu_torch/plan), not byte "
+                             "cursors")
         if aot:
             raise _not_ported("aot", "the kernel build/warm cache")
         if (checkpoint_dir or checkpoint_every or checkpoint_async
                 or checkpoint_delta or resume):
             raise _not_ported("checkpointing", "checkpoints")
-        if device_batches is not None or input_range is not None:
-            raise _not_ported("device_batches/input_range",
-                              "the plan and serving layers")
+        if input_range is not None:
+            raise _not_ported("input_range", "the plan and serving layers")
         _wordcount_setup(self, blocks, n_dev, n_reduce, chunk_bytes,
                          max_word_len, u_cap, on_attempt, depth,
                          pipeline_stats, device_accumulate, sync_every,
-                         mesh_shards, wire_upload, resolve_device(device))
+                         mesh_shards, wire_upload, resolve_device(device),
+                         device_batches)
 
 
 def wordcount_streaming(
@@ -304,7 +325,7 @@ def wordcount_streaming(
 def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
                      max_word_len, u_cap, on_attempt, depth, pipeline_stats,
                      device_accumulate, sync_every, mesh_shards,
-                     wire_upload, dev: torch.device):
+                     wire_upload, dev: torch.device, device_batches=None):
     """The engine body behind :class:`WordcountStep`: setup ending with
     the pipeline armed and the lifecycle hooks attached to ``step``."""
     depth = pipeline_depth(depth)
@@ -328,7 +349,9 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
              "dispatch_s": 0.0, "finalize_s": 0.0}
     # Compressed chunk uploads: the knob changes only what crosses the
     # link, never the chunk the step reads, so results are the same.
-    wire = wire_upload_default(wire_upload)
+    # Device batches have no upload to compress.
+    wire = (wire_upload_default(wire_upload) if device_batches is None
+            else False)
     wire_raw_total = 0  # raw-equivalent bytes of the packed uploads
     if wire:
         stats.update({"wire_upload": True, "wire_steps": 0,
@@ -379,10 +402,18 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
     pool = BufferPool((n_dev, chunk_bytes), retain=2 * depth + 3,
                       alloc=pinned_batch if on_card else None)
 
-    def upload(buf: np.ndarray):
+    def upload(buf):
         """One batch to the device: on the card a ``non_blocking`` copy
         from the pinned pool buffer plus the event that guards the
-        buffer's reuse; on the CPU a copy."""
+        buffer's reuse; on the CPU a copy.  A device batch is already
+        there and is read in place."""
+        if isinstance(buf, torch.Tensor):
+            if buf.device.type != dev.type or tuple(buf.shape[:1]) != (
+                    n_dev,) or buf.dtype != torch.uint8:
+                raise ValueError(f"device batch: want [{n_dev}, L] uint8 on "
+                                 f"{dev}, got {buf.dtype} "
+                                 f"{tuple(buf.shape)} on {buf.device}")
+            return buf, None
         if not on_card:
             return torch.from_numpy(buf.copy()), None
         chunks = torch.from_numpy(buf).to(dev, non_blocking=True)
@@ -390,10 +421,11 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
         done.record(torch.cuda.current_stream(dev))
         return chunks, done
 
-    def give_back(buf: np.ndarray, uploaded) -> None:
+    def give_back(buf, uploaded) -> None:
         if uploaded is not None:
             uploaded.synchronize()  # the copy out of buf has completed
-        pool.give(buf)
+        if device_batches is None:  # a handed-over batch is never pooled
+            pool.give(buf)
 
     def step_call(chunks, mwl, cap, frac, g):
         return mapreduce_step(chunks, n_dev=n_dev, n_reduce=n_reduce,
@@ -552,7 +584,11 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
                         inflight_key="max_inflight_chunks",
                         thread_name="dsi-stream-batcher")
     step._pipe = pipe
-    pipe.begin(lambda: batch_stream(blocks, n_dev, chunk_bytes, pool=pool))
+    if device_batches is not None:
+        pipe.begin(lambda: iter(device_batches))
+    else:
+        pipe.begin(lambda: batch_stream(blocks, n_dev, chunk_bytes,
+                                        pool=pool))
     step._host_excs = (_TokenTooLong, _NeedsHostPath)
 
     def on_complete():

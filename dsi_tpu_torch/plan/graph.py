@@ -1,0 +1,202 @@
+"""Plan/Stage graph model: multi-stage dataflow without the host trip.
+
+Copy of ``dsi_tpu/plan/graph.py``.  A :class:`Plan` is a small DAG of
+:class:`Stage` nodes whose edges are device-resident handoffs
+(``dsi_tpu_torch/device/relay.py``, ``IndexerStep.exported``) instead of
+host materialisations; ``plan/driver.py`` runs it.
+
+Stage kinds (what the driver knows how to run):
+
+* ``grep``          — streaming literal grep over a byte source, emitting
+  the matching lines into the outgoing relay (``GrepStep(line_sink=)``).
+* ``wordcount``     — streaming word count over an upstream relay
+  (``WordcountStep(device_batches=)``) or a host block stream (the staged
+  baseline, or a source stage).
+* ``indexer``       — wave-walk inverted index over a document list,
+  ending with its device services exported
+  (``IndexerStep(keep_services=True)``).
+* ``df_topk``       — k-row document-frequency snapshot off an upstream
+  indexer's resident :class:`DeviceTopK` (no drain to the host).
+* ``postings_join`` — per-term postings lookup for an upstream df_topk's
+  terms.
+* ``top_k``         — the k highest-count words of an upstream word
+  count's result (count desc, word asc), a host reduction.
+* A ``grep`` stage may itself have a grep dep (the grep→grep cascade): it
+  re-greps the upstream relay's line stream with its own pattern.
+
+A plan is validated at build time (unique names, known deps, acyclic)
+and serialises to :meth:`Plan.signature`, the same job identity as the
+reference's for the same plan; bulk inputs (corpus bytes, document
+lists) enter it as CRCs, not content.
+"""
+
+from __future__ import annotations
+
+import json
+import zlib
+from typing import Dict, List, Optional, Sequence, Tuple
+
+#: The stage kinds plan/driver.py can run.
+STAGE_KINDS = ("grep", "wordcount", "indexer", "df_topk", "postings_join",
+               "top_k")
+
+#: Stage params carrying bulk payloads: identity-hashed, never inlined
+#: into the signature.
+_BULK_PARAMS = ("data", "docs", "paths")
+
+
+class PlanError(ValueError):
+    """A malformed plan: unknown kind, missing dep, duplicate name,
+    cycle — raised at build/validate time, never mid-run."""
+
+
+class Stage:
+    """One node: ``name`` (unique), ``kind`` (STAGE_KINDS), ``deps``
+    (upstream stage names this one consumes), ``params`` (kind-specific
+    knobs; bulk inputs under ``data``/``docs``/``paths``)."""
+
+    def __init__(self, name: str, kind: str,
+                 deps: Sequence[str] = (), **params):
+        if kind not in STAGE_KINDS:
+            raise PlanError(f"unknown stage kind {kind!r} "
+                            f"(have: {', '.join(STAGE_KINDS)})")
+        self.name = str(name)
+        self.kind = kind
+        self.deps: Tuple[str, ...] = tuple(deps)
+        self.params: Dict = dict(params)
+
+    def identity(self) -> Dict:
+        """JSON-ready identity: params with bulk payloads replaced by
+        (length, crc32) pairs so the signature stays small and stable."""
+        out = {"name": self.name, "kind": self.kind,
+               "deps": list(self.deps)}
+        for k in sorted(self.params):
+            v = self.params[k]
+            if k in _BULK_PARAMS and v is not None:
+                if k == "docs":
+                    crc = 0
+                    total = 0
+                    for d in v:
+                        crc = zlib.crc32(bytes(d), crc)
+                        total += len(d)
+                    out[k] = {"n": len(v), "bytes": total, "crc32": crc}
+                elif k == "data":
+                    out[k] = {"bytes": len(v),
+                              "crc32": zlib.crc32(bytes(v))}
+                else:  # paths: names are identity enough (files change
+                    out[k] = list(v)  # under any cursor scheme anyway)
+            else:
+                out[k] = v
+        return out
+
+
+class Plan:
+    """An ordered, validated stage DAG.  ``add`` returns the stage so
+    chains read naturally::
+
+        p = Plan("grep-wc", chunk_bytes=1 << 20)
+        g = p.add(Stage("grep", "grep", pattern="the", paths=files))
+        p.add(Stage("wc", "wordcount", deps=[g.name]))
+    """
+
+    def __init__(self, name: str, **defaults):
+        self.name = str(name)
+        #: Plan-wide engine knobs every stage inherits (chunk_bytes,
+        #: depth, device_accumulate, sync_every, mesh_shards, aot, ...);
+        #: a stage's own params override.
+        self.defaults: Dict = dict(defaults)
+        self._stages: List[Stage] = []
+        self._by_name: Dict[str, Stage] = {}
+
+    def add(self, stage: Stage) -> Stage:
+        if stage.name in self._by_name:
+            raise PlanError(f"duplicate stage name {stage.name!r}")
+        for d in stage.deps:
+            if d not in self._by_name:
+                raise PlanError(f"stage {stage.name!r} depends on "
+                                f"unknown stage {d!r} (deps must be "
+                                f"added first — the DAG is built in "
+                                f"topological order)")
+        self._stages.append(stage)
+        self._by_name[stage.name] = stage
+        return stage
+
+    def __len__(self) -> int:
+        return len(self._stages)
+
+    def __getitem__(self, name: str) -> Stage:
+        return self._by_name[name]
+
+    def ordered(self) -> Tuple[Stage, ...]:
+        """The stages in execution order.  Insertion order IS a
+        topological order (``add`` refuses forward deps), so this is
+        deterministic and needs no tie-breaking."""
+        return tuple(self._stages)
+
+    def param(self, stage: Stage, key: str, default=None):
+        """Stage-over-plan parameter resolution."""
+        if key in stage.params:
+            return stage.params[key]
+        return self.defaults.get(key, default)
+
+    def signature(self) -> Dict:
+        """The plan's job identity (stage-manifest ``job`` field):
+        JSON-normalised, bulk inputs as CRCs."""
+        return json.loads(json.dumps({
+            "plan": self.name,
+            "defaults": {k: v for k, v in sorted(self.defaults.items())
+                         if not callable(v)},
+            "stages": [s.identity() for s in self._stages],
+        }))
+
+
+# ── the two canonical chains ──────────────────────────────────────────
+
+
+def grep_wordcount_plan(pattern: str, *, paths: Optional[Sequence[str]]
+                        = None, data: Optional[bytes] = None,
+                        **defaults) -> Plan:
+    """grep → wordcount-over-matching-lines: stage 2 counts words over
+    exactly the lines stage 1 matched, with the matching-line bytes
+    staying device-resident between the stages."""
+    p = Plan("grep-wc", **defaults)
+    g = p.add(Stage("grep", "grep", pattern=pattern, paths=paths,
+                    data=data))
+    p.add(Stage("wc", "wordcount", deps=[g.name]))
+    return p
+
+
+def grep_cascade_plan(pattern1: str, pattern2: str, *,
+                      paths: Optional[Sequence[str]] = None,
+                      data: Optional[bytes] = None, **defaults) -> Plan:
+    """grep → grep: stage 2 re-greps exactly the lines stage 1 matched
+    (a narrowing filter chain — "lines with A, of those, lines with
+    B"), the relay's line stream standing in for the byte source."""
+    p = Plan("grep-grep", **defaults)
+    g1 = p.add(Stage("grep1", "grep", pattern=pattern1, paths=paths,
+                     data=data))
+    p.add(Stage("grep2", "grep", deps=[g1.name], pattern=pattern2))
+    return p
+
+
+def wordcount_topk_plan(k: int = 16, *,
+                        paths: Optional[Sequence[str]] = None,
+                        data: Optional[bytes] = None, **defaults) -> Plan:
+    """wordcount → top-k: stage 2 is a host reduction picking the k
+    highest-count words of the full count table."""
+    p = Plan("wc-topk", **defaults)
+    w = p.add(Stage("wc", "wordcount", paths=paths, data=data))
+    p.add(Stage("topk", "top_k", deps=[w.name], topk=k))
+    return p
+
+
+def indexer_join_plan(docs: Sequence[bytes], *, topk: int = 16,
+                      **defaults) -> Plan:
+    """indexer → df-top-k → per-term postings join: stage 2 takes a
+    k-row snapshot of the resident df table (no drain), stage 3 decodes
+    postings for just those k terms."""
+    p = Plan("indexer-join", **defaults)
+    i = p.add(Stage("indexer", "indexer", docs=list(docs), topk=topk))
+    t = p.add(Stage("dftopk", "df_topk", deps=[i.name], topk=topk))
+    p.add(Stage("join", "postings_join", deps=[i.name, t.name]))
+    return p

@@ -6,6 +6,7 @@
     python -m dsi_tpu_torch.slice_profile --indexer
     python -m dsi_tpu_torch.slice_profile --wire
     python -m dsi_tpu_torch.slice_profile --crashcheck
+    python -m dsi_tpu_torch.slice_profile --plan
 
 On the bench corpus (8 files x (2 MiB - 64), seed 1234) it prints JSON
 lines:
@@ -52,7 +53,13 @@ lines:
   wall;
 * with ``--crashcheck`` (and nothing else): ``crash_profile``,
   ``run_crash_model_check`` at 1,000 instances and ``simulate_batch`` at
-  2^20 in the CLI's configuration (kernel O), each the same way.
+  2^20 in the CLI's configuration (kernel O), each the same way;
+* with ``--plan`` (and nothing else): ``plan_profile``, the bench's plan
+  row (``bench.py run_plan_row``: 8 MB of its corpus, ``grep-wc``,
+  ``dsi``, 1 MiB chunks, one shard) through ``run_plan`` chained, staged
+  and pipelined, and the corpus cycled to 64 MB grepped for ``th`` in 2
+  MiB chunks (the relay seals buffers) chained, each the same way, with
+  the stage walls and the relay's counters.
 
 Needs one CUDA card; the card's name and power limit head the output.
 """
@@ -284,6 +291,40 @@ def _crash_profile() -> dict:
     return out
 
 
+def _plan_profile(work: str, files) -> dict:
+    from dsi_tpu_torch.plan import grep_wordcount_plan, run_plan
+    from dsi_tpu_torch.utils.corpus import plan_corpus
+
+    corpus = plan_corpus(os.path.join(work, "plan.txt"), 8.0)
+    total = sum(os.path.getsize(p) for p in files) + len(files) - 1
+    pg = list(files) * max(1, round(64e6 / total))
+    out = {}
+    for tag, make, kw in (
+            ("plan_chained", lambda: grep_wordcount_plan(
+                "dsi", paths=[corpus], chunk_bytes=1 << 20), {}),
+            ("plan_staged", lambda: grep_wordcount_plan(
+                "dsi", paths=[corpus], chunk_bytes=1 << 20),
+             {"staged": True}),
+            ("plan_pipelined", lambda: grep_wordcount_plan(
+                "dsi", paths=[corpus], chunk_bytes=1 << 20),
+             {"pipelined": True}),
+            ("plan_pg_th", lambda: grep_wordcount_plan(
+                "th", paths=pg, chunk_bytes=1 << 21, u_cap=1 << 15), {})):
+        stats: dict = {}
+
+        def run():
+            stats.clear()
+            run_plan(make(), device="cuda", stats=stats, **kw)
+
+        prof = _profile(run)
+        prof["idle_share"] = 1.0 - prof["device_s"] / prof["wall_s"]
+        prof.update({k: stats.get(k, 0) for k in (
+            "plan_s", "plan_stage_walls", "plan_relay_buffers",
+            "plan_intermediate_bytes", "plan_overlap_s")})
+        out[tag] = prof
+    return out
+
+
 @contextlib.contextmanager
 def env_set(**values):
     """Environment variables set for the duration; the old values come
@@ -349,6 +390,8 @@ def main() -> int:
     ap.add_argument("--crashcheck", action="store_true",
                     help="profile the crash model checker alone "
                          "(crash_profile)")
+    ap.add_argument("--plan", action="store_true",
+                    help="profile the plan row alone (plan_profile)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("slice_profile: needs a CUDA card")
@@ -364,6 +407,10 @@ def main() -> int:
         files = ensure_corpus(os.path.join(work, "c"), 8, (2 << 20) - 64,
                               1234)
         raws = [Path(p).read_bytes() for p in files]
+        if args.plan:
+            print(json.dumps({"plan_profile": _plan_profile(work, files)}),
+                  flush=True)
+            return 0
         if args.tfidf:
             print(json.dumps({"tfidf_profile": _tfidf_profile(files)}),
                   flush=True)

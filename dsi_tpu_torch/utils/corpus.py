@@ -90,3 +90,24 @@ def ensure_corpus(directory: str, n_files: int = 8,
             generate_file(p, file_size, seed + i)
         paths.append(p)
     return paths
+
+
+def plan_corpus(path: str, mb: float = 8.0) -> str:
+    """The plan row's corpus (``bench.py run_plan_row``): lines of at least
+    ``mb`` MB in all, every third carrying ``dsi`` twice among a small
+    vocabulary, the rest fillers that match nothing; returns ``path``."""
+    target = mb * 1e6
+    lines = []
+    written = i = 0
+    while written < target:
+        if i % 3 == 0:
+            line = (f"dsi chain w{i % 211:03d} step keeps bytes on "
+                    f"device w{i % 97:02d} dsi\n")
+        else:
+            line = f"filler row{i} nothing matches here at all\n"
+        lines.append(line)
+        written += len(line)
+        i += 1
+    with atomic_write(path, "wb") as f:
+        f.write("".join(lines).encode("ascii"))
+    return path

@@ -132,5 +132,5 @@ def test_cpu_compaction_counts_no_launch():
                     rows[:, :40].contiguous(),
                     torch.ones((2, 5), dtype=torch.int32))
     counts = tw.launch_counts()
-    assert set(counts) == set(tw.LAUNCHES) | {"compact", "postings_append"}
+    assert set(counts) == set(tw.KERNEL_NAMES)
     assert not any(counts.values())

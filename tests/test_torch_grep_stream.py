@@ -280,8 +280,6 @@ def test_grep_streaming_not_ported_options_raise():
     for kw in ({"aot": True}, {"checkpoint_dir": "x"}, {"resume": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tgs.grep_streaming([b"a\n"], "a", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgs.GrepStep([b"a\n"], "a", device="cpu", line_sink=object())
 
 
 @pytest.mark.parametrize("extra", ([], ["--device-accumulate",

@@ -71,7 +71,11 @@ def test_every_module_is_listed():
             "dsi_tpu_torch.device.postings",
             "dsi_tpu_torch.parallel.tfidf", "dsi_tpu_torch.apps.indexer",
             "dsi_tpu_torch.ops.wirecodec", "dsi_tpu_torch.parallel.simulate",
-            "dsi_tpu_torch.cli.crashcheck", "chip_smoke"} <= set(MODULES)
+            "dsi_tpu_torch.cli.crashcheck", "dsi_tpu_torch.device.relay",
+            "dsi_tpu_torch.mr.shards", "dsi_tpu_torch.plan",
+            "dsi_tpu_torch.plan.graph", "dsi_tpu_torch.plan.driver",
+            "dsi_tpu_torch.plan.stagehost", "dsi_tpu_torch.cli.planrun",
+            "chip_smoke"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("name", MODULES)

@@ -280,9 +280,8 @@ def test_not_ported_and_device_default(monkeypatch):
                      ({"checkpoint_delta": True}, "checkpoints")):
         with pytest.raises(NotImplementedError, match=item):
             tg.indexer_streaming(docs, device="cpu", **kw)
-    for kw in ({"keep_services": True}, {"input_range": (0, 1)}):
-        with pytest.raises(NotImplementedError, match="plan and serving"):
-            tg.IndexerStep(docs, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="plan and serving"):
+        tg.IndexerStep(docs, device="cpu", input_range=(0, 1))
     with pytest.raises(ValueError, match="mesh_shards"):
         tg.indexer_streaming(docs, n_dev=2, mesh_shards=3, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
