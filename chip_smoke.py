@@ -13,8 +13,13 @@ Phases (any failure exits non-zero before the last line is printed):
    device tensors: the slice shape (the bench corpus), 8-word keys at
    max_word_len 64 with ties, an empty buffer, non-ASCII bytes, a token
    longer than 64, n_tokens > t_cap at frac 4 and n_unique > u_cap; exact
-   equality required; each kernel timed with CUDA events beside its plain
-   version, its bound and (for the sort) a library yardstick;
+   equality required; kernel B also in its own cases through both of its
+   paths (a digit constant in every row, one row, a tile's edges, all
+   rows equal, real rows equal to the pad value, 1-8 key words, the
+   prefix sort, t at the switch between the paths); each kernel timed
+   with CUDA events beside its plain version, its bound and (for the
+   sort) a library yardstick, B and F also with their launches a call,
+   their device time from ``torch.profiler`` and B's skipped passes;
 3. the slice at full size: the bench corpus (8 files x (2 MiB - 64),
    seed 1234) through ``corpus_wordcount`` + ``write_corpus_output`` with
    ``sort mr-out-*`` byte-equal to the sequential oracle; the same corpus
@@ -34,7 +39,9 @@ Phases (any failure exits non-zero before the last line is printed):
    their plain versions at the reduce and fold shapes of that stream;
 6. the hash grouper (kernel F) against its plain version at the corpus
    shape with ``extra``, the split shape without, max_word_len 64, no
-   token, a forced dirty bucket and a dirty overflow; the 6-bit decode
+   token, a forced dirty bucket and a dirty overflow, and with the hashes
+   forced (two words in one bucket, every bucket clean, two words that
+   differ only in their last key word); the 6-bit decode
    (kernel G) on the bench corpus, a random 64-symbol buffer and one
    repeated byte; D, E, B and C at the mesh-sharded fold's shapes;
 7. the word count in every configuration the JAX package offers, each to
@@ -67,7 +74,8 @@ Phases (any failure exits non-zero before the last line is printed):
    ``csrc/postings_append.cu``) against their plain versions at the wave's
    shapes (one shard, eight shards, the 64-byte window, lane-0 pad rows;
    an append that fits, the bench's second-wave overflow, a dirty buffer,
-   eight shards); the bench's TF-IDF row (the corpus once, eight 2 MiB
+   eight shards), L at its two small shapes in three rounds beside its
+   library pair; the bench's TF-IDF row (the corpus once, eight 2 MiB
    documents, u_cap 2^15, packed) through ``tfidf_sharded`` at one
    virtual shard with the postings buffer off (``tfidf``) and on
    (``tfidf_acc``, which must overflow and recover), and at eight
@@ -410,6 +418,150 @@ def check_kernels(cases):
     return err
 
 
+def radix_sort_cases(corpus_keys):
+    """(name, keys [k64, t] int64 on the card, n_sort or None) per case of
+    B: a digit constant in every row (the top-k words at a small cap), one
+    row, one row either side of either path's tile, all rows equal, real
+    rows equal to the pad value before pad rows, 1, 2, 3 and 8 key words,
+    the prefix sort at n = 0, mid and t, and t at the switch between the
+    paths and one row either side (the bench corpus's key words)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+
+    def rand(k64, t, hi=4):
+        a = rng.integers(0, hi, size=(k64, t), dtype=np.int64)
+        a[0, 1::5] |= np.int64(-1 << 63)
+        a[:, 3::11] = -1
+        return torch.from_numpy(a).to(DEVICE)
+
+    cases = [("topk_words", topk_words(1 << 10, 100), None),
+             ("one_row", rand(2, 1), None)]
+    cases += [(f"t={t}", rand(2, t), None)
+              for t in (2047, 2048, 2049, 4095, 4096, 4097)]
+    cases.append(("all_equal", torch.full((2, 3000), 0x0123456789ABCDEF,
+                                          dtype=torch.int64, device=DEVICE),
+                  None))
+    pad = rand(2, 10000, hi=1 << 40)
+    pad[:, [10, 500, 8999]] = -1
+    pad[:, 9000:] = -1
+    cases.append(("pad_valued_rows", pad, None))
+    cases += [(f"k64={k}", rand(k, 9999), None) for k in (1, 2, 3, 8)]
+    for t in (40000, 600000):
+        k = rand(3, t, hi=1 << 40)
+        n = t // 2
+        k[:, n:] = -1
+        k[:, n // 2] = -1
+        for m in (0, n, t):
+            kk = k if m else torch.full_like(k, -1)
+            cases.append((f"prefix t={t} n={m}", kk, m))
+    switch = radix_small_max()
+    for t in (switch - 1, switch, switch + 1):
+        cases.append((f"switch t={t}", corpus_keys[:, :t].contiguous(),
+                      None))
+    return cases
+
+
+def radix_small_max() -> int:
+    """The largest t that B sorts in one cooperative launch, as the built
+    library reports it."""
+    from dsi_tpu_torch.ops import wordcount as w
+
+    return int(w._lib().dsi_radix_sort_small_max())
+
+
+def sort_on_path(keys, n_sort, path: int, passes: bool = False):
+    """B through its C entry point pinned to one design (1: one
+    cooperative launch, 2: one launch a pass, 0: picked by t, as
+    ``radix_sort`` calls it).  With ``passes`` it also returns the
+    (skipped, run) 8-bit passes that the kernel counted on the card."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    if keys.device.type != "cuda":
+        out = w.radix_sort(keys, n_sort)
+        return (*out, None) if passes else out
+    lib = w._lib()
+    k64, t = keys.shape
+    out = torch.empty_like(keys)
+    perm = torch.empty(t, dtype=torch.int32, device=keys.device)
+    scratch = torch.empty(lib.dsi_radix_sort_scratch_bytes(t),
+                          dtype=torch.uint8, device=keys.device)
+    rc = lib.dsi_radix_sort_ex(keys.data_ptr(), k64, t, w._ptr(n_sort),
+                               out.data_ptr(), perm.data_ptr(),
+                               scratch.data_ptr(), w._stream(keys), path)
+    if rc != 0:
+        raise RuntimeError(f"radix_sort path {path}: CUDA error {rc}")
+    if not passes:
+        return out, perm
+    off = lib.dsi_radix_sort_passes_offset(t)
+    skipped, ran = scratch[off:off + 8].view(torch.int32).tolist()
+    return out, perm, (skipped, ran)
+
+
+def check_passes(keys, n, counted) -> None:
+    """Raises unless B's own count of its passes (skipped, run) equals
+    what these key words call for: a pass skipped exactly where its digit
+    is the same in every row below ``n``, every other pass run."""
+    if counted is None:
+        return
+    want = skipped_passes(keys, n)
+    if counted != (want, 8 * keys.shape[0] - want):
+        raise RuntimeError(f"radix_sort counted (skipped, run) passes "
+                           f"{counted}, the keys call for "
+                           f"({want}, {8 * keys.shape[0] - want})")
+
+
+def check_radix_sort(cases):
+    """B against its plain version on every case, through the wrapper's
+    own choice of path and pinned to each path; returns max_abs_err (-1
+    marks a mismatch of shape or type)."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    err = 0
+    for name, keys, n in cases:
+        ns = (None if n is None
+              else torch.tensor([n], dtype=torch.int32, device=DEVICE))
+        want = w.radix_sort_plain(keys, ns)
+        errs = {"auto": _worst(zip(w.radix_sort(keys, ns), want))}
+        counted = {}
+        for path, code in (("small", 1), ("large", 2)):
+            sk, pm, counted[path] = sort_on_path(keys, ns, code, passes=True)
+            errs[path] = _worst(zip((sk, pm), want))
+            check_passes(keys, n, counted[path])
+        sync()
+        for e in errs.values():
+            err = _merge_err(err, e)
+        log({"radix_sort_case": name, "shape": list(keys.shape),
+             "n_sort": n, "skipped_run_passes": counted,
+             "max_abs_err": errs,
+             **(path_ms(keys, ns) if name.startswith("switch") else {})})
+    return err
+
+
+def topk_words(cap: int, occupied: int):
+    """The top-k snapshot's key words (``device/topk.py``): ~count, the
+    packed word, its length, for ``occupied`` candidate rows of a table of
+    ``cap``; 7 of word 0's bytes and 7 of word 2's are constant."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    rng = np.random.default_rng(SEED)
+    counts = np.zeros(cap, np.int64)
+    counts[:occupied] = rng.integers(1, 9, occupied)
+    keys = np.full((cap, 2), -1, np.int32)
+    keys[:occupied, 1] = rng.permutation(200_000)[:occupied]
+    keys[:occupied, 0] = 0
+    lanes = torch.from_numpy(keys).to(DEVICE)
+    return torch.stack([
+        ~torch.from_numpy(counts).to(DEVICE),
+        *w.pack_key_lanes((lanes[:, 0], lanes[:, 1])),
+        torch.from_numpy(np.where(counts > 0, 8, 0)).to(DEVICE)])
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` on the card, from CUDA events around
     ``reps`` calls after one warm-up call."""
@@ -427,23 +579,121 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, name: str) -> float:
-    """Mean device milliseconds a call of ``fn()`` spends in the CUDA
-    kernels whose names contain ``name``, from ``torch.profiler`` over
-    ``reps`` calls after one warm-up call: the kernels alone, where
-    :func:`cuda_ms` also holds the host's launch gaps of a short kernel."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_events(fn, reps: int, anchors, tries: int = 4):
+    """[(kernel or copy name, count, device us)] of ``reps`` calls of
+    ``fn()`` under ``torch.profiler``, after a warm-up call and a warm-up
+    step of the profiler, or None.  A window counts only when it is whole:
+    a kernel whose name holds one of ``anchors`` (each launched once a
+    call) was seen ``reps`` times and every count is a whole number of
+    calls.  The profiler can drop events at the edges of its window, so it
+    is asked again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    anchors = (anchors,) if isinstance(anchors, str) else tuple(anchors)
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total",
-                                                      0.0))
-             for e in prof.key_averages() if name in e.key)
-    return us / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                sync()
+                prof.step()
+        events = []
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0))
+            if t > 0:
+                events.append((e.key, e.count, t))
+        calls = max([c for k, c, _ in events
+                     if any(a in k for a in anchors)], default=0)
+        if calls == reps and all(c % reps == 0 for _, c, _ in events):
+            return events
+    return None
+
+
+def device_ms(fn, reps: int, name: str):
+    """Mean device milliseconds a call of ``fn()`` spends in the CUDA
+    kernels whose names contain ``name``, from ``torch.profiler``: the
+    kernels alone, where :func:`cuda_ms` also holds the host's launch gaps
+    of a short kernel.  None when no whole window was seen."""
+    events = _device_events(fn, reps, name)
+    if events is None:
+        return None
+    return sum(t for k, _, t in events if name in k) / 1e3 / reps
+
+
+def call_profile(fn, anchors, reps: int = 20, names: bool = False) -> dict:
+    """Every CUDA launch (kernels and memsets) of one call of ``fn()`` on
+    the card, from ``torch.profiler``: ``launches_per_call`` and
+    ``device_ms`` (the launches' device time, without the host's gaps
+    between them), with ``names`` also ``kernel_names``.  Calls are
+    counted by a kernel whose name holds one of ``anchors``, launched once
+    a call; every value is None when no whole window was seen."""
+    events = _device_events(fn, reps, anchors)
+    out = {"launches_per_call": None, "device_ms": None}
+    if events is not None:
+        out = {"launches_per_call": sum(c for _, c, _ in events) // reps,
+               "device_ms": sum(t for _, _, t in events) / 1e3 / reps}
+    if names:
+        out["kernel_names"] = (None if events is None
+                               else [k for k, _, _ in events])
+    return out
+
+
+def skipped_passes(keys, n=None) -> int:
+    """B's 8-bit passes that the kernel skips on these key words: a digit
+    that is the same in every row below ``n``."""
+    k = keys[:, :n] if n is not None else keys
+    if k.shape[1] == 0:
+        return 8 * k.shape[0]
+    skipped = 0
+    for p in range(8):
+        d = (k >> (8 * p)) & 255
+        skipped += int((d.amin(dim=1) == d.amax(dim=1)).sum())
+    return skipped
+
+
+def b_row_extras(keys, library_ms: float) -> dict:
+    """The fields every row of B carries beside its time: the CUDA launches
+    of one call and their device time, the path whose kernels the profiler
+    saw, the 8-bit passes that the kernel counted as skipped and as run
+    (held to what the keys call for), and the one-word library call times
+    k64 (it sorts 1/k64 of B's work).  Raises when the launches break the
+    design: one a call on the small path, at most 1 + 11 * k64 above."""
+    from dsi_tpu_torch.ops import wordcount as w
+
+    k64, t = keys.shape
+    prof = call_profile(lambda: w.radix_sort(keys), ("rs_coop", "rs_final"),
+                        names=True)
+    names = prof.pop("kernel_names")
+    if names is None:
+        path = "small" if t <= radix_small_max() else "large"
+    else:
+        path = "small" if any("rs_coop" in k for k in names) else "large"
+    most = 1 if path == "small" else 1 + 11 * k64
+    if prof["launches_per_call"] is not None \
+            and prof["launches_per_call"] > most:
+        raise RuntimeError(f"radix_sort t={t} k64={k64}: "
+                           f"{prof['launches_per_call']} launches a call on "
+                           f"the {path} path, the design allows {most}")
+    *_, counted = sort_on_path(keys, None, 0, passes=True)
+    check_passes(keys, None, counted)
+    return {**prof, "skipped_passes": counted[0], "passes_run": counted[1],
+            "path": path, "library_x_k64_ms": library_ms * k64,
+            **path_ms(keys)}
+
+
+def path_ms(keys, n_sort=None) -> dict:
+    """B's time on each of its two paths, pinned, in turns: where the
+    switch between them belongs."""
+    turns = [(name, cuda_ms(lambda: sort_on_path(keys, n_sort, code), 20))
+             for name, code in (("small", 1), ("large", 2), ("large", 2),
+                                ("small", 1))]
+    return {f"{name}_path_ms": min(ms for n, ms in turns if n == name)
+            for name in ("small", "large")}
 
 
 def time_kernels(corpus_buf, split_buf):
@@ -486,6 +736,8 @@ def time_kernels(corpus_buf, split_buf):
         "bytes": b_bytes,
         "radix_bytes": 8 * k64 * (8 + 4) * 2 * t,
         "shape": f"t={t} k64={k64}"}
+    out["radix_sort"].update(b_row_extras(keys,
+                                          out["radix_sort"]["library_ms"]))
     c_bytes = t * (8 * k64 + 8) + nu * 8 + u * (8 * k64 + 8 + 4 + 4) + 4
     sk_rows = skeys.T
     out["group"] = {
@@ -677,15 +929,16 @@ def time_sort_group(keys64, counts, payload, u_cap: int, tag: str):
     c_bytes = (t * (8 * k64 + 8) + 8 * min(nu, u_cap)
                + u_cap * (8 * k64 + 8 + 4 + 4) + 4)
     sk_rows = skeys.T
+    b_lib = cuda_ms(lambda: torch.sort(word0, stable=True), 20)
     return {
         "radix_sort": {
             "max_abs_err": b_err,
             "ms": cuda_ms(lambda: w.radix_sort(keys64), 20),
             "plain_ms": cuda_ms(lambda: w.radix_sort_plain(keys64), 5),
-            "library_ms": cuda_ms(lambda: torch.sort(word0, stable=True),
-                                  20),
+            "library_ms": b_lib,
             "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3,
-            "shape": f"{tag}: t={t} k64={k64}"},
+            "shape": f"{tag}: t={t} k64={k64}",
+            **b_row_extras(keys64, b_lib)},
         "group": {
             "max_abs_err": c_err,
             "ms": cuda_ms(lambda: w.group_sorted(skeys, scounts, u_cap,
@@ -791,6 +1044,70 @@ def hash_group_cases(corpus_buf, split_buf, raw0: bytes):
     ]
 
 
+def forced_bucket_cases():
+    """F's cases with the tokens' hashes forced, as (name, keys, lengths,
+    fnv, n_valid, extra or None, u_cap), each with and without ``extra``:
+    every token in one bucket with two distinct words, one word a bucket
+    (every bucket clean), and two words that differ only in their last key
+    word, sharing a bucket beside clean ones."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    rng = np.random.default_rng(SEED)
+    t, k = 2049, 4
+    vocab = rng.integers(0x41414141, 0x5A5A5A5A, (700, k), dtype=np.int64)
+    pairs = {}
+    tok = np.zeros(t, np.int64)
+    tok[:200] = np.arange(200) % 2
+    pairs["one_bucket_two_words"] = (tok, np.full(t, 5), 200)
+    tok = rng.integers(0, 700, t)
+    pairs["one_word_a_bucket"] = (tok, tok, 1500)
+    tok = rng.integers(2, 700, t)
+    tok[::31] = 0
+    tok[5::31] = 1
+    vocab_last = vocab.copy()
+    vocab_last[1, :k - 1] = vocab_last[0, :k - 1]  # differ in the last word
+    pairs["last_word_differs"] = (tok, np.where(tok < 2, 1, tok), 1800)
+    cases = []
+    for name, (tok, bucket, n_valid) in pairs.items():
+        voc = vocab_last if name == "last_word_differs" else vocab
+        lanes = np.where((np.arange(t) < n_valid)[:, None], voc[tok],
+                         -1).astype(np.uint32).view(np.int32)
+        lanes_t = torch.from_numpy(lanes.copy()).to(DEVICE)
+        keys = torch.stack(w.pack_key_lanes(
+            tuple(lanes_t[:, j].contiguous() for j in range(k))))
+        lens = torch.from_numpy(np.where(np.arange(t) < n_valid, 16, 0)
+                                .astype(np.int32)).to(DEVICE)
+        fnv = torch.from_numpy(bucket.astype(np.int32)).to(DEVICE)
+        nv = torch.tensor([n_valid], dtype=torch.int32, device=DEVICE)
+        extra = torch.from_numpy(rng.integers(0, 1 << 32, t, dtype=np.int64)
+                                 .astype(np.uint32).view(np.int32)).to(DEVICE)
+        for ex in (None, extra):
+            cases.append((name + ("_extra" if ex is not None else ""), keys,
+                          lens, fnv, nv, ex, 1024))
+    return cases
+
+
+def check_forced_buckets(cases):
+    """F against its plain version on the forced-hash cases; returns
+    max_abs_err and the failures of the cases' own conditions."""
+    from dsi_tpu_torch.ops import wordcount as w
+
+    err, failures = 0, []
+    for name, keys, lens, fnv, nv, extra, u_cap in cases:
+        got = w.hash_group(keys, lens, fnv, nv, u_cap, extra=extra)
+        want = w.hash_group_plain(keys, lens, fnv, nv, u_cap, extra=extra)
+        d = _worst(zip(got, want))
+        err = _merge_err(err, d)
+        sync()
+        if bool(want[5]):
+            failures.append(f"F: {name} overflowed its dirty buffer")
+        log({"hash_group_case": name, "n_valid": int(nv[0]),
+             "n_unique": int(want[4]), "max_abs_err": d})
+    return err, failures
+
+
 def check_hash_group(cases):
     """Kernel F against its plain version on every case, all six outputs
     in order; returns max_abs_err (-1 marks a mismatch of shape or type)
@@ -853,6 +1170,9 @@ def time_hash_group(buf, mwl: int, with_extra: bool, u_cap: int):
         "library_ms": cuda_ms(lambda: torch.unique(
             rows, dim=0, return_counts=True), 5),
         "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        # Every launch of the call: F's four, B's and C's.
+        **call_profile(lambda: w.hash_group(keys, lens, fnv, sc[:1], u_cap,
+                                            extra=extra), "hg_reset"),
         "shape": (f"t={t} k64={k64} extra={with_extra} u_cap={u_cap} "
                   f"n_buckets={w.hash_group_shape(t)[0]} "
                   f"d_cap={w.hash_group_shape(t)[1]} "
@@ -1290,24 +1610,15 @@ def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
 
     # B as the top-k snapshot runs it: the candidate table at its rung-0
     # capacity (16,384 rows) holding one stream's 128 candidate rows.
-    rng = np.random.default_rng(SEED)
     cap, occ = 1 << 14, 128
-    counts = np.zeros(cap, np.int64)
-    counts[:occ] = rng.integers(1, 9, occ)
-    keys = np.full((cap, 2), -1, np.int32)
-    keys[:occ, 1] = rng.permutation(200_000)[:occ]
-    keys[:occ, 0] = 0
-    lanes = torch.from_numpy(keys).to(DEVICE)
-    words = torch.stack([
-        ~torch.from_numpy(counts).to(DEVICE),
-        *w.pack_key_lanes((lanes[:, 0], lanes[:, 1])),
-        torch.from_numpy(np.where(counts > 0, 8, 0)).to(DEVICE)])
+    words = topk_words(cap, occ)
     word0 = words[0].clone()
     topk = entry(lambda: w.radix_sort(words),
                  lambda: w.radix_sort_plain(words),
                  2 * 8 * 3 * cap + 4 * cap,
                  f"topk: t={cap} k64=3 occupied={occ}")
     topk["library_ms"] = cuda_ms(lambda: torch.sort(word0, stable=True), 20)
+    topk.update(b_row_extras(words, topk["library_ms"]))
     errs = {name: _merge_err(rows[name]["max_abs_err"], _worst_err(rows[name]))
             for name in rows}
     return rows, topk, errs
@@ -1434,6 +1745,22 @@ def tfidf_kernel_rows(raws):
                 "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes", "shape": shape}
 
+    def l_rounds(rows, pad_lanes, reps=20):
+        """Three rounds of L and its library pair at one shape, with L's
+        device time from the profiler: to tell L from the wrapper."""
+        flag = (rows[..., :pad_lanes] == -1).all(-1).to(torch.int8)
+
+        def lib():
+            return torch.gather(rows, 1, torch.argsort(
+                flag, dim=1, stable=True)[..., None].expand_as(rows))
+
+        def l_fn():
+            return compact_rows(rows, pad_lanes=pad_lanes)
+
+        return [{"ms": cuda_ms(l_fn, reps), "library_ms": cuda_ms(lib, reps),
+                 "device_ms": device_ms(l_fn, reps, "compact_")}
+                for _ in range(3)]
+
     recv1, recv8, recv64 = received(1, MWL), received(8, MWL), received(1, 64)
     lane0 = recv1.clone()
     n0 = int((lane0[0, :, 0] != -1).sum())
@@ -1449,6 +1776,8 @@ def tfidf_kernel_rows(raws):
         "interleaved": l_entry(mixed, 2, "n_dev=1 rows permuted"),
         "received_lane0": l_entry(lane0, 1, "n_dev=1 pad_lanes 1 with "
                                             "lane-0-only rows")}
+    rows_l["n_dev=1"]["rounds"] = l_rounds(recv1, 2)
+    rows_l["n_dev=1"]["at_shapes"]["mwl64"]["rounds"] = l_rounds(recv64, 2)
 
     def m_case(rows, scal, cap, n, dirty):
         opts = {"dtype": torch.int32, "device": DEVICE}
@@ -2581,6 +2910,12 @@ def main() -> int:
 
         # Phase 2: kernels against their plain versions, then their times.
         err = check_kernels(kernel_cases(corpus_buf))
+        corpus_keys = w.tokenize(torch.from_numpy(corpus_buf).to(DEVICE),
+                                 max_word_len=MWL,
+                                 t_cap=len(corpus_buf) // 4 + 1)[0]
+        err["radix_sort"] = _merge_err(
+            err["radix_sort"], check_radix_sort(radix_sort_cases(corpus_keys)))
+        del corpus_keys
         failures += [f"{k} differs from its plain version"
                      for k, e in err.items() if e != 0]
         times = time_kernels(corpus_buf, split_buf)
@@ -2676,6 +3011,9 @@ def main() -> int:
         # at the mesh-sharded fold's shapes.
         err["hash_group"], fails = check_hash_group(
             hash_group_cases(corpus_buf, split_buf, raws[0]))
+        failures += fails
+        forced_err, fails = check_forced_buckets(forced_bucket_cases())
+        err["hash_group"] = _merge_err(err["hash_group"], forced_err)
         failures += fails
         times["hash_group"] = time_hash_group(corpus_buf, MWL, True,
                                               w.rung0_cap(len(corpus_buf),
@@ -3086,7 +3424,9 @@ def main() -> int:
         if name in ("wire_decode", "crash_sim", "grep_emit", "relay_pack"):
             row["at_shapes"] = tm["at_shapes"]
         for key in ("j_ms", "epilogue_ms", "epilogue_device_ms",
-                    "device_ms"):
+                    "device_ms", "launches_per_call", "passes_run",
+                    "skipped_passes", "path", "library_x_k64_ms", "rounds",
+                    "small_path_ms", "large_path_ms"):
             if key in tm:
                 row[key] = tm[key]
         kernels.append(row)

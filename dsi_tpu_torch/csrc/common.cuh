@@ -75,9 +75,13 @@ __global__ void scan_exclusive_kernel(const T* in, T* out, int64_t n,
   if (threadIdx.x == 0 && total != nullptr) *total = all;
 }
 
-inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+__host__ __device__ inline int64_t ceil_div(int64_t a, int64_t b) {
+  return (a + b - 1) / b;
+}
 
-inline int64_t align8(int64_t bytes) { return (bytes + 7) & ~int64_t(7); }
+__host__ __device__ inline int64_t align8(int64_t bytes) {
+  return (bytes + 7) & ~int64_t(7);
+}
 
 }  // namespace
 

@@ -35,6 +35,9 @@ SIGNATURES = {
     "dsi_tokenize": (_INT, [_P, _I64, _INT, _I64, _P, _P, _P, _P, _P, _P]),
     "dsi_radix_sort_scratch_bytes": (_I64, [_I64]),
     "dsi_radix_sort": (_INT, [_P, _INT, _I64, _P, _P, _P, _P]),
+    "dsi_radix_sort_ex": (_INT, [_P, _INT, _I64, _P, _P, _P, _P, _P, _INT]),
+    "dsi_radix_sort_passes_offset": (_I64, [_I64]),
+    "dsi_radix_sort_small_max": (_I64, []),
     "dsi_group_scratch_bytes": (_I64, [_I64, _I64]),
     "dsi_group": (_INT, [_P, _INT, _I64, _P, _P, _P, _I64, _P, _P, _P, _P,
                          _P, _P, _P]),
@@ -43,7 +46,7 @@ SIGNATURES = {
     "dsi_route": (_INT, [_P, _P, _INT, _I64, _INT, _INT, _P, _P, _P]),
     "dsi_hash_group_scratch_bytes": (_I64, [_INT, _I64, _I64]),
     "dsi_hash_bucket": (_INT, [_P, _INT, _I64, _P, _P, _P, _P, _I64, _I64,
-                               _P, _P, _P, _P]),
+                               _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "dsi_hash_assemble": (_INT, [_INT, _I64, _I64, _I64, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P, _P, _P, _P]),
     "dsi_pack6": (_INT, [_P, _I64, _P, _P, _P]),
@@ -133,10 +136,13 @@ def build(csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> Path:
     return lib_path
 
 
-def load(path: Path) -> ctypes.CDLL:
-    """Load a built kernel library and declare its C entry points."""
+def load(path: Path, names=None) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entry points: all of
+    them, or only ``names`` (a library built from another version of
+    ``csrc/`` may lack the newer ones)."""
     lib = ctypes.CDLL(str(path))
-    for name, (restype, argtypes) in SIGNATURES.items():
+    for name in SIGNATURES if names is None else names:
+        restype, argtypes = SIGNATURES[name]
         fn = getattr(lib, name)
         fn.restype = restype
         fn.argtypes = argtypes

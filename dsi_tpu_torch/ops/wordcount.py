@@ -320,34 +320,60 @@ def tokenize(chunk: torch.Tensor, *, max_word_len: int, t_cap: int,
 # ── B: radix sort ────────────────────────────────────────────────────────
 
 
-def radix_sort_plain(keys: torch.Tensor):
+def _sort_rows(n_sort: Optional[torch.Tensor], t: int) -> int:
+    """Rows the prefix sort covers: ``n_sort`` clamped to [0, t]."""
+    return t if n_sort is None else min(max(int(n_sort[0]), 0), t)
+
+
+def radix_sort_plain(keys: torch.Tensor,
+                     n_sort: Optional[torch.Tensor] = None):
     """Plain version of kernel B: stable lexicographic sort of the u64 key
     words ``keys`` [k64, t] (int64 bits).  Returns (sorted keys, perm
-    int32) with ``sorted[w][i] == keys[w][perm[i]]``, ties in input order."""
-    perm = torch.arange(keys.shape[1], device=keys.device)
+    int32) with ``sorted[w][i] == keys[w][perm[i]]``, ties in input order.
+
+    ``n_sort`` (int32 [1]): the kernel sorts only the rows below it and
+    leaves the rest in place.  That equals the full stable sort when the
+    rows from ``n_sort`` on are identical and each is, unsigned and
+    lexicographically, at least every row below it; this version sorts
+    every row and raises ``ValueError`` when that precondition fails."""
+    t = keys.shape[1]
+    perm = torch.arange(t, device=keys.device)
     for w in reversed(range(keys.shape[0])):
         word = keys[w][perm] ^ _SIGN64  # unsigned order as signed order
         perm = perm[torch.sort(word, stable=True).indices]
-    return keys[:, perm], perm.to(torch.int32)
+    skeys = keys[:, perm]
+    n = _sort_rows(n_sort, t)
+    if n < t:
+        tail = keys[:, n:n + 1]
+        if not (bool((keys[:, n:] == tail).all())
+                and bool((skeys[:, n:] == tail).all())):
+            raise ValueError(f"radix_sort: rows from n_sort={n} on are not "
+                             "identical rows at least every row before")
+    return skeys, perm.to(torch.int32)
 
 
-def radix_sort(keys: torch.Tensor):
+def radix_sort(keys: torch.Tensor, n_sort: Optional[torch.Tensor] = None):
     """Kernel B (``csrc/radix_sort.cu``); see :func:`radix_sort_plain`."""
     _require(keys, torch.int64, 2, "radix_sort keys")
     k64, t = keys.shape
     if k64 < 1 or t < 1 or t >= 1 << 31:
         raise ValueError(f"radix_sort: bad shape {tuple(keys.shape)}")
+    if n_sort is not None:
+        _require(n_sort, torch.int32, 1, "radix_sort n_sort")
+        if n_sort.shape[0] != 1 or n_sort.device != keys.device:
+            raise ValueError("radix_sort: n_sort is one int32 on the keys' "
+                             "device")
     if not _on_cuda(keys):
-        return radix_sort_plain(keys)
+        return radix_sort_plain(keys, n_sort)
     lib = _lib()
     sorted_keys = torch.empty_like(keys)
     perm = torch.empty(t, dtype=torch.int32, device=keys.device)
     scratch = torch.empty(lib.dsi_radix_sort_scratch_bytes(t),
                           dtype=torch.uint8, device=keys.device)
     with torch.cuda.device(keys.device):
-        _launch("radix_sort", lib.dsi_radix_sort(
-            _ptr(keys), k64, t, _ptr(sorted_keys), _ptr(perm),
-            _ptr(scratch), _stream(keys)))
+        _launch("radix_sort", lib.dsi_radix_sort_ex(
+            _ptr(keys), k64, t, _ptr(n_sort), _ptr(sorted_keys), _ptr(perm),
+            _ptr(scratch), _stream(keys), 0))
     return sorted_keys, perm
 
 
@@ -529,16 +555,22 @@ def hash_group_shape(t: int) -> tuple:
 
 
 def _repair_sort_group(dkeys: torch.Tensor, dlen: torch.Tensor, k64: int,
-                       u_cap: int):
+                       u_cap: int, n_dirty: torch.Tensor,
+                       plain: bool = False):
     """The hash grouper's dirty repair: sort the dirty rows ``dkeys``
     [k64 (+1), d_cap] with B (with ``extra`` it rides as the last key
     word, so each run's first row holds the group's minimum), then group
-    them on their ``k64`` key words with C, carrying ``dlen``.  Returns
-    kernel C's outputs and the sorted key words."""
-    skeys, perm = radix_sort(dkeys)
+    them on their ``k64`` key words with C, carrying ``dlen``.  Only the
+    ``n_dirty`` rows are sorted: the pad rows after them are all ones (key
+    words and ``extra``; real keys are letters), so they stay last in
+    place.  Returns kernel C's outputs and the sorted key words.
+    ``plain``: B's and C's plain versions, wherever the rows lie."""
+    sort, group = ((radix_sort_plain, group_sorted_plain) if plain
+                   else (radix_sort, group_sorted))
+    skeys, perm = sort(dkeys, n_dirty)
     ones = torch.ones(dkeys.shape[1], dtype=torch.int64,
                       device=dkeys.device)
-    return group_sorted(skeys[:k64], ones, u_cap, dlen, perm), skeys
+    return group(skeys[:k64], ones, u_cap, dlen, perm), skeys
 
 
 def hash_group_plain(keys: torch.Tensor, lengths: torch.Tensor,
@@ -593,8 +625,9 @@ def hash_group_plain(keys: torch.Tensor, lengths: torch.Tensor,
     if extra is not None:
         dex = torch.where(dvalid, _u32_value(extra)[dpos], 0xFFFFFFFF)
         dkeys = torch.cat([dkeys, dex[None]])
+    n_sort = n_dirty.clamp(max=d_cap).to(torch.int32)[None]
     (dgk, dtot, dupos, dlen_u, n_du), skeys = _repair_sort_group(
-        dkeys, dlen, k64, u_cap)
+        dkeys, dlen, k64, u_cap, n_sort, plain=True)
 
     clean1 = occ1 & ~dirty
     n_clean = clean1.sum()
@@ -622,11 +655,12 @@ def hash_group(keys: torch.Tensor, lengths: torch.Tensor, fnv: torch.Tensor,
                extra: Optional[torch.Tensor] = None):
     """Kernel F (``csrc/hash_group.cu``); see :func:`hash_group_plain`.
 
-    Two launches of F around the exact repair: the first accumulates the
-    buckets, flags the dirty ones and compacts their tokens in token
-    order; kernels B and C sort and group those rows; the second launch
-    of F writes the clean buckets in bucket order and the dirty uniques
-    after them."""
+    Two launches of F around the exact repair: the first resets the bucket
+    state, accumulates the buckets (one claimed representative each) and
+    compacts, in input order, the dirty tokens to the repair rows and the
+    clean buckets to the output; kernels B (over the ``n_dirty`` rows) and
+    C sort and group the repair rows; the second launch of F places the
+    dirty uniques after the clean rows."""
     _require(keys, torch.int64, 2, "hash_group keys")
     _require(lengths, torch.int32, 1, "hash_group lengths")
     _require(fnv, torch.int32, 1, "hash_group fnv")
@@ -649,18 +683,20 @@ def hash_group(keys: torch.Tensor, lengths: torch.Tensor, fnv: torch.Tensor,
                           dtype=torch.uint8, **opts)
     dkeys = torch.empty((k64 + e, d_cap), dtype=torch.int64, **opts)
     dlen = torch.empty(d_cap, dtype=torch.int32, **opts)
-    with torch.cuda.device(keys.device):
-        _launch("hash_group", lib.dsi_hash_bucket(
-            _ptr(keys), k64, t, _ptr(lengths), _ptr(fnv), _ptr(n_valid),
-            _ptr(extra), nb, d_cap, _ptr(dkeys), _ptr(dlen), _ptr(scratch),
-            _stream(keys)))
-    (dgk, dtot, dupos, dlen_u, n_du), skeys = _repair_sort_group(
-        dkeys, dlen, k64, u_cap)
+    n_dirty = torch.empty(1, dtype=torch.int32, **opts)
     keys_u = torch.empty((k64, u_cap), dtype=torch.int64, **opts)
     len_u = torch.empty(u_cap, dtype=torch.int32, **opts)
     cnt_u = torch.empty(u_cap, dtype=torch.int64, **opts)
     extra_u = (torch.empty(u_cap, dtype=torch.int32, **opts) if e
                else None)
+    with torch.cuda.device(keys.device):
+        _launch("hash_group", lib.dsi_hash_bucket(
+            _ptr(keys), k64, t, _ptr(lengths), _ptr(fnv), _ptr(n_valid),
+            _ptr(extra), nb, d_cap, u_cap, _ptr(dkeys), _ptr(dlen),
+            _ptr(n_dirty), _ptr(keys_u), _ptr(len_u), _ptr(cnt_u),
+            _ptr(extra_u), _ptr(scratch), _stream(keys)))
+    (dgk, dtot, dupos, dlen_u, n_du), skeys = _repair_sort_group(
+        dkeys, dlen, k64, u_cap, n_dirty)
     scal = torch.empty(2, dtype=torch.int32, **opts)
     with torch.cuda.device(keys.device):
         _launch("hash_group", lib.dsi_hash_assemble(

@@ -17,11 +17,12 @@ lines:
   ``corpus_pack6_profile`` the same with the hash grouper and with the
   6-bit transport;
 * ``sort_profile``: the same for one ``radix_sort`` of the corpus keys,
-  split by sub-kernel (histogram, scans, scatter, gathers);
+  split by sub-kernel (histogram, passes, final gather);
 * with ``--baseline-csrc``: kernel B built from that directory (for
   example the parent commit's ``dsi_tpu_torch/csrc``, unpacked with
   ``git archive``) timed in turns with this tree's (baseline, change,
-  change, baseline), both checked against the plain version;
+  change, baseline) on the corpus keys and at the stream step's reduce
+  shape (``sort_ab``), both checked against the plain version;
 * with ``--stream``: ``stream_profile``, the bench's stream row (the
   corpus cycled to 64 MB, 2 MiB chunks, u_cap 2^15, depth 2) with the
   device table off and on at one shard, with the table on and the hash
@@ -75,6 +76,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from dsi_tpu_torch.kernels import build
@@ -356,6 +358,23 @@ def pinned_grouper(grouper):
             os.environ["DSI_WC_GROUPER"] = old
 
 
+def _reduce_keys(raw: bytes) -> torch.Tensor:
+    """The key words kernel B sorts in the stream step's reduce half (K9):
+    one shard, one 2 MiB chunk holding ``raw``, u_cap 2^15, routed by E."""
+    from dsi_tpu_torch.parallel.shuffle import map_prologue
+
+    buf = np.zeros(1 << 21, np.uint8)
+    buf[:len(raw)] = np.frombuffer(raw, np.uint8)
+    packed_u, len_u, cnt_u, part, dest, _ = map_prologue(
+        torch.from_numpy(buf).cuda(), n_dev=1, n_reduce=10, max_word_len=16,
+        u_cap=1 << 15, t_cap_frac=4)
+    rows = torch.cat([packed_u, len_u[:, None], cnt_u[:, None],
+                      part[:, None]], dim=1)[None].contiguous()
+    recv = w.shuffle_rows(rows, dest[None].contiguous(), n_dev=1, k=4)[0]
+    return torch.stack(w.pack_key_lanes(tuple(recv[:, j]
+                                              for j in range(4))))
+
+
 def _sort_with(lib, keys: torch.Tensor):
     """Kernel B from ``lib`` (same C interface as the package's)."""
     k64, t = keys.shape
@@ -447,21 +466,24 @@ def main() -> int:
                                                top=8)}), flush=True)
     if args.baseline_csrc is not None:
         base = build.load(build.build(
-            args.baseline_csrc, build.BUILD_DIR / "baseline"))
+            args.baseline_csrc, build.BUILD_DIR / "baseline"),
+            names=("dsi_radix_sort_scratch_bytes", "dsi_radix_sort"))
         new = build.library()
-        want = w.radix_sort_plain(keys)
-        same = {}
-        for name, lib in (("baseline", base), ("change", new)):
-            got = _sort_with(lib, keys)
-            same[name] = all(torch.equal(g, x) for g, x in zip(got, want))
-        turns = []
-        for name, lib in (("baseline", base), ("change", new),
-                          ("change", new), ("baseline", base)):
-            turns.append([name, _ms(lambda: _sort_with(lib, keys))])
-        print(json.dumps({"sort_ab": {"equal_to_plain": same,
-                                      "ms_in_turns": turns,
-                                      "shape": list(keys.shape)}}),
-              flush=True)
+        for shape, k in (("corpus", keys), ("reduce", _reduce_keys(raws[0]))):
+            want = w.radix_sort_plain(k)
+            same = {}
+            for name, lib in (("baseline", base), ("change", new)):
+                got = _sort_with(lib, k)
+                same[name] = all(torch.equal(g, x) for g, x in zip(got, want))
+            turns = []
+            for name, lib in (("baseline", base), ("change", new),
+                              ("change", new), ("baseline", base)):
+                turns.append([name, _ms(lambda: _sort_with(lib, k))])
+            print(json.dumps({"sort_ab": {"at": shape,
+                                          "equal_to_plain": same,
+                                          "ms_in_turns": turns,
+                                          "shape": list(k.shape)}}),
+                  flush=True)
     return 0
 
 

@@ -175,6 +175,62 @@ def test_hash_group_unsigned_min_and_cut_at_u_cap():
     assert int(got[4]) > 512
 
 
+def _forced_rows(name: str):
+    """Token rows with forced hashes: (lanes [t, 4] u32, fnv [t] u32,
+    n_valid).  ``one_bucket_two_words``: every token in one bucket, two
+    distinct words; ``one_word_a_bucket``: every bucket clean;
+    ``last_word_differs``: two words equal but in their last key word,
+    sharing a bucket beside clean ones."""
+    rng = np.random.default_rng(17)
+    t, k = 2049, 4
+    vocab = rng.integers(0x41414141, 0x5A5A5A5A, (700, k),
+                         dtype=np.int64).astype(np.uint32)
+    if name == "one_bucket_two_words":
+        tok, n_valid = np.arange(t) % 2, 200
+        bucket = np.full(t, 5)
+    elif name == "one_word_a_bucket":
+        tok, n_valid = rng.integers(0, 700, t), 1500
+        bucket = tok
+    else:
+        tok, n_valid = rng.integers(2, 700, t), 1800
+        tok[::31], tok[5::31] = 0, 1
+        vocab[1, :k - 1] = vocab[0, :k - 1]
+        bucket = np.where(tok < 2, 1, tok)
+    lanes = vocab[tok]
+    lanes[n_valid:] = jw._PAD_KEY
+    return lanes, bucket.astype(np.uint32), n_valid
+
+
+_REF_FORCED = x64_scoped(jax.jit(functools.partial(
+    jw._hash_group, u_cap=1024, max_word_len=16)))
+
+
+@pytest.mark.parametrize("with_extra", (False, True), ids=("plain", "extra"))
+@pytest.mark.parametrize("name", ("one_bucket_two_words",
+                                  "one_word_a_bucket", "last_word_differs"))
+def test_hash_group_forced_buckets_match_reference(name, with_extra):
+    lanes, fnv, n_valid = _forced_rows(name)
+    t, k = lanes.shape
+    lengths = np.where(np.arange(t) < n_valid, 16, 0).astype(np.int32)
+    valid = np.arange(t) < n_valid
+    extra = (np.random.default_rng(3).integers(0, 1 << 32, t,
+                                               dtype=np.uint64)
+             .astype(np.uint32) if with_extra else None)
+    want = _REF_FORCED(
+        tuple(jnp.asarray(lanes[:, j]) for j in range(k)),
+        jnp.asarray(lengths), jnp.asarray(valid), jnp.asarray(fnv),
+        extra=None if extra is None else jnp.asarray(extra))
+    keys = torch.stack(tw.pack_key_lanes(
+        tuple(to_tensor(lanes[:, j].copy()) for j in range(k))))
+    got = tw.hash_group(keys, to_tensor(lengths), to_tensor(fnv),
+                        torch.tensor([n_valid], dtype=torch.int32), 1024,
+                        extra=None if extra is None else to_tensor(extra))
+    _assert_same_groups(got, want)
+    assert not bool(got[5])
+    n_words = len({tuple(r) for r in lanes[:n_valid]})
+    assert int(got[4]) == n_words
+
+
 # ── the hash branches of the per-split and the corpus programs ──────────
 
 
