@@ -16,10 +16,16 @@ Phases (any failure exits non-zero before the last line is printed):
    equality required; kernel B also in its own cases through both of its
    paths (a digit constant in every row, one row, a tile's edges, all
    rows equal, real rows equal to the pad value, 1-8 key words, the
-   prefix sort, t at the switch between the paths); each kernel timed
-   with CUDA events beside its plain version, its bound and (for the
-   sort) a library yardstick, B and F also with their launches a call,
-   their device time from ``torch.profiler`` and B's skipped passes;
+   prefix sort, t at the switch between the paths); kernels A and C also
+   on the shared edge cases (``dsi_tpu_torch/utils/kernel_cases.py``, the
+   CPU tests' cases) at their own tile sizes: words and runs on the first,
+   last and halo bytes and rows of a tile, t_cap and u_cap at and one
+   below their counts, counts above 2^32; each kernel timed with CUDA
+   events beside its plain version, its bound and (for the sort) a
+   library yardstick, A also at the stream step's shape (2 MiB), A, B, C
+   and F also with their launches a call and their device time from
+   ``torch.profiler`` (A and C fail above 2 kernels a call), and B's
+   skipped passes;
 3. the slice at full size: the bench corpus (8 files x (2 MiB - 64),
    seed 1234) through ``corpus_wordcount`` + ``write_corpus_output`` with
    ``sort mr-out-*`` byte-equal to the sequential oracle; the same corpus
@@ -418,6 +424,73 @@ def check_kernels(cases):
     return err
 
 
+def check_tile_edges():
+    """Kernels A and C against their plain versions on the shared edge
+    cases (``dsi_tpu_torch/utils/kernel_cases.py``, the CPU tests' cases)
+    at the kernels' own tile sizes: A on 8 tiles of bytes with and without
+    poslen (one case also from a chunk 5 bytes past a 16-byte boundary),
+    C on 4 tiles and 37 rows with and without a payload.  Returns
+    (A's, C's) max_abs_err."""
+    import torch
+    from dsi_tpu_torch.kernels.build import library
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.utils.kernel_cases import group_cases, tokenize_cases
+
+    lib = library()
+    tb, tr = lib.dsi_tokenize_tile_bytes(), lib.dsi_group_tile_rows()
+    a_err = c_err = 0
+    cases = tokenize_cases(tb, 8 * tb)
+    # A chunk that starts 5 bytes past a 16-byte boundary: no vector loads.
+    name, buf, mwl, t_cap = cases[2]
+    cases.append((f"{name}_offset_5", buf, mwl, t_cap))
+    for name, buf, mwl, t_cap in cases:
+        chunk = torch.from_numpy(buf).to(DEVICE)
+        if name.endswith("_offset_5"):
+            chunk = torch.zeros(len(buf) + 5, dtype=torch.uint8,
+                                device=DEVICE)[5:]
+            chunk.copy_(torch.from_numpy(buf))
+        d = 0
+        for pl in (True, False):
+            d = _merge_err(d, _worst(zip(
+                w.tokenize(chunk, max_word_len=mwl, t_cap=t_cap,
+                           with_poslen=pl),
+                w.tokenize_plain(chunk, max_word_len=mwl, t_cap=t_cap,
+                                 with_poslen=pl))))
+        a_err = _merge_err(a_err, d)
+        sync()
+        log({"tokenize_edge_case": name, "bytes": len(buf), "tile": tb,
+             "max_word_len": mwl, "t_cap": t_cap, "max_abs_err": d})
+    for name, keys, counts, u_cap, payload, perm in group_cases(tr,
+                                                                 4 * tr + 37):
+        dev = [torch.from_numpy(x).to(DEVICE) for x in
+               (keys.view("int64"), counts, payload, perm)]
+        d = 0
+        for pay in ((dev[2], dev[3]), (None, None)):
+            d = _merge_err(d, _worst(zip(
+                w.group_sorted(dev[0], dev[1], u_cap, *pay),
+                w.group_sorted_plain(dev[0], dev[1], u_cap, *pay))))
+        c_err = _merge_err(c_err, d)
+        sync()
+        log({"group_edge_case": name, "rows": keys.shape[1], "tile": tr,
+             "k64": keys.shape[0], "u_cap": u_cap, "max_abs_err": d})
+    return a_err, c_err
+
+
+def ac_profile(fn, name: str) -> dict:
+    """``call_profile`` of one call of kernel A (``name`` "tokenize") or C
+    ("group"): its CUDA launches, kernels among them and device time.
+    Raises when a call takes more than the design's 2 kernel launches
+    (its memset of the look-back state aside)."""
+    anchor = {"tokenize": "tok_sweep", "group": "g_sweep"}[name]
+    prof = call_profile(fn, anchor)
+    k = prof["kernels_per_call"]
+    if k is not None and (k > 2 or prof["launches_per_call"] > 3):
+        raise RuntimeError(f"{name}: {k} kernels and "
+                           f"{prof['launches_per_call']} launches a call, "
+                           "the design allows 2 kernels and a memset")
+    return prof
+
+
 def radix_sort_cases(corpus_keys):
     """(name, keys [k64, t] int64 on the card, n_sort or None) per case of
     B: a digit constant in every row (the top-k words at a small cap), one
@@ -627,15 +700,20 @@ def device_ms(fn, reps: int, name: str):
 
 def call_profile(fn, anchors, reps: int = 20, names: bool = False) -> dict:
     """Every CUDA launch (kernels and memsets) of one call of ``fn()`` on
-    the card, from ``torch.profiler``: ``launches_per_call`` and
+    the card, from ``torch.profiler``: ``launches_per_call``,
+    ``kernels_per_call`` (the launches less memsets and copies) and
     ``device_ms`` (the launches' device time, without the host's gaps
     between them), with ``names`` also ``kernel_names``.  Calls are
     counted by a kernel whose name holds one of ``anchors``, launched once
     a call; every value is None when no whole window was seen."""
     events = _device_events(fn, reps, anchors)
-    out = {"launches_per_call": None, "device_ms": None}
+    out = {"launches_per_call": None, "kernels_per_call": None,
+           "device_ms": None}
     if events is not None:
         out = {"launches_per_call": sum(c for _, c, _ in events) // reps,
+               "kernels_per_call": sum(
+                   c for k, c, _ in events
+                   if not k.startswith(("Memset", "Memcpy"))) // reps,
                "device_ms": sum(t for _, _, t in events) / 1e3 / reps}
     if names:
         out["kernel_names"] = (None if events is None
@@ -699,8 +777,11 @@ def path_ms(keys, n_sort=None) -> dict:
 def time_kernels(corpus_buf, split_buf):
     """Time each kernel, its plain version and its yardstick at the shapes
     the main path gives it: A, B, C on the bench corpus (corpus path, rung
-    0), D on one file's uniques (count_words_host_result, rung 0).
-    Returns {kernel: {ms, plain_ms, library_ms, bound_ms, ...}}."""
+    0), A also at the stream step's shape (held to its plain version
+    there), D on one file's uniques (count_words_host_result, rung 0); A
+    and C with their launches a call.  Returns {kernel: {ms, plain_ms,
+    library_ms, bound_ms, ...}}."""
+    import numpy as np
     import torch
     from dsi_tpu_torch.ops import wordcount as w
 
@@ -724,7 +805,30 @@ def time_kernels(corpus_buf, split_buf):
         "plain_ms": cuda_ms(lambda: w.tokenize_plain(
             chunk, max_word_len=MWL, t_cap=t, with_poslen=True), 3),
         "library_ms": None, "bytes": a_bytes,
-        "shape": f"n={n} t_cap={t} k64={k64}"}
+        "shape": f"n={n} t_cap={t} k64={k64}",
+        **ac_profile(lambda: w.tokenize(chunk, max_word_len=MWL, t_cap=t,
+                                        with_poslen=True), "tokenize")}
+    # A at the stream step's shape (one 2 MiB chunk, no poslen): the shape
+    # most of its launches take.
+    s_buf = np.zeros(STREAM_CHUNK, np.uint8)
+    s_buf[:len(split_buf)] = split_buf[:STREAM_CHUNK]
+    s_chunk = torch.from_numpy(s_buf).to(DEVICE)
+    st_cap = STREAM_CHUNK // 4 + 1
+    s_tok = w.tokenize(s_chunk, max_word_len=MWL, t_cap=st_cap)
+    s_bytes = STREAM_CHUNK + st_cap * (8 * k64 + 4) + 16
+    out["tokenize"]["at_shapes"] = {"stream_step": {
+        "max_abs_err": _worst(zip(s_tok, w.tokenize_plain(
+            s_chunk, max_word_len=MWL, t_cap=st_cap))),
+        "ms": cuda_ms(lambda: w.tokenize(s_chunk, max_word_len=MWL,
+                                         t_cap=st_cap), 50),
+        "plain_ms": cuda_ms(lambda: w.tokenize_plain(
+            s_chunk, max_word_len=MWL, t_cap=st_cap), 5),
+        "library_ms": None,
+        "bound_ms": s_bytes / HBM_BYTES_PER_S * 1e3,
+        "shape": f"stream step: n={STREAM_CHUNK} t_cap={st_cap} "
+                 f"k64={k64} n_tokens={int(s_tok[3][0])}",
+        **ac_profile(lambda: w.tokenize(s_chunk, max_word_len=MWL,
+                                        t_cap=st_cap), "tokenize")}}
     b_bytes = t * 8 * k64 * 2 + 4 * t
     word0 = keys[0].clone()
     out["radix_sort"] = {
@@ -750,7 +854,9 @@ def time_kernels(corpus_buf, split_buf):
         "library_ms": cuda_ms(lambda: torch.unique_consecutive(
             sk_rows, dim=0, return_counts=True), 10),
         "bytes": c_bytes,
-        "shape": f"t={t} u_cap={u} n_unique={int(grp[4])}"}
+        "shape": f"t={t} u_cap={u} n_unique={int(grp[4])}",
+        **ac_profile(lambda: w.group_sorted(skeys, ones, u, poslen, perm),
+                     "group")}
 
     # D at the per-split path's shape: one file, max_word_len 16, rung 0.
     s_chunk = torch.from_numpy(split_buf).to(DEVICE)
@@ -950,7 +1056,9 @@ def time_sort_group(keys64, counts, payload, u_cap: int, tag: str):
             "library_ms": cuda_ms(lambda: torch.unique_consecutive(
                 sk_rows, dim=0, return_counts=True), 20),
             "bound_ms": c_bytes / HBM_BYTES_PER_S * 1e3,
-            "shape": f"{tag}: t={t} u_cap={u_cap} n_unique={nu}"}}
+            "shape": f"{tag}: t={t} u_cap={u_cap} n_unique={nu}",
+            **ac_profile(lambda: w.group_sorted(skeys, scounts, u_cap,
+                                                payload, perm), "group")}}
 
 
 def reduce_shape_times(rows1, dest1):
@@ -2910,6 +3018,9 @@ def main() -> int:
 
         # Phase 2: kernels against their plain versions, then their times.
         err = check_kernels(kernel_cases(corpus_buf))
+        a_edge, c_edge = check_tile_edges()
+        err["tokenize"] = _merge_err(err["tokenize"], a_edge)
+        err["group"] = _merge_err(err["group"], c_edge)
         corpus_keys = w.tokenize(torch.from_numpy(corpus_buf).to(DEVICE),
                                  max_word_len=MWL,
                                  t_cap=len(corpus_buf) // 4 + 1)[0]
@@ -2919,6 +3030,11 @@ def main() -> int:
         failures += [f"{k} differs from its plain version"
                      for k, e in err.items() if e != 0]
         times = time_kernels(corpus_buf, split_buf)
+        a_step = times["tokenize"]["at_shapes"]["stream_step"]["max_abs_err"]
+        err["tokenize"] = _merge_err(err["tokenize"], a_step)
+        if a_step != 0:
+            failures.append("tokenize differs from its plain version at the "
+                            "stream step's shape")
 
         # Phase 3: the slice at full size.
         t0 = time.perf_counter()
@@ -3411,6 +3527,8 @@ def main() -> int:
             row["radix_bound_ms"] = tm["radix_bound_ms"]
         if name in ("radix_sort", "group"):
             row["at_shapes"] = {k: v[name] for k, v in shapes.items()}
+        if name == "tokenize":
+            row["at_shapes"] = tm["at_shapes"]
         if name == "radix_sort":
             row["at_shapes"]["topk"] = topk_row
         if name in grep_rows or name in tf_rows:
@@ -3424,7 +3542,8 @@ def main() -> int:
         if name in ("wire_decode", "crash_sim", "grep_emit", "relay_pack"):
             row["at_shapes"] = tm["at_shapes"]
         for key in ("j_ms", "epilogue_ms", "epilogue_device_ms",
-                    "device_ms", "launches_per_call", "passes_run",
+                    "device_ms", "launches_per_call", "kernels_per_call",
+                    "passes_run",
                     "skipped_passes", "path", "library_x_k64_ms", "rounds",
                     "small_path_ms", "large_path_ms"):
             if key in tm:

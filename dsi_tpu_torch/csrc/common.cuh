@@ -75,6 +75,133 @@ __global__ void scan_exclusive_kernel(const T* in, T* out, int64_t n,
   if (threadIdx.x == 0 && total != nullptr) *total = all;
 }
 
+// ── Decoupled look-back over one column of tiles ─────────────────────────
+//
+// Merrill & Garland's single-pass scan (as in CUB's tile state), shared by
+// kernels A and C.  Tiles are numbered in the order blocks claim them from
+// a ticket counter, so every tile a block waits on belongs to a block that
+// already runs: no co-residency is assumed.  Tile j publishes the pair
+// (count, sum) twice: its own aggregate as soon as it has it, then its
+// inclusive prefix once it has looked back.  status[j] is state << 32 |
+// count (state 0 until the first publish); each state's int64 sum has its
+// own slot, sums[2j] the aggregate's and sums[2j + 1] the inclusive
+// prefix's, written before the status word, which is stored with release
+// order and loaded with acquire order: a reader that sees a state reads
+// that state's sum whole.  status is zeroed before the launch; sums need
+// not be, and is null where the aggregate is a count alone.
+
+constexpr unsigned kLbAggregate = 1, kLbInclusive = 2;
+
+struct LookBack {
+  unsigned long long* status;  // [tiles]
+  long long* sums;             // [2 * tiles] or null
+};
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// One thread publishes tile `tile`'s aggregate or inclusive prefix.
+__device__ __forceinline__ void lb_publish(const LookBack& lb, int64_t tile,
+                                           unsigned state, unsigned count,
+                                           long long sum) {
+  if (lb.sums != nullptr) {
+    lb.sums[2 * tile + (state == kLbInclusive ? 1 : 0)] = sum;
+  }
+  st_release(lb.status + tile,
+             (static_cast<unsigned long long>(state) << 32) | count);
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The exclusive prefix (count, sum) of tile `tile` over tiles [0, tile),
+// by the whole block of THREADS threads; every thread gets it.  Thread q
+// reads the status of tile j - q for a window of THREADS predecessors j,
+// j - 1, ..., waiting until each is published; the walk stops at the
+// nearest inclusive prefix.  A window as wide as the block lets the
+// inclusive prefixes keep ahead of the blocks in flight: a walk covers
+// THREADS tiles a round trip to L2 (measured faster on the H100 than one
+// warp reading 8 tiles a lane, PERF.md).
+template <int THREADS>
+__device__ __forceinline__ void lb_exclusive(const LookBack& lb, int64_t tile,
+                                             unsigned& count,
+                                             long long& sum) {
+  constexpr int kWarps = THREADS / 32;
+  __shared__ unsigned inc_mask[kWarps];
+  __shared__ unsigned warp_count[kWarps];
+  __shared__ long long warp_sum[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned c = 0;
+  long long s = 0;
+  for (int64_t j = tile - 1; j >= 0; j -= THREADS) {
+    const int64_t q = j - threadIdx.x;
+    unsigned long long word = 0;
+    unsigned state = kLbInclusive;  // before tile 0: an empty prefix
+    if (q >= 0) {
+      word = ld_acquire(lb.status + q);
+      state = unsigned(word >> 32);
+      while (state == 0) {
+        __nanosleep(32);
+        word = ld_acquire(lb.status + q);
+        state = unsigned(word >> 32);
+      }
+    }
+    const unsigned m = __ballot_sync(kFullMask, state == kLbInclusive);
+    if (lane == 0) inc_mask[warp] = m;
+    __syncthreads();
+    // Threads 0 .. the nearest inclusive one (all when there is none).
+    int stop = THREADS - 1;
+    bool found = false;
+    for (int x = kWarps - 1; x >= 0; --x) {
+      if (inc_mask[x] != 0) {
+        stop = 32 * x + __ffs(inc_mask[x]) - 1;
+        found = true;
+      }
+    }
+    const bool mine = q >= 0 && int(threadIdx.x) <= stop;
+    unsigned cv = mine ? unsigned(word) : 0u;
+    long long sv = 0;
+    if (mine && lb.sums != nullptr) {
+      sv = __ldcg(lb.sums + 2 * q + (state == kLbInclusive ? 1 : 0));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      cv += __shfl_xor_sync(kFullMask, cv, o);
+      sv += __shfl_xor_sync(kFullMask, sv, o);
+    }
+    if (lane == 0) {
+      warp_count[warp] = cv;
+      warp_sum[warp] = sv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int x = 0; x < kWarps; ++x) {
+      c += warp_count[x];
+      s += warp_sum[x];
+    }
+    __syncthreads();  // the shared words are rewritten by the next window
+    if (found) break;
+  }
+  count = c;
+  sum = s;
+}
+
+// The tile a block works on: the next ticket.  Every thread of the block
+// must call it.
+__device__ __forceinline__ int64_t claim_tile(unsigned* ticket) {
+  __shared__ unsigned tile;
+  if (threadIdx.x == 0) tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  return tile;
+}
+
 __host__ __device__ inline int64_t ceil_div(int64_t a, int64_t b) {
   return (a + b - 1) / b;
 }

@@ -11,111 +11,192 @@
 // count even when it exceeds u_cap.  Past n_unique, upos is t-1 and keys,
 // totals and payload are 0.
 //
-// Bound: memory bytes (the sorted keys and counts are read, the u_cap
-// rows written).  Design: four launches.  (1) per-tile head counts and
-// count sums over valid rows; (2) one-block exclusive scans of both (their
-// totals are n_unique and the valid-row count sum); (3) each tile ranks its
-// heads in order with block scans and writes the head rows below u_cap,
-// plus the running count sum at each head (hc, u_cap + 1 entries);
-// (4) over u_cap rows: totals from consecutive hc entries, masking past
-// n_unique.  Counts are int64 so the same kernel serves u64 count tables.
+// Bound: memory bytes (the sorted keys and counts are read once, the u_cap
+// rows written once).
+//
+// Design: a memset of the look-back state, then two launches.
+// (1) One sweep over tiles of kGTile rows, claimed in ticket order.  A
+//     thread takes rows at a stride of the block, so a warp loads each key
+//     word as 256 contiguous bytes; row i - 1 comes from the neighbouring
+//     lane (or, for a warp's first, from shared memory).  Heads are ranked
+//     by ballots and per-segment counts (a segment is one warp's 32 rows),
+//     the count sums by warp scans; one warp scans the tile's 64 segments
+//     and publishes the tile's (heads, count sum), and the block finds its
+//     exclusive prefix by decoupled look-back (common.cuh).  Each head
+//     with uid <= u_cap then stores the running count sum before it
+//     (hc[uid]) and, below u_cap, its row (upos).  The last tile writes
+//     n_unique and, when n_unique <= u_cap, the valid rows' count sum at
+//     hc[n_unique].  A tile waits on no load after its look-back.
+// (2) Over u_cap rows: below n_unique, totals[u] = hc[u + 1] - hc[u] (the
+//     total of run u_cap - 1 stops at the head of run u_cap) and the key
+//     words and payload gathered through upos[u]; the rest are pad rows.
+//     Counts are int64 so the kernel serves u64 tables.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kGThreads = 256;
-constexpr int kGItems = 16;
+constexpr int kGWarps = kGThreads / 32;
+constexpr int kGItems = 8;
+// A segment is one warp's 32 rows of one item; segment s holds rows
+// [32 s, 32 s + 32) of the tile, so segments run in row order.
+constexpr int kGSegs = kGItems * kGWarps;
 constexpr int64_t kGTile = int64_t(kGThreads) * kGItems;
+static_assert(kGSegs == 64, "one warp scans the segments two a lane");
 
-__device__ __forceinline__ bool row_valid(const uint64_t* sk, int64_t i) {
-  return sk[i] != ~0ull;
-}
+__global__ void __launch_bounds__(kGThreads, 4)
+    g_sweep(const uint64_t* __restrict__ sk, int k64, int64_t t,
+            const long long* __restrict__ counts, int64_t u_cap,
+            unsigned* ticket, LookBack lb, long long* __restrict__ hc,
+            int* __restrict__ upos, int* __restrict__ n_unique) {
+  __shared__ int seg_heads[kGSegs];
+  __shared__ long long seg_sum[kGSegs];
+  __shared__ uint64_t seg_last[kGSegs];  // each segment's last row, a word
+  __shared__ uint64_t tile_prev;         // the row before the tile, a word
+  __shared__ unsigned tile_heads;  // the tile's aggregate
+  __shared__ long long tile_sum;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t tile = claim_tile(ticket);
+  const int64_t row0 = tile * kGTile + threadIdx.x;  // item j: + j * kGThreads
 
-__device__ __forceinline__ bool row_is_head(const uint64_t* sk, int k64,
-                                            int64_t t, int64_t i) {
-  if (!row_valid(sk, i)) return false;
-  if (i == 0) return true;
+  // One round of loads a key word (with word 0, the counts).  Row i - 1
+  // comes from the neighbouring lane; a segment's first row takes it from
+  // the previous segment's last (shared memory), the tile's first from the
+  // row before the tile (row 0's is a pad row, as in the reference).
+  long long cnt[kGItems];
+  unsigned valid = 0, diff = 0;  // bit j: item j's row
   for (int w = 0; w < k64; ++w) {
-    if (sk[int64_t(w) * t + i] != sk[int64_t(w) * t + i - 1]) return true;
-  }
-  return false;
-}
-
-__device__ __forceinline__ void thread_sums(const uint64_t* sk, int k64,
-                                            int64_t t, const int64_t* counts,
-                                            int64_t base, int& heads,
-                                            int64_t& csum) {
-  heads = 0;
-  csum = 0;
-  for (int j = 0; j < kGItems; ++j) {
-    const int64_t i = base + j;
-    if (i >= t) break;
-    heads += row_is_head(sk, k64, t, i) ? 1 : 0;
-    csum += row_valid(sk, i) ? counts[i] : 0;
-  }
-}
-
-__global__ void g_count(const uint64_t* sk, int k64, int64_t t,
-                        const int64_t* counts, int* tile_heads,
-                        int64_t* tile_csum) {
-  const int64_t base = blockIdx.x * kGTile + int64_t(threadIdx.x) * kGItems;
-  int heads;
-  int64_t csum;
-  thread_sums(sk, k64, t, counts, base, heads, csum);
-  int h_total;
-  int64_t c_total;
-  block_exclusive_scan<int>(heads, h_total);
-  block_exclusive_scan<int64_t>(csum, c_total);
-  if (threadIdx.x == 0) {
-    tile_heads[blockIdx.x] = h_total;
-    tile_csum[blockIdx.x] = c_total;
-  }
-}
-
-__global__ void g_write(const uint64_t* sk, int k64, int64_t t,
-                        const int64_t* counts, const int* payload,
-                        const int* perm, int64_t u_cap,
-                        const int* tile_heads_off,
-                        const int64_t* tile_csum_off, int64_t* hc,
-                        uint64_t* keys_u, int* upos, int* payload_u) {
-  const int64_t base = blockIdx.x * kGTile + int64_t(threadIdx.x) * kGItems;
-  int heads;
-  int64_t csum;
-  thread_sums(sk, k64, t, counts, base, heads, csum);
-  int h_total;
-  int64_t c_total;
-  int64_t uid = int64_t(tile_heads_off[blockIdx.x]) +
-                block_exclusive_scan<int>(heads, h_total);
-  int64_t run = tile_csum_off[blockIdx.x] +
-                block_exclusive_scan<int64_t>(csum, c_total);
-  for (int j = 0; j < kGItems && uid <= u_cap; ++j) {
-    const int64_t i = base + j;
-    if (i >= t) break;
-    if (row_is_head(sk, k64, t, i)) {
-      hc[uid] = run;
-      if (uid < u_cap) {
-        upos[uid] = int(i);
-        for (int w = 0; w < k64; ++w) {
-          keys_u[int64_t(w) * u_cap + uid] = sk[int64_t(w) * t + i];
-        }
-        payload_u[uid] = payload != nullptr ? payload[perm[i]] : 0;
-      }
-      ++uid;
+    const uint64_t* col = sk + int64_t(w) * t;
+    uint64_t v[kGItems];
+#pragma unroll
+    for (int j = 0; j < kGItems; ++j) {
+      const int64_t i = row0 + j * kGThreads;
+      v[j] = i < t ? col[i] : ~0ull;
+      if (w == 0) cnt[j] = i < t ? counts[i] : 0;
     }
-    run += row_valid(sk, i) ? counts[i] : 0;
+    if (threadIdx.x == 0) {
+      tile_prev = tile > 0 ? col[tile * kGTile - 1] : ~0ull;
+    }
+#pragma unroll
+    for (int j = 0; j < kGItems; ++j) {
+      if (lane == 31) seg_last[j * kGWarps + warp] = v[j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kGItems; ++j) {
+      const int s = j * kGWarps + warp;
+      uint64_t p = __shfl_up_sync(kFullMask, v[j], 1);
+      if (lane == 0) p = s > 0 ? seg_last[s - 1] : tile_prev;
+      if (w == 0) valid |= unsigned(v[j] != ~0ull) << j;
+      diff |= unsigned(v[j] != p) << j;
+    }
+    __syncthreads();  // seg_last holds the next word's rows next
+  }
+  const unsigned heads = valid & diff;
+
+  // Per segment: its heads (a ballot) and its count sum (a warp scan,
+  // which also leaves each row's exclusive sum within the segment).
+#pragma unroll
+  for (int j = 0; j < kGItems; ++j) {
+    const long long c = (valid >> j) & 1u ? cnt[j] : 0;
+    long long x = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(kFullMask, x, o);
+      if (lane >= o) x += y;
+    }
+    cnt[j] = x - c;
+    const unsigned hm = __ballot_sync(kFullMask, (heads >> j) & 1u);
+    if (lane == 31) seg_sum[j * kGWarps + warp] = x;
+    if (lane == 0) seg_heads[j * kGWarps + warp] = __popc(hm);
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // Segments 2 lane and 2 lane + 1: exclusive offsets in place.
+    const int h0 = seg_heads[2 * lane], h1 = seg_heads[2 * lane + 1];
+    const long long c0 = seg_sum[2 * lane], c1 = seg_sum[2 * lane + 1];
+    int h = h0 + h1;
+    long long c = c0 + c1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int hy = __shfl_up_sync(kFullMask, h, o);
+      const long long cy = __shfl_up_sync(kFullMask, c, o);
+      if (lane >= o) {
+        h += hy;
+        c += cy;
+      }
+    }
+    seg_heads[2 * lane] = h - h0 - h1;
+    seg_heads[2 * lane + 1] = h - h1;
+    seg_sum[2 * lane] = c - c0 - c1;
+    seg_sum[2 * lane + 1] = c - c1;
+    if (lane == 31) {
+      tile_heads = unsigned(h);
+      tile_sum = c;
+      lb_publish(lb, tile, tile == 0 ? kLbInclusive : kLbAggregate,
+                 unsigned(h), c);
+    }
+  }
+  __syncthreads();
+
+  const unsigned agg_h = tile_heads;
+  const long long agg_c = tile_sum;
+  unsigned ex_h = 0;
+  long long ex_c = 0;
+  if (tile > 0) {
+    lb_exclusive<kGThreads>(lb, tile, ex_h, ex_c);
+    if (threadIdx.x == 0) {
+      lb_publish(lb, tile, kLbInclusive, ex_h + agg_h, ex_c + agg_c);
+    }
+  }
+  if (threadIdx.x == 0 && tile == int64_t(gridDim.x) - 1) {
+    const int64_t nu = int64_t(ex_h) + agg_h;
+    *n_unique = int(nu);
+    if (nu <= u_cap) hc[nu] = ex_c + agg_c;
+  }
+
+  // Each head with uid <= u_cap: the count sum before it and, below u_cap,
+  // its row.  Stores only; the second launch gathers through upos.
+  const int64_t uid0 = ex_h;
+  if (uid0 > u_cap) return;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < kGItems; ++j) {
+    const unsigned hm = __ballot_sync(kFullMask, (heads >> j) & 1u);
+    if ((heads >> j) & 1u) {
+      const int s = j * kGWarps + warp;
+      const int64_t uid = uid0 + seg_heads[s] + __popc(hm & below);
+      if (uid <= u_cap) {
+        hc[uid] = ex_c + seg_sum[s] + cnt[j];
+        if (uid < u_cap) upos[uid] = int(row0 + j * kGThreads);
+      }
+    }
   }
 }
 
-__global__ void g_final(int k64, int64_t t, int64_t u_cap,
-                        const int* n_unique, const int64_t* valid_sum,
-                        const int64_t* hc, uint64_t* keys_u, int* upos,
-                        int* payload_u, int64_t* totals) {
+// Over u_cap rows: below n_unique the run's total, key words and payload
+// (gathered through upos and the sort's permutation); past it a pad row.
+__global__ void g_final(const uint64_t* __restrict__ sk, int k64, int64_t t,
+                        const int* __restrict__ payload,
+                        const int* __restrict__ perm, int64_t u_cap,
+                        const int* __restrict__ n_unique,
+                        const long long* __restrict__ hc,
+                        uint64_t* __restrict__ keys_u,
+                        int* __restrict__ upos, int* __restrict__ payload_u,
+                        long long* __restrict__ totals) {
   const int64_t u = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (u >= u_cap) return;
-  const int64_t nu = *n_unique;
-  if (u < nu) {
-    totals[u] = (u + 1 < nu ? hc[u + 1] : *valid_sum) - hc[u];
+  if (u < *n_unique) {
+    const int64_t i = upos[u];
+    const int pi = payload != nullptr ? perm[i] : 0;
+    totals[u] = hc[u + 1] - hc[u];
+    for (int w = 0; w < k64; ++w) {
+      keys_u[int64_t(w) * u_cap + u] = sk[int64_t(w) * t + i];
+    }
+    payload_u[u] = payload != nullptr ? payload[pi] : 0;
   } else {
     totals[u] = 0;
     upos[u] = int(t - 1);
@@ -124,41 +205,22 @@ __global__ void g_final(int k64, int64_t t, int64_t u_cap,
   }
 }
 
-struct GroupScratch {
-  int64_t* tile_csum;
-  int64_t* tile_csum_off;
-  int64_t* hc;
-  int64_t* valid_sum;
-  int* tile_heads;
-  int* tile_heads_off;
-};
+// Scratch: [ticket | status [tiles]] (zeroed each call), sums [2 tiles],
+// hc [u_cap + 1].
+constexpr int64_t kTicketBytes = 8;
 
-GroupScratch carve(void* scratch, int64_t t, int64_t u_cap) {
-  const int64_t tiles = ceil_div(t, kGTile);
-  char* p = static_cast<char*>(scratch);
-  GroupScratch s;
-  s.tile_csum = reinterpret_cast<int64_t*>(p);
-  p += 8 * tiles;
-  s.tile_csum_off = reinterpret_cast<int64_t*>(p);
-  p += 8 * tiles;
-  s.hc = reinterpret_cast<int64_t*>(p);
-  p += 8 * (u_cap + 1);
-  s.valid_sum = reinterpret_cast<int64_t*>(p);
-  p += 8;
-  s.tile_heads = reinterpret_cast<int*>(p);
-  p += align8(4 * tiles);
-  s.tile_heads_off = reinterpret_cast<int*>(p);
-  return s;
-}
+int64_t tiles_of(int64_t t) { return ceil_div(t, kGTile); }
 
 }  // namespace
 
 extern "C" {
 
 int64_t dsi_group_scratch_bytes(int64_t t, int64_t u_cap) {
-  const int64_t tiles = ceil_div(t, kGTile);
-  return 16 * tiles + 8 * (u_cap + 1) + 8 + 2 * align8(4 * tiles);
+  return kTicketBytes + 8 * tiles_of(t) + 16 * tiles_of(t) + 8 * (u_cap + 1);
 }
+
+// Rows a tile of the sweep (the tile edges chip_smoke.py tests at).
+int64_t dsi_group_tile_rows() { return kGTile; }
 
 // sorted_keys [k64, t] u64; counts [t] i64 per sorted row; payload [t] i32
 // in pre-sort row order and perm [t] i32 from the sort (both null for no
@@ -169,30 +231,26 @@ int dsi_group(const void* sorted_keys, int k64, int64_t t, const void* counts,
               void* keys_u, void* totals, void* upos, void* payload_u,
               void* n_unique, void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint64_t* sk = static_cast<const uint64_t*>(sorted_keys);
-  const int64_t* cnt = static_cast<const int64_t*>(counts);
-  GroupScratch s = carve(scratch, t, u_cap);
-  const unsigned tiles = unsigned(ceil_div(t, kGTile));
+  const int64_t tiles = tiles_of(t);
+  char* p = static_cast<char*>(scratch);
+  unsigned* ticket = reinterpret_cast<unsigned*>(p);
+  LookBack lb;
+  lb.status = reinterpret_cast<unsigned long long*>(p + kTicketBytes);
+  lb.sums = reinterpret_cast<long long*>(p + kTicketBytes + 8 * tiles);
+  long long* hc = lb.sums + 2 * tiles;
   int* nu = static_cast<int*>(n_unique);
-  g_count<<<tiles, kGThreads, 0, st>>>(sk, k64, t, cnt, s.tile_heads,
-                                       s.tile_csum);
-  DSI_CHECK_LAUNCH();
-  scan_exclusive_kernel<int><<<1, kScanThreads, 0, st>>>(
-      s.tile_heads, s.tile_heads_off, tiles, nu);
-  DSI_CHECK_LAUNCH();
-  scan_exclusive_kernel<int64_t><<<1, kScanThreads, 0, st>>>(
-      s.tile_csum, s.tile_csum_off, tiles, s.valid_sum);
-  DSI_CHECK_LAUNCH();
-  g_write<<<tiles, kGThreads, 0, st>>>(
-      sk, k64, t, cnt, static_cast<const int*>(payload),
-      static_cast<const int*>(perm), u_cap, s.tile_heads_off,
-      s.tile_csum_off, s.hc, static_cast<uint64_t*>(keys_u),
-      static_cast<int*>(upos), static_cast<int*>(payload_u));
+  cudaError_t e = cudaMemsetAsync(p, 0, kTicketBytes + 8 * tiles, st);
+  if (e != cudaSuccess) return int(e);
+  const uint64_t* sk = static_cast<const uint64_t*>(sorted_keys);
+  g_sweep<<<unsigned(tiles), kGThreads, 0, st>>>(
+      sk, k64, t, static_cast<const long long*>(counts), u_cap, ticket, lb,
+      hc, static_cast<int*>(upos), nu);
   DSI_CHECK_LAUNCH();
   g_final<<<unsigned(ceil_div(u_cap, 256)), 256, 0, st>>>(
-      k64, t, u_cap, nu, s.valid_sum, s.hc, static_cast<uint64_t*>(keys_u),
-      static_cast<int*>(upos), static_cast<int*>(payload_u),
-      static_cast<int64_t*>(totals));
+      sk, k64, t, static_cast<const int*>(payload),
+      static_cast<const int*>(perm), u_cap, nu, hc,
+      static_cast<uint64_t*>(keys_u), static_cast<int*>(upos),
+      static_cast<int*>(payload_u), static_cast<long long*>(totals));
   DSI_CHECK_LAUNCH();
   return 0;
 }

@@ -33,6 +33,7 @@ _F32 = ctypes.c_float
 SIGNATURES = {
     "dsi_tokenize_scratch_bytes": (_I64, [_I64]),
     "dsi_tokenize": (_INT, [_P, _I64, _INT, _I64, _P, _P, _P, _P, _P, _P]),
+    "dsi_tokenize_tile_bytes": (_I64, []),
     "dsi_radix_sort_scratch_bytes": (_I64, [_I64]),
     "dsi_radix_sort": (_INT, [_P, _INT, _I64, _P, _P, _P, _P]),
     "dsi_radix_sort_ex": (_INT, [_P, _INT, _I64, _P, _P, _P, _P, _P, _INT]),
@@ -41,6 +42,7 @@ SIGNATURES = {
     "dsi_group_scratch_bytes": (_I64, [_I64, _I64]),
     "dsi_group": (_INT, [_P, _INT, _I64, _P, _P, _P, _I64, _P, _P, _P, _P,
                          _P, _P, _P]),
+    "dsi_group_tile_rows": (_I64, []),
     "dsi_fnv": (_INT, [_P, _I64, _P, _INT, _P, _P]),
     "dsi_route_scratch_bytes": (_I64, [_INT, _I64]),
     "dsi_route": (_INT, [_P, _P, _INT, _I64, _INT, _INT, _P, _P, _P]),

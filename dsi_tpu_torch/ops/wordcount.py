@@ -307,7 +307,7 @@ def tokenize(chunk: torch.Tensor, *, max_word_len: int, t_cap: int,
     lengths = torch.empty(t_cap, dtype=torch.int32, **opts)
     poslen = (torch.empty(t_cap, dtype=torch.int32, **opts)
               if with_poslen else None)
-    scalars = torch.zeros(4, dtype=torch.int32, **opts)
+    scalars = torch.empty(4, dtype=torch.int32, **opts)  # A writes all 4
     scratch = torch.empty(lib.dsi_tokenize_scratch_bytes(n),
                           dtype=torch.uint8, **opts)
     with torch.cuda.device(chunk.device):

@@ -18,11 +18,16 @@ lines:
   6-bit transport;
 * ``sort_profile``: the same for one ``radix_sort`` of the corpus keys,
   split by sub-kernel (histogram, passes, final gather);
-* with ``--baseline-csrc``: kernel B built from that directory (for
-  example the parent commit's ``dsi_tpu_torch/csrc``, unpacked with
+* with ``--baseline-csrc``: kernels B, A and C built from that directory
+  (for example the parent commit's ``dsi_tpu_torch/csrc``, unpacked with
   ``git archive``) timed in turns with this tree's (baseline, change,
-  change, baseline) on the corpus keys and at the stream step's reduce
-  shape (``sort_ab``), both checked against the plain version;
+  change, baseline), each checked against the plain version: B on the
+  corpus keys and at the stream step's reduce shape (``sort_ab``); A on
+  the corpus (16 MiB, with poslen) and at the stream step's 2 MiB chunk
+  (``tokenize_ab``), each version's scalars as its wrapper leaves them
+  (the older interface had the caller zero them); C at the corpus and
+  reduce shapes (``group_ab``); A and C each with one call of each
+  version profiled, its device time by launch;
 * with ``--stream``: ``stream_profile``, the bench's stream row (the
   corpus cycled to 64 MB, 2 MiB chunks, u_cap 2^15, depth 2) with the
   device table off and on at one shard, with the table on and the hash
@@ -358,9 +363,10 @@ def pinned_grouper(grouper):
             os.environ["DSI_WC_GROUPER"] = old
 
 
-def _reduce_keys(raw: bytes) -> torch.Tensor:
-    """The key words kernel B sorts in the stream step's reduce half (K9):
-    one shard, one 2 MiB chunk holding ``raw``, u_cap 2^15, routed by E."""
+def _reduce_operands(raw: bytes):
+    """(key words, counts int64, lengths int32) of the stream step's
+    reduce half (K9) in received order, what B sorts and C groups: one
+    shard, one 2 MiB chunk holding ``raw``, u_cap 2^15, routed by E."""
     from dsi_tpu_torch.parallel.shuffle import map_prologue
 
     buf = np.zeros(1 << 21, np.uint8)
@@ -371,8 +377,74 @@ def _reduce_keys(raw: bytes) -> torch.Tensor:
     rows = torch.cat([packed_u, len_u[:, None], cnt_u[:, None],
                       part[:, None]], dim=1)[None].contiguous()
     recv = w.shuffle_rows(rows, dest[None].contiguous(), n_dev=1, k=4)[0]
-    return torch.stack(w.pack_key_lanes(tuple(recv[:, j]
-                                              for j in range(4))))
+    return (torch.stack(w.pack_key_lanes(tuple(recv[:, j]
+                                               for j in range(4)))),
+            w._u32_value(recv[:, 5]), recv[:, 4].contiguous())
+
+
+def _tokenize_with(lib, chunk: torch.Tensor, t_cap: int, poslen: bool,
+                   zeroed: bool):
+    """Kernel A from ``lib`` (same C interface as the package's) as its
+    wrapper calls it: ``zeroed`` for the older version, whose caller
+    zeroes the scalars."""
+    n = chunk.shape[0]
+    dev = {"device": chunk.device}
+    keys = torch.empty((2, t_cap), dtype=torch.int64, **dev)
+    lengths = torch.empty(t_cap, dtype=torch.int32, **dev)
+    pl = torch.empty(t_cap, dtype=torch.int32, **dev) if poslen else None
+    scalars = (torch.zeros if zeroed else torch.empty)(4, dtype=torch.int32,
+                                                       **dev)
+    scratch = torch.empty(lib.dsi_tokenize_scratch_bytes(n),
+                          dtype=torch.uint8, **dev)
+    rc = lib.dsi_tokenize(chunk.data_ptr(), n, 4, t_cap, keys.data_ptr(),
+                          lengths.data_ptr(),
+                          pl.data_ptr() if poslen else None,
+                          scalars.data_ptr(), scratch.data_ptr(),
+                          torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tokenize launch failed: CUDA error {rc}")
+    return keys, lengths, pl, scalars
+
+
+def _group_with(lib, skeys, counts, u_cap: int, payload, perm):
+    """Kernel C from ``lib`` (same C interface as the package's)."""
+    k64, t = skeys.shape
+    dev = {"device": skeys.device}
+    keys_u = torch.empty((k64, u_cap), dtype=torch.int64, **dev)
+    totals = torch.empty(u_cap, dtype=torch.int64, **dev)
+    upos = torch.empty(u_cap, dtype=torch.int32, **dev)
+    payload_u = torch.empty(u_cap, dtype=torch.int32, **dev)
+    n_unique = torch.empty(1, dtype=torch.int32, **dev)
+    scratch = torch.empty(lib.dsi_group_scratch_bytes(t, u_cap),
+                          dtype=torch.uint8, **dev)
+    rc = lib.dsi_group(skeys.data_ptr(), k64, t, counts.data_ptr(),
+                       payload.data_ptr(), perm.data_ptr(), u_cap,
+                       keys_u.data_ptr(), totals.data_ptr(), upos.data_ptr(),
+                       payload_u.data_ptr(), n_unique.data_ptr(),
+                       scratch.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"group launch failed: CUDA error {rc}")
+    return keys_u, totals, upos, payload_u, n_unique[0]
+
+
+def _ab(tag: str, at: str, shape, calls: dict, want) -> None:
+    """One kernel from two libraries in turns (baseline, change, change,
+    baseline), each checked against the plain version's outputs, with one
+    call of each under ``torch.profiler`` (its device time by launch)."""
+    same = {name: all(torch.equal(g, x) for g, x in zip(fn(), want)
+                      if x is not None)
+            for name, fn in calls.items()}
+    turns = [[name, _ms(calls[name], 20)]
+             for name in ("baseline", "change", "change", "baseline")]
+    launches = {name: [[e["name"][:40], e["device_ms"]]
+                       for e in _profile(fn, top=8)["top"]]
+                for name, fn in calls.items()}
+    print(json.dumps({tag: {"at": at, "equal_to_plain": same,
+                            "ms_in_turns": turns,
+                            "device_ms_by_launch": launches,
+                            "shape": shape}}),
+          flush=True)
 
 
 def _sort_with(lib, keys: torch.Tensor):
@@ -467,23 +539,42 @@ def main() -> int:
     if args.baseline_csrc is not None:
         base = build.load(build.build(
             args.baseline_csrc, build.BUILD_DIR / "baseline"),
-            names=("dsi_radix_sort_scratch_bytes", "dsi_radix_sort"))
+            names=("dsi_radix_sort_scratch_bytes", "dsi_radix_sort",
+                   "dsi_tokenize_scratch_bytes", "dsi_tokenize",
+                   "dsi_group_scratch_bytes", "dsi_group"))
         new = build.library()
-        for shape, k in (("corpus", keys), ("reduce", _reduce_keys(raws[0]))):
-            want = w.radix_sort_plain(k)
-            same = {}
-            for name, lib in (("baseline", base), ("change", new)):
-                got = _sort_with(lib, k)
-                same[name] = all(torch.equal(g, x) for g, x in zip(got, want))
-            turns = []
-            for name, lib in (("baseline", base), ("change", new),
-                              ("change", new), ("baseline", base)):
-                turns.append([name, _ms(lambda: _sort_with(lib, k))])
-            print(json.dumps({"sort_ab": {"at": shape,
-                                          "equal_to_plain": same,
-                                          "ms_in_turns": turns,
-                                          "shape": list(k.shape)}}),
-                  flush=True)
+        step = np.zeros(1 << 21, np.uint8)
+        step[:len(raws[0])] = np.frombuffer(raws[0], np.uint8)
+        for at, c, pl in (("corpus", chunk, True),
+                          ("stream_step", torch.from_numpy(step).cuda(),
+                           False)):
+            t_cap = c.shape[0] // 4 + 1
+            _ab("tokenize_ab", at, [c.shape[0], t_cap], {
+                "baseline": lambda c=c, t=t_cap, pl=pl: _tokenize_with(
+                    base, c, t, pl, True),
+                "change": lambda c=c, t=t_cap, pl=pl: _tokenize_with(
+                    new, c, t, pl, False)},
+                w.tokenize_plain(c, max_word_len=16, t_cap=t_cap,
+                                 with_poslen=pl))
+        tok = w.tokenize(chunk, max_word_len=16, t_cap=len(buf) // 4 + 1,
+                         with_poslen=True)
+        r_keys, r_counts, r_lens = _reduce_operands(raws[0])
+        for at, k, cnt, pay, u_cap in (
+                ("corpus", keys, torch.ones_like(tok[1], dtype=torch.int64),
+                 tok[2], w.rung0_cap(len(buf), 1 << 18)),
+                ("reduce", r_keys, r_counts, r_lens, r_keys.shape[1])):
+            sk, perm = w.radix_sort(k)
+            sc = cnt[perm.long()]
+            _ab("group_ab", at, [*sk.shape, u_cap], {
+                name: lambda lib=lib, sk=sk, sc=sc, u=u_cap, pay=pay,
+                perm=perm: _group_with(lib, sk, sc, u, pay, perm)
+                for name, lib in (("baseline", base), ("change", new))},
+                w.group_sorted_plain(sk, sc, u_cap, pay, perm))
+        for at, k in (("corpus", keys), ("reduce", r_keys)):
+            _ab("sort_ab", at, list(k.shape), {
+                name: lambda lib=lib, k=k: _sort_with(lib, k)
+                for name, lib in (("baseline", base), ("change", new))},
+                w.radix_sort_plain(k))
     return 0
 
 

@@ -1,0 +1,196 @@
+"""Edge cases for kernels A (tokenize) and C (group runs) at tile edges.
+
+One set of inputs serves two checks: the CPU tests hold the port's plain
+versions against ``dsi_tpu`` on them at a small tile, and ``chip_smoke.py``
+holds each kernel against its plain version on the card with ``tile`` set
+to the kernel's own (``dsi_tokenize_tile_bytes``, ``dsi_group_tile_rows``).
+Every case is made with numpy from a seed; every case of one call has the
+same shape, apart from A's ``odd_length``, so a compiled reference serves
+them all.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+
+_LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz"
+                         b"ABCDEFGHIJKLMNOPQRSTUVWXYZ", np.uint8)
+_SEPS = np.frombuffer(b" \n\t.,;:!?0123456789_-", np.uint8)
+_PAD64 = np.iinfo(np.uint64).max
+
+# (name, chunk u8 [n], max_word_len, t_cap)
+TokenizeCase = Tuple[str, np.ndarray, int, int]
+# (name, sorted keys u64 [k64, t], counts i64 [t], u_cap, payload i32 [t],
+#  perm i32 [t])
+GroupCase = Tuple[str, np.ndarray, np.ndarray, int, np.ndarray, np.ndarray]
+
+
+def _text(rng, n: int, max_len: int = 14) -> np.ndarray:
+    """n bytes of words of 1..max_len letters between 1..3 separators."""
+    out = np.empty(n, np.uint8)
+    i = 0
+    while i < n:
+        ln = int(rng.integers(1, max_len + 1))
+        out[i:i + ln] = rng.choice(_LETTERS, ln)[:n - i]
+        i += ln
+        gap = int(rng.integers(1, 4))
+        out[i:i + gap] = rng.choice(_SEPS, gap)[:max(0, n - i)]
+        i += gap
+    return out
+
+
+def _put(buf: np.ndarray, at: int, word: bytes) -> None:
+    """Write ``word`` at ``at`` with a separator on each side."""
+    if at > 0:
+        buf[at - 1] = ord(" ")
+    end = min(len(buf), at + len(word))
+    buf[at:end] = np.frombuffer(word, np.uint8)[:end - at]
+    if end < len(buf):
+        buf[end] = ord(" ")
+
+
+def _tokens(rng, n: int, extra: int) -> np.ndarray:
+    """n bytes holding exactly n // 4 + extra tokens (n % 4 == 0): one token
+    a 4-byte unit, and two in each of the last ``extra`` units."""
+    units = n // 4
+    out = np.empty(n, np.uint8)
+    for u in range(units):
+        a, b = rng.choice(_LETTERS, 2)
+        out[4 * u:4 * u + 4] = ((a, ord("."), b, ord(" "))
+                                if u >= units - extra else
+                                (a, b, ord("."), ord(" ")))
+    return out
+
+
+# (start relative to a tile edge, length) of the word put at each edge.
+_EDGE_WORDS = ((-1, 5),     # its first byte is the tile's last
+               (-40, 40),   # its last byte is the tile's last
+               (0, 7),      # starts on the next tile's first byte
+               (-10, 100),  # runs past the next tile's halo
+               (-16, 64),   # at max_word_len 64 its key bytes fill the halo
+               (-5, 69),    # ends on the halo's last byte
+               (-5, 70))    # ends on the first byte past the halo
+
+
+def tokenize_cases(tile: int, n: int, seed: int = 1234) -> List[TokenizeCase]:
+    """Kernel A's edges for a tile of ``tile`` bytes in a chunk of ``n``
+    bytes (``n`` a multiple of 4 and at least 8 tiles): a word at each
+    tile edge (first, last and halo byte; the halo is 64 bytes), a word
+    ending on the chunk's last byte, letters only, a 200-letter word
+    across an edge (past any halo and past 127, so ``poslen``'s OR shows),
+    ``n_tokens`` equal to ``t_cap`` and one above, high bytes, odd k
+    (max_word_len 12) and a chunk whose length is no multiple of 16.
+    ``t_cap`` is ``n // 4 + 1``, the word count's at ``t_cap_frac`` 4."""
+    if n % 4 or n < 8 * tile:
+        raise ValueError(f"tokenize_cases: n={n} for tile {tile}")
+    rng = np.random.default_rng(seed)
+    t_cap = n // 4 + 1
+    cases = []
+
+    end_word = _text(rng, n)
+    end_word[-9:] = rng.choice(_LETTERS, 9)
+    end_word[-10] = ord(" ")
+    cases.append(("word_at_chunk_end", end_word, 16, t_cap))
+    cases.append(("letters_only", rng.choice(_LETTERS, n), 16, t_cap))
+
+    edges = _text(rng, n)
+    for i, e in enumerate(range(tile, n, tile)):
+        at, ln = _EDGE_WORDS[i % len(_EDGE_WORDS)]
+        _put(edges, e + at, bytes(rng.choice(_LETTERS, ln)))
+    cases += [("tile_edges", edges, 16, t_cap),
+              ("tile_edges_mwl64", edges, 64, t_cap)]
+
+    long_word = _text(rng, n)
+    _put(long_word, tile - 100, bytes(rng.choice(_LETTERS, 200)))
+    cases.append(("word_200", long_word, 16, t_cap))
+    cases.append(("n_tokens_eq_t_cap", _tokens(rng, n, 1), 16, t_cap))
+    cases.append(("n_tokens_t_cap_plus_1", _tokens(rng, n, 2), 16, t_cap))
+
+    high = _text(rng, n)
+    high[rng.integers(0, n, 40)] = rng.integers(128, 256, 40)
+    high[tile - 1] = 0xC3
+    high[tile] = 0xA9
+    cases.append(("high_bytes", high, 16, t_cap))
+    cases.append(("odd_k_mwl12", _text(rng, n, 20), 12, t_cap))
+    odd = _text(rng, n - 5)
+    odd[-3:] = rng.choice(_LETTERS, 3)
+    cases.append(("odd_length", odd, 16, (n - 5) // 4 + 1))
+    return cases
+
+
+def _sorted_rows(rng, t: int, k64: int, n_pad: int, n_words: int,
+                 hi: int = 1 << 62) -> np.ndarray:
+    """[k64, t] lexicographically sorted u64 key words: t - n_pad rows drawn
+    from n_words distinct rows, then n_pad pad rows."""
+    vocab = rng.integers(0, hi, size=(max(1, n_words), k64), dtype=np.uint64)
+    rows = vocab[rng.integers(0, len(vocab), t - n_pad)]
+    rows = rows[np.lexsort(rows.T[::-1])]
+    pad = np.full((n_pad, k64), _PAD64, np.uint64)
+    return np.ascontiguousarray(np.concatenate([rows, pad]).T)
+
+
+def _n_unique(keys: np.ndarray) -> int:
+    valid = keys[0] != _PAD64
+    prev = np.concatenate([np.full((keys.shape[0], 1), _PAD64, np.uint64),
+                           keys[:, :-1]], axis=1)
+    return int(((keys != prev).any(axis=0) & valid).sum())
+
+
+def group_cases(tile: int, t: int, seed: int = 1234) -> List[GroupCase]:
+    """Kernel C's edges for a tile of ``tile`` rows and ``t`` rows (at
+    least 4 tiles): one run of all rows, all pad rows, no pad row,
+    ``n_unique`` equal to ``u_cap`` and one above, ``u_cap`` 1, counts
+    above 2^32, k64 1, 2 and 8, pad rows whose later words differ (a row
+    is a pad row by its first word), and runs whose heads fall on tile
+    and warp edges, with one run longer than a tile."""
+    if t < 4 * tile:
+        raise ValueError(f"group_cases: t={t} for tile {tile}")
+    rng = np.random.default_rng(seed)
+
+    def case(name, keys, u_cap, counts=None):
+        if counts is None:
+            counts = rng.integers(1, 9, t).astype(np.int64)
+        payload = rng.integers(-(1 << 31), 1 << 31, t).astype(np.int32)
+        perm = rng.permutation(t).astype(np.int32)
+        return (name, keys, counts, u_cap, payload, perm)
+
+    cases = []
+    cases.append(case("one_run", np.tile(
+        rng.integers(0, 1 << 62, (2, 1), dtype=np.uint64), (1, t)), 16))
+    cases.append(case("all_pad", np.full((2, t), _PAD64, np.uint64), 16))
+    no_pad = _sorted_rows(rng, t, 2, 0, t // 3)
+    cases.append(case("no_pad", no_pad, t))
+    mixed = _sorted_rows(rng, t, 2, 37, t // 5)
+    nu = _n_unique(mixed)
+    cases += [case("n_unique_eq_u_cap", mixed, nu),
+              case("n_unique_u_cap_plus_1", mixed, nu - 1),
+              case("u_cap_1", mixed, 1),
+              case("counts_above_2_32", mixed, nu,
+                   rng.integers(1 << 32, 1 << 40, t).astype(np.int64))]
+    for k64 in (1, 2, 8):
+        cases.append(case(f"k64_{k64}", _sorted_rows(
+            rng, t, k64, int(rng.integers(1, 200)), t // 4, hi=1 << 3),
+            t // 2))
+    real_pad = _sorted_rows(rng, t, 2, 300, t // 5)
+    real_pad[1, t - 300:] = np.sort(rng.integers(0, 1 << 62, 300,
+                                                 dtype=np.uint64))
+    cases.append(case("pad_first_word", real_pad, t))
+
+    # Heads at tile and warp edges: run boundaries at e - 1, e, e + 1 and
+    # e + 32 for every tile edge e, one run over the whole second tile, and
+    # a boundary in the last key word alone.
+    cuts = {0}
+    for e in range(tile, t, tile):
+        cuts |= {e - 1, e, e + 1, e + 32, e + 33}
+    cuts -= set(range(tile + 2, 3 * tile + 1))  # no head in tile 2
+    cuts = sorted(c for c in cuts if 0 <= c < t)
+    rid = np.zeros(t, np.int64)
+    rid[cuts] = 1
+    rid = np.cumsum(rid)
+    edges = np.stack([rid.astype(np.uint64) // 2 * 5 + 1,
+                      rid.astype(np.uint64) % 2])
+    cases.append(case("tile_edges", np.ascontiguousarray(edges),
+                      _n_unique(edges)))
+    return cases
