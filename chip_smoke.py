@@ -63,8 +63,13 @@ Phases (any failure exits non-zero before the last line is printed):
    turns, to show the gap beside its spread;
 8. grep: kernels H (literal and class, ``csrc/grep.cu``), I (the NFA,
    ``csrc/nfa.cu``, in each state bucket) and J (the grep step,
-   ``csrc/grep_step.cu``, at 1 and 8 virtual shards) against their plain
-   versions at the main path's shapes, and B at the top-k snapshot's;
+   ``csrc/grep_step.cu``, at 1 and 8 virtual shards, with its CUDA
+   launches a call and device time from ``torch.profiler``: at most 3
+   launches) against their plain versions at the main path's shapes, and
+   B at the top-k snapshot's; J with and without its emit epilogue on the
+   shared edge cases (``kernel_cases.grep_cases``) at its own tiles
+   (``dsi_grep_step_tile_bytes``, ``dsi_grep_step_line_tile``), at 8
+   shards, each row alone and from rows off a 16-byte boundary;
    ``cuda_map`` on ``pg-00.txt`` (n = 2^21) for ``the``, ``[Tt]he``,
    ``^a``, ``s$``, ``the|and`` and ``th[a-z]*e`` (tier 4 pinned to the
    kernel) against the host ``Map``, and a short-line input that
@@ -129,7 +134,9 @@ Phases (any failure exits non-zero before the last line is printed):
 13. the plan layer: J with its emit epilogue (K16e, ``grep_emit``)
    against ``grep_step_plain(emit=True)``, every output, at [1, 2 MiB] and
    [8, 2 MiB] for ``the`` and ``dsi``, on the optimistic ``l_cap`` rung and
-   on short lines that overflow it; P (``csrc/relay_pack.cu``) against
+   on short lines that overflow it, timed with and without emit through
+   the wrapper and on the card (at most 4 CUDA launches a call with emit);
+   P (``csrc/relay_pack.cu``) against
    ``relay_pack_plain`` at [1, 1 MiB] and [8, 1 MiB] with the offsets 0,
    mid-row and ``cap - kept``; a ``DeviceRelay`` fed 64 appends against
    the host concatenation; then ``run_plan`` on the bench's plan row
@@ -707,18 +714,25 @@ def call_profile(fn, anchors, reps: int = 20, names: bool = False) -> dict:
     counted by a kernel whose name holds one of ``anchors``, launched once
     a call; every value is None when no whole window was seen."""
     events = _device_events(fn, reps, anchors)
-    out = {"launches_per_call": None, "kernels_per_call": None,
-           "device_ms": None}
-    if events is not None:
-        out = {"launches_per_call": sum(c for _, c, _ in events) // reps,
-               "kernels_per_call": sum(
-                   c for k, c, _ in events
-                   if not k.startswith(("Memset", "Memcpy"))) // reps,
-               "device_ms": sum(t for _, _, t in events) / 1e3 / reps}
+    out = _launch_summary(events, reps)
     if names:
         out["kernel_names"] = (None if events is None
                                else [k for k, _, _ in events])
     return out
+
+
+def _launch_summary(events, reps: int) -> dict:
+    """``launches_per_call``, ``kernels_per_call`` (less memsets and
+    copies) and ``device_ms`` of ``reps`` calls' events, each None without
+    a whole window."""
+    if events is None:
+        return {"launches_per_call": None, "kernels_per_call": None,
+                "device_ms": None}
+    return {"launches_per_call": sum(c for _, c, _ in events) // reps,
+            "kernels_per_call": sum(
+                c for k, c, _ in events
+                if not k.startswith(("Memset", "Memcpy"))) // reps,
+            "device_ms": sum(t for _, _, t in events) / 1e3 / reps}
 
 
 def skipped_passes(keys, n=None) -> int:
@@ -1713,6 +1727,8 @@ def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
             lambda: grep_step_plain(ch, pats, dl, bases, **kw),
             n_dev * (GREP_CHUNK + 3 + 4 + 8 + 4 * (11 + 80 + 5)),
             f"n_dev={n_dev} N={GREP_CHUNK} l_cap={lc} k=16")
+        steps[n_dev].update(j_profile(
+            lambda: grep_step(ch, pats, dl, bases, **kw), False))
     rows["grep_step"] = steps[1]
     rows["grep_step"]["at_shapes"] = {"n_dev=8": steps[8]}
 
@@ -1730,6 +1746,71 @@ def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
     errs = {name: _merge_err(rows[name]["max_abs_err"], _worst_err(rows[name]))
             for name in rows}
     return rows, topk, errs
+
+
+def check_grep_edges():
+    """J, with and without its emit epilogue, against ``grep_step_plain``
+    on the shared edge cases (``dsi_tpu_torch/utils/kernel_cases.py
+    grep_cases``, the CPU tests' cases) at kernel J's own tiles
+    (``dsi_grep_step_tile_bytes``, ``dsi_grep_step_line_tile``): each case
+    at 8 shards and each of its rows alone, one case also from rows 5
+    bytes past a 16-byte boundary (no vector loads).  Returns (J's, the
+    emit's) max_abs_err."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.kernels.build import library
+    from dsi_tpu_torch.parallel.grepstream import grep_step, grep_step_plain
+    from dsi_tpu_torch.utils.kernel_cases import (GREP_BINS, GREP_K,
+                                                  grep_cases)
+
+    lib = library()
+    tb, lt = lib.dsi_grep_step_tile_bytes(), lib.dsi_grep_step_line_tile()
+    cases = grep_cases(tb, lt)
+    cases.append((f"{cases[0][0]}_offset_5", *cases[0][1:]))
+    j_err = e_err = 0
+    for name, chunks, pats, dlen, bases, l_cap in cases:
+        kw = dict(l_cap=l_cap, bins=GREP_BINS, k=GREP_K)
+        d_j = d_e = 0
+        for rows in [slice(0, 8)] + [slice(r, r + 1) for r in range(8)]:
+            ch, p, d, b = (torch.from_numpy(np.ascontiguousarray(x[rows]))
+                           .to(DEVICE) for x in (chunks, pats, dlen, bases))
+            if name.endswith("_offset_5"):
+                flat = torch.zeros(ch.numel() + 5, dtype=torch.uint8,
+                                   device=DEVICE)[5:]
+                flat.copy_(ch.reshape(-1))
+                ch = flat.view(ch.shape)
+            d_j = _merge_err(d_j, _worst(zip(
+                grep_step(ch, p, d, b, **kw),
+                grep_step_plain(ch, p, d, b, **kw))))
+            d_e = _merge_err(d_e, _worst(zip(
+                grep_step(ch, p, d, b, emit=True, **kw),
+                grep_step_plain(ch, p, d, b, emit=True, **kw))))
+        sync()
+        j_err, e_err = _merge_err(j_err, d_j), _merge_err(e_err, d_e)
+        log({"grep_edge_case": name, "N": chunks.shape[1], "tile": tb,
+             "line_tile": lt, "m": pats.shape[1], "l_cap": l_cap,
+             "max_abs_err": d_j, "emit_max_abs_err": d_e})
+    return j_err, e_err
+
+
+def j_profile(fn, emit: bool) -> dict:
+    """``call_profile`` of one call of kernel J (with its emit epilogue
+    when ``emit``), with each kernel's device time by name.  Raises when a
+    call takes more CUDA launches than the design's bound: 3 without emit,
+    4 with it, memsets included."""
+    events = _device_events(fn, 20, "gs_sweep")
+    prof = {**_launch_summary(events, 20), "device_ms_by_kernel": None}
+    if events is not None:
+        prof["device_ms_by_kernel"] = {
+            next((n for n in ("gs_sweep", "gs_lines") if n in k), k[:40]):
+            t / 1e3 / 20 for k, _, t in events}
+    most = 4 if emit else 3
+    if prof["launches_per_call"] is not None \
+            and prof["launches_per_call"] > most:
+        raise RuntimeError(f"grep_step (emit={emit}): "
+                           f"{prof['launches_per_call']} CUDA launches a "
+                           f"call, the design allows {most}")
+    return prof
 
 
 def _worst_err(row) -> int:
@@ -2539,13 +2620,14 @@ def emit_kernel_rows(plan_raw: bytes, pg_raw: bytes):
     on the same device tensors, every output: [1, 2 MiB] and [8, 2 MiB] for
     ``the`` (pg) and ``dsi`` (the plan corpus) at the optimistic l_cap rung,
     and short lines that overflow it (and clear at n + 1); then the times:
-    the emit step, J alone, the epilogue alone (its C entry point on J's
-    scratch), the plain version and a stable ``argsort`` + ``gather`` of the
-    same compaction.  Returns (times entry, max_abs_err)."""
+    the emit step and J alone (the same C call without emit) through the
+    wrapper and on the card (``j_profile``: launches a call, device time by
+    kernel; the epilogue's is what the emit adds to ``gs_lines``), the
+    plain version and a stable ``argsort`` + ``gather`` of the same
+    compaction.  Returns (times entry, max_abs_err)."""
     import numpy as np
     import torch
     from dsi_tpu_torch.ops import grepk
-    from dsi_tpu_torch.ops import wordcount as w
     from dsi_tpu_torch.parallel.grepstream import (grep_step,
                                                    grep_step_plain)
 
@@ -2583,37 +2665,18 @@ def emit_kernel_rows(plan_raw: bytes, pg_raw: bytes):
             raise RuntimeError("the short-line batch did not overflow rung 0")
         if name in ("the_d1", "the_d8", "dsi_d1"):
             shapes[name] = (args, kw, kept, n_dev)
-    lib = w._lib()
     rows = {}
     for name, (args, kw, kept, n_dev) in shapes.items():
         ch, pats, dl, bases = args
-        hist, cand, scal = grep_step(*args, **dict(kw, emit=False))
-        scratch = torch.empty(lib.dsi_grep_step_scratch_bytes(
-            n_dev, n, kw["l_cap"], kw["k"]), dtype=torch.uint8,
-            device=DEVICE)
-        emit_scratch = torch.empty(lib.dsi_grep_emit_scratch_bytes(n_dev, n),
-                                   dtype=torch.uint8, device=DEVICE)
-        comp = torch.empty((n_dev, n), dtype=torch.uint8, device=DEVICE)
-        kept_d = torch.empty(n_dev, dtype=torch.int32, device=DEVICE)
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def step_only():
-            return lib.dsi_grep_step(
-                ch.data_ptr(), n_dev, n, pats.data_ptr(), pats.shape[1],
-                dl.data_ptr(), bases.data_ptr(), kw["l_cap"], 8, kw["k"],
-                hist.data_ptr(), cand.data_ptr(), scal.data_ptr(),
-                scratch.data_ptr(), stream)
-
-        def epilogue():
-            return lib.dsi_grep_emit(
-                ch.data_ptr(), n_dev, n, dl.data_ptr(), kw["l_cap"], kw["k"],
-                scratch.data_ptr(), emit_scratch.data_ptr(),
-                comp.data_ptr(), kept_d.data_ptr(), stream)
-
-        if step_only() != 0 or epilogue() != 0:
-            raise RuntimeError("grep_emit: the direct launch failed")
-        d = _worst(zip((comp, kept_d), grep_step_plain(*args, **kw)[3:]))
+        step_kw = dict(kw, emit=False)
+        d = _worst(zip(grep_step(*args, **kw), grep_step_plain(*args, **kw)))
         err = _merge_err(err, d)
+        prof = j_profile(lambda: grep_step(*args, **kw), True)
+        j_prof = j_profile(lambda: grep_step(*args, **step_kw), False)
+        # The epilogue's device time: what the emit adds to gs_lines.
+        by, j_by = prof["device_ms_by_kernel"], j_prof["device_ms_by_kernel"]
+        epilogue = (None if by is None or j_by is None else
+                    by.get("gs_lines", 0.0) - j_by.get("gs_lines", 0.0))
         # The library yardstick: the same stable partition by a sort.
         keep_inv = (~_keep_mask(ch, pats, dl)).to(torch.uint8)
         nbytes = n_dev * (2 * n + pats.shape[1] + 4 + 8 + 4
@@ -2621,9 +2684,11 @@ def emit_kernel_rows(plan_raw: bytes, pg_raw: bytes):
         rows[name] = {
             "max_abs_err": d,
             "ms": cuda_ms(lambda: grep_step(*args, **kw), 20),
-            "j_ms": cuda_ms(step_only, 20),
-            "epilogue_ms": cuda_ms(epilogue, 20),
-            "epilogue_device_ms": device_ms(epilogue, 20, "::ge_"),
+            "j_ms": cuda_ms(lambda: grep_step(*args, **step_kw), 20),
+            **prof,
+            "j_device_ms": j_prof["device_ms"],
+            "j_launches_per_call": j_prof["launches_per_call"],
+            "epilogue_device_ms": epilogue,
             "plain_ms": cuda_ms(lambda: grep_step_plain(*args, **kw), 3),
             "library_ms": cuda_ms(lambda: torch.gather(
                 ch, 1, torch.argsort(keep_inv, dim=1, stable=True)), 10),
@@ -3317,6 +3382,8 @@ def main() -> int:
         grep_rows, topk_row, grep_err = grep_kernel_rows(raws[0], data)
         times.update(grep_rows)
         err.update(grep_err)
+        j_edge_err, emit_edge_err = check_grep_edges()
+        err["grep_step"] = _merge_err(err["grep_step"], j_edge_err)
         err["radix_sort"] = _merge_err(err["radix_sort"],
                                        topk_row["max_abs_err"])
         for name in ("grep", "nfa", "grep_step"):
@@ -3451,6 +3518,7 @@ def main() -> int:
             plan_raw = f.read()
         times["grep_emit"], err["grep_emit"] = emit_kernel_rows(plan_raw,
                                                                 data)
+        err["grep_emit"] = _merge_err(err["grep_emit"], emit_edge_err)
         times["relay_pack"], err["relay_pack"], relay_entry = \
             relay_kernel_rows()
         log({"relay_appends": relay_entry, "gpu": gpu})
@@ -3541,7 +3609,8 @@ def main() -> int:
             row["at_shapes"]["mesh_append"] = ma_rows[name]
         if name in ("wire_decode", "crash_sim", "grep_emit", "relay_pack"):
             row["at_shapes"] = tm["at_shapes"]
-        for key in ("j_ms", "epilogue_ms", "epilogue_device_ms",
+        for key in ("j_ms", "j_device_ms", "j_launches_per_call",
+                    "epilogue_device_ms", "device_ms_by_kernel",
                     "device_ms", "launches_per_call", "kernels_per_call",
                     "passes_run",
                     "skipped_passes", "path", "library_x_k64_ms", "rounds",

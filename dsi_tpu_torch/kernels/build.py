@@ -58,12 +58,11 @@ SIGNATURES = {
     "dsi_line_flags": (_INT, [_P, _I64, _P, _I64, _P, _P, _P, _P]),
     "dsi_nfa_scratch_bytes": (_I64, [_I64, _INT]),
     "dsi_nfa": (_INT, [_P, _I64, _P, _INT, _P, _I64, _P, _P, _P, _P]),
-    "dsi_grep_step_scratch_bytes": (_I64, [_INT, _I64, _I64, _INT]),
+    "dsi_grep_step_scratch_bytes": (_I64, [_INT, _I64, _I64, _INT, _INT]),
     "dsi_grep_step": (_INT, [_P, _INT, _I64, _P, _INT, _P, _P, _I64, _INT,
-                             _INT, _P, _P, _P, _P, _P]),
-    "dsi_grep_emit_scratch_bytes": (_I64, [_INT, _I64]),
-    "dsi_grep_emit": (_INT, [_P, _INT, _I64, _P, _I64, _INT, _P, _P, _P, _P,
-                             _P]),
+                             _INT, _P, _P, _P, _P, _P, _P, _P]),
+    "dsi_grep_step_tile_bytes": (_I64, []),
+    "dsi_grep_step_line_tile": (_I64, []),
     "dsi_relay_pack": (_INT, [_P, _INT, _I64, _P, _P, _P]),
     "dsi_compact_scratch_bytes": (_I64, [_INT, _I64]),
     "dsi_compact": (_INT, [_P, _INT, _I64, _INT, _INT, _P, _P, _P, _P]),

@@ -49,6 +49,8 @@ item: ``aot``, checkpoints and ``resume``, and ``input_range``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -67,7 +69,6 @@ from dsi_tpu_torch.ops.wordcount import (
     _on_cuda,
     _ptr,
     _require,
-    _stream,
     _u32_bits,
     grouper_ladder,
     resolve_device,
@@ -267,8 +268,9 @@ def grep_step(chunks: torch.Tensor, pats: torch.Tensor, dlen: torch.Tensor,
               bases: torch.Tensor, *, l_cap: int, bins: int, k: int,
               emit: bool = False):
     """Kernel J (``csrc/grep_step.cu``); see :func:`grep_step_plain`.
-    With ``emit`` J's emit epilogue (K16e, counted as ``grep_emit``) runs
-    after it on J's scratch, into a ``comp`` allocated for this call."""
+    One C call a step; with ``emit`` it also runs J's emit epilogue (K16e,
+    counted as ``grep_emit``) into a ``comp`` allocated for this call.
+    hist_ext, cand, scal and kept are views of one int32 allocation."""
     _require(chunks, torch.uint8, 2, "grep_step chunks")
     _require(pats, torch.uint8, 2, "grep_step patterns")
     _require(dlen, torch.int32, 1, "grep_step dlen")
@@ -284,28 +286,39 @@ def grep_step(chunks: torch.Tensor, pats: torch.Tensor, dlen: torch.Tensor,
         return grep_step_plain(chunks, pats, dlen, bases, l_cap=l_cap,
                                bins=bins, k=k, emit=emit)
     lib = _lib()
-    opts = {"device": chunks.device}
-    hist_ext = torch.empty((n_dev, bins + 3), dtype=torch.int32, **opts)
-    cand = torch.empty((n_dev, k, 5), dtype=torch.int32, **opts)
-    scal = torch.empty((n_dev, 5), dtype=torch.int32, **opts)
-    scratch = torch.empty(lib.dsi_grep_step_scratch_bytes(n_dev, n, l_cap, k),
-                          dtype=torch.uint8, **opts)
-    with torch.cuda.device(chunks.device):
-        _launch("grep_step", lib.dsi_grep_step(
+    dev = chunks.device
+    # One int32 allocation for the small outputs; views cut by as_strided
+    # (the cheapest on the host, which sets this call's time).
+    h, c, sc = n_dev * (bins + 3), n_dev * k * 5, n_dev * 5
+    out = torch.empty(h + c + sc + n_dev, dtype=torch.int32, device=dev)
+    hist_ext = out.as_strided((n_dev, bins + 3), (bins + 3, 1), 0)
+    cand = out.as_strided((n_dev, k, 5), (k * 5, 5, 1), h)
+    scal = out.as_strided((n_dev, 5), (5, 1), h + c)
+    kept = out.as_strided((n_dev,), (1,), h + c + sc) if emit else None
+    # comp is fresh every call: a relay adopts it as its buffer.
+    comp = (torch.empty((n_dev, n), dtype=torch.uint8, device=dev) if emit
+            else None)
+    scratch = torch.empty(_step_scratch_bytes(n_dev, n, l_cap, bins, k),
+                          dtype=torch.uint8, device=dev)
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        rc = lib.dsi_grep_step(
             _ptr(chunks), n_dev, n, _ptr(pats), pats.shape[1], _ptr(dlen),
             _ptr(bases), l_cap, bins, k, _ptr(hist_ext), _ptr(cand),
-            _ptr(scal), _ptr(scratch), _stream(chunks)))
-        if not emit:
-            return hist_ext, cand, scal
-        # comp is fresh every call: a relay adopts it as its buffer.
-        comp = torch.empty((n_dev, n), dtype=torch.uint8, **opts)
-        kept = torch.empty(n_dev, dtype=torch.int32, **opts)
-        emit_scratch = torch.empty(lib.dsi_grep_emit_scratch_bytes(n_dev, n),
-                                   dtype=torch.uint8, **opts)
-        _launch("grep_emit", lib.dsi_grep_emit(
-            _ptr(chunks), n_dev, n, _ptr(dlen), l_cap, k, _ptr(scratch),
-            _ptr(emit_scratch), _ptr(comp), _ptr(kept), _stream(chunks)))
+            _ptr(scal), _ptr(comp), _ptr(kept), _ptr(scratch),
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    _launch("grep_step", rc)
+    if not emit:
+        return hist_ext, cand, scal
+    _launch("grep_emit", rc)
     return hist_ext, cand, scal, comp, kept
+
+
+@functools.lru_cache(maxsize=64)
+def _step_scratch_bytes(n_dev: int, n: int, l_cap: int, bins: int,
+                        k: int) -> int:
+    """J's scratch for a step shape, asked of the library once a shape."""
+    return _lib().dsi_grep_step_scratch_bytes(n_dev, n, l_cap, bins, k)
 
 
 # ── results and the host oracle ────────────────────────────────────────

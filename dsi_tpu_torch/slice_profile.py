@@ -27,7 +27,12 @@ lines:
   (``tokenize_ab``), each version's scalars as its wrapper leaves them
   (the older interface had the caller zero them); C at the corpus and
   reduce shapes (``group_ab``); A and C each with one call of each
-  version profiled, its device time by launch;
+  version profiled, its device time by launch; and kernel J with and
+  without its emit epilogue (``grep_ab``: the older version through its
+  two C entry points and its wrapper's allocations as that tree made them,
+  this tree's through ``grep_step``) on the bench corpus cut into 2 MiB
+  rows at 1 and 8 shards, pattern ``the``, ``l_cap`` 262,144, each call
+  checked against ``grep_step_plain`` and one of each profiled;
 * with ``--stream``: ``stream_profile``, the bench's stream row (the
   corpus cycled to 64 MB, 2 MiB chunks, u_cap 2^15, depth 2) with the
   device table off and on at one shard, with the table on and the hash
@@ -74,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -462,6 +468,91 @@ def _sort_with(lib, keys: torch.Tensor):
     return out, perm
 
 
+# The C interface of kernel J before it took one C call a step: the step
+# and its emit epilogue, each with its own scratch.
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_GREP_TWO_ENTRIES = {
+    "dsi_grep_step_scratch_bytes": (_I64, [_INT, _I64, _I64, _INT]),
+    "dsi_grep_step": (_INT, [_P, _INT, _I64, _P, _INT, _P, _P, _I64, _INT,
+                             _INT, _P, _P, _P, _P, _P]),
+    "dsi_grep_emit_scratch_bytes": (_I64, [_INT, _I64]),
+    "dsi_grep_emit": (_INT, [_P, _INT, _I64, _P, _I64, _INT, _P, _P, _P,
+                             _P, _P]),
+}
+
+
+def _declare(lib, signatures: dict) -> None:
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+
+
+def _grep_two_entries(lib, chunks, pats, dlen, bases, *, l_cap: int,
+                      bins: int, k: int, emit: bool):
+    """Kernel J from ``lib`` through its older two-entry interface, with
+    the allocations its wrapper made (seven tensors, two C calls)."""
+    n_dev, n = chunks.shape
+    dev = {"device": chunks.device}
+    stream = torch.cuda.current_stream().cuda_stream
+    hist_ext = torch.empty((n_dev, bins + 3), dtype=torch.int32, **dev)
+    cand = torch.empty((n_dev, k, 5), dtype=torch.int32, **dev)
+    scal = torch.empty((n_dev, 5), dtype=torch.int32, **dev)
+    scratch = torch.empty(lib.dsi_grep_step_scratch_bytes(n_dev, n, l_cap, k),
+                          dtype=torch.uint8, **dev)
+    rc = lib.dsi_grep_step(chunks.data_ptr(), n_dev, n, pats.data_ptr(),
+                           pats.shape[1], dlen.data_ptr(), bases.data_ptr(),
+                           l_cap, bins, k, hist_ext.data_ptr(),
+                           cand.data_ptr(), scal.data_ptr(),
+                           scratch.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"grep_step launch failed: CUDA error {rc}")
+    if not emit:
+        return hist_ext, cand, scal
+    comp = torch.empty((n_dev, n), dtype=torch.uint8, **dev)
+    kept = torch.empty(n_dev, dtype=torch.int32, **dev)
+    emit_scratch = torch.empty(lib.dsi_grep_emit_scratch_bytes(n_dev, n),
+                               dtype=torch.uint8, **dev)
+    rc = lib.dsi_grep_emit(chunks.data_ptr(), n_dev, n, dlen.data_ptr(),
+                           l_cap, k, scratch.data_ptr(),
+                           emit_scratch.data_ptr(), comp.data_ptr(),
+                           kept.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"grep_emit launch failed: CUDA error {rc}")
+    return hist_ext, cand, scal, comp, kept
+
+
+def _grep_ab(base, raws) -> None:
+    """``grep_ab``: J with and without emit from ``base`` (the older
+    interface) and from this tree, in turns, at 1 and 8 shards."""
+    from dsi_tpu_torch.parallel.grepstream import grep_step, grep_step_plain
+
+    text = b"".join(raws)
+    for n_dev in (1, 8):
+        batch = np.zeros((n_dev, 1 << 21), np.uint8)
+        lens = np.zeros(n_dev, np.int32)
+        rest = text
+        for r in range(n_dev):
+            cut = rest.rfind(b"\n", 0, 1 << 21) + 1
+            batch[r, :cut] = np.frombuffer(rest[:cut], np.uint8)
+            lens[r] = cut
+            rest = rest[cut:]
+        args = (torch.from_numpy(batch).cuda(),
+                torch.from_numpy(np.tile(np.frombuffer(b"the", np.uint8),
+                                         (n_dev, 1))).cuda(),
+                torch.from_numpy(lens).cuda(),
+                torch.zeros(n_dev, dtype=torch.int64, device="cuda"))
+        for emit in (False, True):
+            kw = dict(l_cap=1 << 18, bins=8, k=16, emit=emit)
+            _ab("grep_ab", f"n_dev={n_dev} emit={emit}",
+                [n_dev, 1 << 21, kw["l_cap"]], {
+                    "baseline": lambda kw=kw, args=args: _grep_two_entries(
+                        base, *args, **kw),
+                    "change": lambda kw=kw, args=args: grep_step(*args,
+                                                                 **kw)},
+                grep_step_plain(*args, **kw))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-csrc", type=Path, default=None,
@@ -575,6 +666,8 @@ def main() -> int:
                 name: lambda lib=lib, k=k: _sort_with(lib, k)
                 for name, lib in (("baseline", base), ("change", new))},
                 w.radix_sort_plain(k))
+        _declare(base, _GREP_TWO_ENTRIES)
+        _grep_ab(base, raws)
     return 0
 
 

@@ -1,12 +1,14 @@
-"""Edge cases for kernels A (tokenize) and C (group runs) at tile edges.
+"""Edge cases for kernels A (tokenize), C (group runs) and J (the grep
+step) at tile edges.
 
 One set of inputs serves two checks: the CPU tests hold the port's plain
 versions against ``dsi_tpu`` on them at a small tile, and ``chip_smoke.py``
 holds each kernel against its plain version on the card with ``tile`` set
-to the kernel's own (``dsi_tokenize_tile_bytes``, ``dsi_group_tile_rows``).
-Every case is made with numpy from a seed; every case of one call has the
-same shape, apart from A's ``odd_length``, so a compiled reference serves
-them all.
+to the kernel's own (``dsi_tokenize_tile_bytes``, ``dsi_group_tile_rows``,
+``dsi_grep_step_tile_bytes`` and ``dsi_grep_step_line_tile``).  Every case
+is made with numpy from a seed; every case of one call has the same shape,
+apart from A's ``odd_length`` and J's pattern lengths, so a compiled
+reference serves them all.
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ TokenizeCase = Tuple[str, np.ndarray, int, int]
 # (name, sorted keys u64 [k64, t], counts i64 [t], u_cap, payload i32 [t],
 #  perm i32 [t])
 GroupCase = Tuple[str, np.ndarray, np.ndarray, int, np.ndarray, np.ndarray]
+# (name, chunks u8 [8, n], pats u8 [8, m], dlen i32 [8], bases i64 [8],
+#  l_cap); every case has bins GREP_BINS and k GREP_K
+GrepCase = Tuple[str, np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]
+GREP_BINS, GREP_K = 8, 16
 
 
 def _text(rng, n: int, max_len: int = 14) -> np.ndarray:
@@ -193,4 +199,168 @@ def group_cases(tile: int, t: int, seed: int = 1234) -> List[GroupCase]:
                       rid.astype(np.uint64) % 2])
     cases.append(case("tile_edges", np.ascontiguousarray(edges),
                       _n_unique(edges)))
+    return cases
+
+
+_NO_T = np.frombuffer(b"abcdefghijklmnopqrsuvwxyz", np.uint8)  # no 't'
+
+
+def _line_text(rng, n: int, lo: int, hi: int,
+               alphabet: np.ndarray = _LETTERS[:26]) -> np.ndarray:
+    """n bytes of lines of lo..hi bytes (the newline included, the last
+    line cut at n): words of ``alphabet`` between single spaces."""
+    ends = np.cumsum(rng.integers(lo, hi + 1, n // lo + 1))
+    out = rng.choice(alphabet, n)
+    out[rng.random(n) < 0.18] = ord(" ")
+    out[ends[ends <= n] - 1] = ord("\n")
+    return out
+
+
+def _at(buf: np.ndarray, at: int, data: bytes) -> None:
+    end = min(len(buf), at + len(data))
+    if 0 <= at < end:
+        buf[at:end] = np.frombuffer(data, np.uint8)[:end - at]
+
+
+def grep_cases(tile: int, line_tile: int, seed: int = 1234) -> List[GrepCase]:
+    """Kernel J's edges for byte tiles of ``tile`` bytes and line tiles of
+    ``line_tile`` lines, each case 8 rows of 8 tiles (``l_cap`` an eighth
+    of a row and at least 4 line tiles, lines 2 to 40 bytes long, pattern
+    ``the`` unless named): a match across every tile edge (and across the
+    pattern's halo of 64 bytes), a newline on a tile's first and last
+    byte, a line over three tiles whose only match is in the middle one,
+    every line matching (matched > k, ties in occ by line), a line with
+    12 or more occurrences (>= bins - 1), n_lines > l_cap, dlen 0 and
+    dlen no multiple of 16, the pattern past dlen of an unterminated row
+    (and across dlen), m = 1 with lines of 256 or more matches, m = 80
+    (past the halo) with near misses, a different pattern on each row
+    (one with overlapping occurrences), and bases whose lines cross
+    2^32."""
+    rng = np.random.default_rng(seed)
+    n = 8 * tile
+    l_cap = max(4 * line_tile, n // 8)
+    edges = range(tile, n, tile)
+    the = np.frombuffer(b"the", np.uint8)
+    cases = []
+
+    def case(name, rows, pats=None, dlen=None, bases=None):
+        chunks = np.stack(rows).astype(np.uint8)
+        if pats is None:
+            pats = np.tile(the, (8, 1))
+        if dlen is None:  # each row cut after its last newline
+            dlen = np.array([int(np.flatnonzero(r == 10)[-1]) + 1
+                             if (r == 10).any() else 0 for r in chunks])
+        if bases is None:
+            bases = np.arange(8, dtype=np.int64) * 100_003
+        cases.append((name, chunks, np.ascontiguousarray(pats, np.uint8),
+                      np.asarray(dlen, np.int32), np.asarray(bases, np.int64),
+                      l_cap))
+
+    def text(lo=2, hi=40, alphabet=_LETTERS[:26]):
+        return _line_text(rng, n, lo, hi, alphabet)
+
+    rows = []
+    for r in range(8):
+        t = text(8, 40)
+        for e in edges:  # starts 1 or 2 bytes before the edge
+            _at(t, e - 1 - r % 2, b"the")
+            _at(t, e + 62 - r % 3, b"the")  # across the halo's end
+        rows.append(t)
+    case("match_across_tiles", rows)
+
+    rows = []
+    for r in range(8):
+        t = text(3, 30)
+        for e in edges:
+            t[e] = t[e - 1] = ord("\n")
+            _at(t, e + 1, b"the")
+            _at(t, e - 4, b"the")
+        rows.append(t)
+    case("newline_on_tile_edges", rows)
+
+    rows = []
+    for r in range(8):
+        t = text(4, 40, _NO_T)
+        a = tile // 2 + 7 * r  # no newline in [a, a + 3 tiles)
+        t[a:a + 3 * tile] = rng.choice(_NO_T, 3 * tile)
+        t[a - 1] = t[a + 3 * tile] = ord("\n")
+        _at(t, a + tile + tile // 2 + r, b"the")
+        rows.append(t)
+    case("line_over_three_tiles", rows)
+
+    rows = []
+    for r in range(8):  # 1 or 2 matches a line: many ties
+        lines = (b"the xyz\n" if one else b"the a the\n"
+                 for one in rng.random(n // 8 + 1) < 0.7)
+        rows.append(np.frombuffer(b"".join(lines), np.uint8)[:n].copy())
+    case("every_line_matches", rows)
+
+    rows = []
+    for r in range(8):
+        t = text(8, 40)
+        at = int(rng.integers(0, n - 200))
+        _at(t, at, b"\n" + b"the" * (12 + r) + b"\n")
+        _at(t, at + 100, b"\nthethe thehe the\n")
+        rows.append(t)
+    case("many_occurrences", rows)
+
+    rows = [np.resize(np.frombuffer(b"the\nx\n" if r % 2 else b"x\nthe\n",
+                                    np.uint8), n) for r in range(8)]
+    case("n_lines_over_l_cap", rows)
+
+    rows = [text() for _ in range(8)]
+    case("dlen_edges", rows, dlen=[0, 1, 17, 37, tile + 5, n - 3, n, 2 * tile])
+
+    rows, dlen = [], []
+    for r in range(8):
+        t = text(5, 30)
+        d = n - 6 - 9 * r
+        t[d - 1] = ord("x")  # unterminated
+        _at(t, d + 2, b"the")
+        if r % 2:
+            _at(t, d - 2, b"the")  # across dlen
+        rows.append(t)
+        dlen.append(d)
+    case("pattern_past_dlen", rows, dlen=dlen)
+
+    rows = []
+    for r in range(8):  # lines of 256 or more matches: a select on 2 bytes
+        t = text()
+        for i in range(2 + r % 4):
+            _at(t, i * 350 + 40,
+                b"\n" + b"e" * (256 + 13 * r + 5 * (i % 2)) + b"\n")
+        rows.append(t)
+    case("pattern_length_1", rows, pats=np.full((8, 1), ord("e"), np.uint8))
+
+    long_pat = rng.choice(_LETTERS[:26], 80)
+    long_pat[[9, 30, 61]] = ord(" ")
+    rows = []
+    for r in range(8):
+        t = text(100, 300)
+        for i, e in enumerate(edges):
+            at = e - [1, 10, 64, 70, 79, 0, 33][i % 7]
+            miss = long_pat.copy()
+            miss[[79, 64, 40][i % 3]] ^= 1  # near misses on the halo edge
+            _at(t, at - 200, miss.tobytes())
+            _at(t, at, long_pat.tobytes())
+        rows.append(t)
+    case("pattern_length_80", rows, pats=np.tile(long_pat, (8, 1)))
+
+    pats = np.stack([np.frombuffer(p, np.uint8) for p in (
+        b"the", b"and", b"e e", b"aaa", b"x\nx", b"  t", b"zzz", b"hea")])
+    rows = []
+    for r in range(8):
+        t = text(4, 20, _LETTERS[:26] if r != 3 else
+                 np.frombuffer(b"aab", np.uint8))
+        rows.append(t)
+    case("pattern_per_row", rows, pats=pats)
+
+    rows = []
+    for r in range(8):
+        t = text(4, 20)
+        for at in rng.integers(0, n - 3, n // 64):
+            _at(t, int(at), b"the")
+        rows.append(t)
+    case("bases_across_2_32", rows,
+         bases=(1 << 32) - 5 - np.arange(8, dtype=np.int64) * 7)
     return cases
