@@ -25,7 +25,9 @@ Phases (any failure exits non-zero before the last line is printed):
    library yardstick, A also at the stream step's shape (2 MiB), A, B, C
    and F also with their launches a call and their device time from
    ``torch.profiler`` (A and C fail above 2 kernels a call), and B's
-   skipped passes;
+   skipped passes; kernel D on ``kernel_cases.fnv_cases`` in both its
+   layouts (u64 words, u32 lanes, the lanes also 4 bytes off a 16-byte
+   boundary), with and without its partition epilogue;
 3. the slice at full size: the bench corpus (8 files x (2 MiB - 64),
    seed 1234) through ``corpus_wordcount`` + ``write_corpus_output`` with
    ``sort mr-out-*`` byte-equal to the sequential oracle; the same corpus
@@ -33,7 +35,12 @@ Phases (any failure exits non-zero before the last line is printed):
    ``count_words_host_result`` on one file against the oracle's counts;
 4. kernel E (the shuffle) against its plain version at the stream shape
    and at 8 virtual shards, with all rows bound for one shard and with no
-   valid row; kernels B and C at the reduce shape;
+   valid row, and on ``kernel_cases.route_cases`` at its own tiles
+   (``dsi_route_tile_rows``), each case also from rows and dests 4 bytes
+   off a 16-byte boundary; E and D (``map_prologue``'s hash with its
+   epilogue) at the stream step with their launches a call and device
+   time (E fails above a memset and 2 kernels a call, D above 1
+   launch); kernels B and C at the reduce shape;
 5. the streaming SPMD word count: ``wordcount_sharded`` over the bench
    corpus at 1 and 8 virtual shards to ``mr-out-*`` parity, then the
    bench's stream row at full width (the corpus cycled to 64 MB, 2 MiB
@@ -49,7 +56,11 @@ Phases (any failure exits non-zero before the last line is printed):
    forced (two words in one bucket, every bucket clean, two words that
    differ only in their last key word); the 6-bit decode
    (kernel G) on the bench corpus, a random 64-symbol buffer and one
-   repeated byte; D, E, B and C at the mesh-sharded fold's shapes;
+   repeated byte; D (as ``route_dest`` launches it), E, B and C at the
+   mesh-sharded fold's shapes; the CUDA launches a call of
+   ``map_prologue``, ``route_dest`` and ``mesh_fold_step`` before D took
+   the partition rule into its epilogue and after (``route_dest`` fails
+   above one launch);
 7. the word count in every configuration the JAX package offers, each to
    parity with the oracle: ``corpus_wordcount`` with the hash grouper,
    with the 6-bit transport under both groupers, the per-split path and
@@ -92,10 +103,10 @@ Phases (any failure exits non-zero before the last line is printed):
    (``tfidf_acc``, which must overflow and recover), and at eight
    (``tfidf_n8``, one wave), each writing ``mr-out-*`` byte-equal to the
    sequential TF-IDF oracle's and holding the token invariant (the sum of
-   tf equals the oracle's token count);
-10. the streaming indexer and the mesh-sharded postings append: E, L and
-   M against their plain versions at the mesh append's shapes (one wave
-   of the eight documents at eight shards, re-routed by D: E into
+   tf equals the oracle's token count); D and E at ``tfidf_n8``'s wave;
+10. the streaming indexer and the mesh-sharded postings append: D, E, L
+   and M against their plain versions at the mesh append's shapes (one
+   wave of the eight documents at eight shards, re-routed by D: E into
    [8, 2,097,152, 8], L with ``pad_lanes`` 1, M into an empty buffer);
    the TF-IDF row's shapes through ``indexer_streaming`` (depth 2) at one
    virtual shard with the services off (``indexer``) and on
@@ -882,12 +893,8 @@ def time_kernels(corpus_buf, split_buf):
         s_sk, torch.ones(st, dtype=torch.int64, device=DEVICE), su, s_len,
         s_perm)
     keys_u, len_u = s_grp[0], s_grp[3]
-    out["fnv"] = {
-        "ms": cuda_ms(lambda: w.fnv1a32_packed(keys_u, len_u, MWL), 50),
-        "plain_ms": cuda_ms(lambda: w.fnv1a32_packed_plain(
-            keys_u, len_u, MWL), 5),
-        "library_ms": None, "bytes": su * (8 * k64 + 4 + 4),
-        "shape": f"u_cap={su} k64={k64}"}
+    out["fnv"] = fnv_entry(keys_u, len_u, MWL, f"split: u_cap={su} "
+                                                 f"k64={k64}")
     for v in out.values():
         v["bound_ms"] = v["bytes"] / HBM_BYTES_PER_S * 1e3
         if "radix_bytes" in v:
@@ -994,6 +1001,36 @@ def route_cases(rows1, dest1):
     ]
 
 
+def shared_route_cases():
+    """(name, rows, dest, n_dev, k) of ``kernel_cases.route_cases`` at
+    kernel E's own tiles (``dsi_route_tile_rows``), each also with rows
+    and dests 4 bytes past a 16-byte boundary (no 16-byte loads)."""
+    import torch
+    from dsi_tpu_torch.kernels.build import library
+    from dsi_tpu_torch.utils.kernel_cases import route_cases as shared
+
+    out = []
+    for name, rows, dest, n_dev, k in shared(library().dsi_route_tile_rows):
+        r_t = torch.from_numpy(rows.view("int32")).to(DEVICE)
+        d_t = torch.from_numpy(dest).to(DEVICE)
+        out += [(name, r_t, d_t, n_dev, k),
+                (f"{name}_offset_4", _offset_copy(r_t), _offset_copy(d_t),
+                 n_dev, k)]
+    return out
+
+
+def _offset_copy(t):
+    """A copy of ``t`` whose storage starts 4 bytes past ``t``'s alignment:
+    the same values from an address 4 bytes off a 16-byte boundary."""
+    import torch
+
+    words = 4 // t.element_size()
+    buf = torch.empty(t.numel() + words, dtype=t.dtype, device=t.device)
+    out = buf[words:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def check_route(cases) -> int:
     """Kernel E against its plain version on every case; max_abs_err."""
     from dsi_tpu_torch.ops.wordcount import shuffle_rows, shuffle_rows_plain
@@ -1011,19 +1048,148 @@ def check_route(cases) -> int:
     return err
 
 
-def time_route(rows1, dest1):
+def check_fnv() -> int:
+    """Kernel D against its plain version on ``kernel_cases.fnv_cases``:
+    every case in both layouts (u64 words, u32 lanes), the lanes also 4
+    bytes off a 16-byte boundary, with and without the epilogue;
+    max_abs_err."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.utils.kernel_cases import fnv_cases, lanes_to_words
+
+    err = 0
+    for name, lanes, lens, mwl, ep in fnv_cases():
+        lanes_t = torch.from_numpy(lanes.view("int32")).to(DEVICE)
+        layouts = {"words": torch.from_numpy(
+                       lanes_to_words(lanes).view("int64")).to(DEVICE),
+                   "lanes": lanes_t, "lanes_offset_4": _offset_copy(lanes_t)}
+        lens_t = torch.from_numpy(lens).to(DEVICE)
+        kw = dict(ep or {})
+        if "valid" in kw:
+            kw["valid"] = torch.from_numpy(kw["valid"]).to(DEVICE)
+        if "n_valid" in kw:
+            kw["n_valid"] = torch.tensor(kw["n_valid"], dtype=torch.int32,
+                                         device=DEVICE)
+        d = 0
+        for keys in layouts.values():
+            d = _merge_err(d, _diff(w.fnv1a32_packed(keys, lens_t, mwl),
+                                    w.fnv1a32_packed_plain(keys, lens_t,
+                                                           mwl)))
+            if ep is not None:
+                d = _merge_err(d, _worst(zip(
+                    w.fnv1a32_route(keys, lens_t, mwl, **kw),
+                    w.fnv1a32_route_plain(keys, lens_t, mwl, **kw))))
+        err = _merge_err(err, d)
+        sync()
+        log({"fnv_case": name, "rows": len(lens), "kk": lanes.shape[1],
+             "max_word_len": mwl, "epilogue": ep is not None,
+             "layouts": list(layouts), "max_abs_err": d})
+    return err
+
+
+def route_profile(fn) -> dict:
+    """``call_profile`` of one call of kernel E: its CUDA launches, kernels
+    among them and device time.  Raises above the design's memset and 2
+    kernels a call."""
+    prof = call_profile(fn, "route_write")
+    if prof["kernels_per_call"] is not None and (
+            prof["kernels_per_call"] > 2 or prof["launches_per_call"] > 3):
+        raise RuntimeError(f"route: {prof['kernels_per_call']} kernels and "
+                           f"{prof['launches_per_call']} launches a call, "
+                           "the design allows 2 kernels and a memset")
+    return prof
+
+
+def fnv_profile(fn) -> dict:
+    """``call_profile`` of one call of kernel D; raises above its one
+    launch a call (its epilogue included)."""
+    prof = call_profile(fn, "fnv_rows")
+    if prof["launches_per_call"] is not None \
+            and prof["launches_per_call"] > 1:
+        raise RuntimeError(f"fnv: {prof['launches_per_call']} launches a "
+                           "call, the design allows 1")
+    return prof
+
+
+def route_entry(rows, dest, n_dev: int, k: int, shape: str,
+                reps: int = 20) -> dict:
+    """E at one shape of the main path: held against its plain version
+    on the same device tensors, timed through the wrapper beside it, and
+    profiled on the card."""
     from dsi_tpu_torch.ops.wordcount import shuffle_rows, shuffle_rows_plain
 
-    n_dev, r, w = rows1.shape
-    nbytes = 4 * (n_dev * r * w + n_dev * r + n_dev * n_dev * r * w)
-    return {"ms": cuda_ms(lambda: shuffle_rows(rows1, dest1, n_dev=1,
-                                               k=MWL // 4), 50),
+    def fn():
+        return shuffle_rows(rows, dest, n_dev=n_dev, k=k)
+
+    want = shuffle_rows_plain(rows, dest, n_dev=n_dev, k=k)
+    # The rows this run routes are read once (a dropped row need not be),
+    # every dest once, recv written once.
+    routed = int(((dest >= 0) & (dest < n_dev)).sum())
+    nbytes = 4 * (routed * rows.shape[2] + dest.numel() + want.numel())
+    return {"max_abs_err": _diff(fn(), want), "ms": cuda_ms(fn, reps),
             "plain_ms": cuda_ms(lambda: shuffle_rows_plain(
-                rows1, dest1, n_dev=1, k=MWL // 4), 5),
+                rows, dest, n_dev=n_dev, k=k), 2),
             # No one PyTorch call routes rows to shards.
             "library_ms": None, "bytes": nbytes,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "shape": f"n_dev={n_dev} r={r} w={w}"}
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "shape": f"{shape}: n_dev={n_dev} rows={list(rows.shape)} "
+                     f"-> {list(want.shape)}",
+            **route_profile(fn)}
+
+
+def fnv_entry(keys, lens, mwl: int, shape: str, **ep) -> dict:
+    """D at one shape of the main path, with its epilogue when ``ep``
+    holds ``fnv1a32_route``'s keywords: held against its plain version,
+    timed through the wrapper beside it, and profiled on the card."""
+    from dsi_tpu_torch.ops import wordcount as w
+
+    if ep:
+        def fn():
+            return w.fnv1a32_route(keys, lens, mwl, **ep)
+
+        def plain():
+            return w.fnv1a32_route_plain(keys, lens, mwl, **ep)
+
+        err = _worst(zip(fn(), plain()))
+    else:
+        def fn():
+            return w.fnv1a32_packed(keys, lens, mwl)
+
+        def plain():
+            return w.fnv1a32_packed_plain(keys, lens, mwl)
+
+        err = _diff(fn(), plain())
+    u = lens.shape[0]
+    valid = ep.get("valid")
+    # Each row's key bytes up to its length are read once (this run's
+    # lengths), its length and mask once, each output written once.
+    key_bytes = int(lens.clamp(0, mwl).sum())
+    nbytes = (key_bytes + 4 * u + (0 if valid is None else u)
+              + 4 * u * (3 if ep else 1))
+    return {"max_abs_err": err, "ms": cuda_ms(fn, 50),
+            "plain_ms": cuda_ms(plain, 5), "library_ms": None,
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "shape": f"{shape}: rows={u} keys={list(keys.shape)} "
+                     f"{keys.dtype} epilogue={bool(ep)}",
+            **fnv_profile(fn)}
+
+
+def stream_fnv_entry(raw: bytes) -> dict:
+    """D as ``map_prologue`` runs it on one full-width stream step (one
+    shard, one 2 MiB chunk holding ``raw``): the u_cap rows' hash, part and
+    dest in one launch."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    buf = np.zeros(STREAM_CHUNK, np.uint8)
+    buf[:len(raw)] = np.frombuffer(raw, np.uint8)
+    keys_u, _, len_u, _, n_unique, *_ = w.group_chunk(
+        torch.from_numpy(buf).to(DEVICE), max_word_len=MWL,
+        u_cap=STREAM_U_CAP, t_cap_frac=4, grouper="sort")
+    return fnv_entry(keys_u, len_u, MWL, "stream step (map_prologue)",
+                     n_part=N_REDUCE, n_dest=1, park=1, n_valid=n_unique)
 
 
 def time_sort_group(keys64, counts, payload, u_cap: int, tag: str):
@@ -1375,33 +1541,15 @@ def mesh_fold_shapes(raws):
                               n_shards=n_dev)[:5]
 
     skeys, slens, svalid = dt._route_operands(packed, scal)
-    keys64 = torch.stack(w.pack_key_lanes(tuple(skeys[:, j]
-                                                for j in range(k))))
-    slens = slens.contiguous()
-    n = keys64.shape[1]
-    d_bytes = n * (8 * keys64.shape[0] + 4 + 4)
-    shapes = {"fnv": {
-        "max_abs_err": _diff(w.fnv1a32_packed(keys64, slens, 4 * k),
-                             w.fnv1a32_packed_plain(keys64, slens, 4 * k)),
-        "ms": cuda_ms(lambda: w.fnv1a32_packed(keys64, slens, 4 * k), 20),
-        "plain_ms": cuda_ms(lambda: w.fnv1a32_packed_plain(
-            keys64, slens, 4 * k), 5),
-        "library_ms": None, "bound_ms": d_bytes / HBM_BYTES_PER_S * 1e3,
-        "shape": f"mesh_fold route: rows={n} k64={keys64.shape[0]}"}}
-
+    # D as route_dest launches it: the lanes as they lie, the rule fused.
+    shapes = {"fnv": fnv_entry(skeys, slens, 4 * k, "mesh_fold route",
+                               valid=svalid, n_part=n_dev, n_dest=n_dev,
+                               park=n_dev)}
     dest = route_dest(skeys, slens, svalid, n_shards=n_dev,
                       park=n_dev).view(n_dev, rows)
     recv = w.shuffle_rows_plain(packed, dest, n_dev=n_dev, k=k)
-    e_bytes = 4 * (packed.numel() + dest.numel() + recv.numel())
-    shapes["route"] = {
-        "max_abs_err": _diff(w.shuffle_rows(packed, dest, n_dev=n_dev, k=k),
-                             recv),
-        "ms": cuda_ms(lambda: w.shuffle_rows(packed, dest, n_dev=n_dev,
-                                             k=k), 20),
-        "plain_ms": cuda_ms(lambda: w.shuffle_rows_plain(
-            packed, dest, n_dev=n_dev, k=k), 3),
-        "library_ms": None, "bound_ms": e_bytes / HBM_BYTES_PER_S * 1e3,
-        "shape": f"mesh_fold exchange: n_dev={n_dev} r={rows} w={k + 3}"}
+    shapes["route"] = route_entry(packed, dest, n_dev, k,
+                                  "mesh_fold exchange")
 
     # B and C on the busiest shard: its table rows and what it received.
     d = int(torch.argmax(state[4]))
@@ -2024,6 +2172,144 @@ def tfidf_kernel_rows(raws):
     return out, errs
 
 
+def wave_shape_rows(raws):
+    """D and E at ``tfidf_n8``'s wave (the bench's eight documents, one a
+    shard, u_cap the rung-0 capacity of 2^15): D as ``map_prologue`` runs
+    it on shard 0's uniques (hash, part and dest in one launch), E on the
+    wave's send rows.  Returns {kernel: entry}."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.parallel.tfidf import _wave_chunk, wave_rows
+
+    n_dev = MESH_SHARDS
+    size = 1 << max(8, max(len(r) for r in raws).bit_length())
+    cap = w.rung0_cap(size, TFIDF_U_CAP)
+    chunks = torch.from_numpy(_wave_chunk(raws, range(n_dev), n_dev,
+                                          size)).to(DEVICE)
+    ids = torch.arange(n_dev, dtype=torch.int32, device=DEVICE)
+    keys_u, _, len_u, _, n_unique, *_ = w.group_chunk(
+        chunks[0], max_word_len=MWL, u_cap=cap, t_cap_frac=4,
+        grouper="sort")
+    rows, dests, _ = wave_rows(chunks, ids, n_dev=n_dev, n_reduce=N_REDUCE,
+                               max_word_len=MWL, u_cap=cap)
+    return {"fnv": fnv_entry(keys_u, len_u, MWL, "tfidf_n8 map, shard 0",
+                             n_part=N_REDUCE, n_dest=n_dev, park=n_dev,
+                             n_valid=n_unique),
+            "route": route_entry(rows, dests, n_dev, MWL // 4,
+                                 "tfidf_n8 wave", 20)}
+
+
+def _route_dest_before(keys, lens, valid, *, n_shards: int, park: int):
+    """``route_dest`` as the port ran it before D took the rule into its
+    epilogue: the lanes packed into u64 words, D, then five torch ops."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    kk = keys.shape[1]
+    keys64 = torch.stack(w.pack_key_lanes(tuple(keys[:, j]
+                                                for j in range(kk))))
+    h = w.fnv1a32_packed(keys64, lens.contiguous(), 4 * kk)
+    dest = ((w._u32_value(h) & 0x7FFFFFFF) % n_shards).to(torch.int32)
+    return torch.where(valid, dest, park).to(torch.int32)
+
+
+def _map_prologue_before(chunk, *, n_dev, n_reduce, max_word_len, u_cap,
+                         t_cap_frac):
+    """``map_prologue`` as the port ran it before: the hash alone, then
+    the partition rule in torch ops."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    (packed_u, len_u, cnt_u, fnv_u, n_unique, max_len, has_high,
+     token_overflow) = w.tokenize_group_core(
+        chunk, max_word_len=max_word_len, u_cap=u_cap,
+        t_cap_frac=t_cap_frac)
+    uvalid = torch.arange(u_cap, device=chunk.device) < n_unique
+    part = (fnv_u & 0x7FFFFFFF) % n_reduce
+    dest = torch.where(uvalid, part % n_dev, n_dev).to(torch.int32)
+    return (packed_u, len_u, cnt_u, part.to(torch.int32), dest,
+            (n_unique, max_len, has_high, token_overflow))
+
+
+def launches_before_after(raws) -> dict:
+    """The CUDA launches a call (``torch.profiler``) of ``map_prologue``
+    at the stream step, of ``route_dest`` and of ``mesh_fold_step`` at the
+    mesh fold's shapes: as the port ran them before D took the partition
+    rule into its epilogue (``_map_prologue_before``,
+    ``_route_dest_before``, the fold with the older ``route_dest``) and
+    now.  Each pair must give equal outputs."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.device import table as dt
+    from dsi_tpu_torch.ops.meshroute import route_dest
+    from dsi_tpu_torch.parallel.shuffle import (_slice_pack, map_prologue,
+                                                mapreduce_step)
+
+    buf = np.zeros(STREAM_CHUNK, np.uint8)
+    buf[:len(raws[0])] = np.frombuffer(raws[0], np.uint8)
+    chunk = torch.from_numpy(buf).to(DEVICE)
+    kw = dict(n_dev=1, n_reduce=N_REDUCE, max_word_len=MWL,
+              u_cap=STREAM_U_CAP, t_cap_frac=4)
+    n_dev, k = MESH_SHARDS, MWL // 4
+    mbuf = np.zeros((n_dev, STREAM_CHUNK), np.uint8)
+    for i, raw in enumerate(raws[:n_dev]):
+        mbuf[i, :len(raw)] = np.frombuffer(raw, np.uint8)
+    out = mapreduce_step(torch.from_numpy(mbuf).to(DEVICE), n_dev=n_dev,
+                         n_reduce=N_REDUCE, max_word_len=MWL,
+                         u_cap=STREAM_U_CAP)
+    packed, scal = _slice_pack(*out[:4], mp=out[0].shape[1]), out[4]
+    rows = packed.shape[1]
+    opts = {"device": DEVICE}
+    state = (torch.full((n_dev, rows, k), -1, dtype=torch.int32, **opts),
+             torch.zeros((n_dev, rows), dtype=torch.int32, **opts),
+             torch.zeros((n_dev, rows), dtype=torch.int64, **opts),
+             torch.zeros((n_dev, rows), dtype=torch.int32, **opts),
+             torch.zeros(n_dev, dtype=torch.int32, **opts))
+    apply = torch.ones(n_dev, dtype=torch.bool, **opts)
+    operands = dt._route_operands(packed, scal)
+    rkw = dict(n_shards=n_dev, park=n_dev)
+
+    def fold():
+        return dt.mesh_fold_step(*state, packed, scal, apply,
+                                 n_shards=n_dev)
+
+    def fold_before():
+        dt.route_dest = _route_dest_before
+        try:
+            return fold()
+        finally:
+            dt.route_dest = route_dest
+
+    pairs = {
+        "map_prologue_stream": (lambda: _map_prologue_before(chunk, **kw),
+                                lambda: map_prologue(chunk, **kw),
+                                "fnv_rows"),
+        "route_dest_mesh_fold": (lambda: _route_dest_before(*operands,
+                                                            **rkw),
+                                 lambda: route_dest(*operands, **rkw),
+                                 "fnv_rows"),
+        "mesh_fold_step": (fold_before, fold, "route_write")}
+    result = {}
+    for name, (before, after, anchor) in pairs.items():
+        flat = [list(_flat(f())) for f in (before, after)]
+        same = len(flat[0]) == len(flat[1]) and all(
+            _diff(a, b) == 0 for a, b in zip(*flat))
+        result[name] = {
+            "before": call_profile(before, anchor)["launches_per_call"],
+            "after": call_profile(after, anchor)["launches_per_call"],
+            "outputs_equal": same}
+    return result
+
+
+def _flat(x):
+    """The tensors of a nested tuple, in order."""
+    if isinstance(x, (tuple, list)):
+        for y in x:
+            yield from _flat(y)
+    else:
+        yield x
+
+
 # ── phase 10: the streaming indexer and the mesh-sharded postings ────────
 
 
@@ -2100,10 +2386,11 @@ def indexer_path(files, workdir, tag, oracle, oracle_top, **kw):
 
 
 def mesh_append_kernel_rows(raws):
-    """E, L and M as the mesh-sharded postings append (K20b) runs them on
+    """D, E, L and M as the mesh-sharded postings append (K20b) runs them on
     the TF-IDF row's one wave of eight documents at ``MESH_SHARDS``
-    shards: the wave's compacted rows [8, 262,144, 8] re-routed by D,
-    exchanged by E into [8, 2,097,152, 8], compacted by L (``pad_lanes``
+    shards: the wave's compacted rows [8, 262,144, 8] re-routed by D (its
+    epilogue the rule), exchanged by E into [8, 2,097,152, 8], compacted
+    by L (``pad_lanes``
     1) and appended by M into an empty buffer of eight times the rung-0
     capacity, each held against its plain version on the same device
     tensors and timed beside it.  Returns ({kernel: entry}, {kernel:
@@ -2128,25 +2415,18 @@ def mesh_append_kernel_rows(raws):
     valid = torch.arange(r, device=DEVICE)[None, :] < scal[:, :1]
     keys = torch.where(valid[..., None], rows[..., :kk], -1)
     lens = torch.where(valid, rows[..., kk], 0)
-    dest = route_dest(keys.reshape(-1, kk), lens.reshape(-1),
-                      valid.reshape(-1), n_shards=n_dev,
+    keys, lens, valid = (keys.reshape(-1, kk), lens.reshape(-1),
+                         valid.reshape(-1))
+    dest = route_dest(keys, lens, valid, n_shards=n_dev,
                       park=n_dev).view(n_dev, r)
-    out, errs = {}, {}
+    out = {"fnv": fnv_entry(keys, lens, 4 * kk, "mesh_append route",
+                            valid=valid, n_part=n_dev, n_dest=n_dev,
+                            park=n_dev),
+           "route": route_entry(rows, dest, n_dev, kk,
+                                "mesh_append exchange", 10)}
+    errs = {name: out[name]["max_abs_err"] for name in out}
 
     recv = w.shuffle_rows_plain(rows, dest, n_dev=n_dev, k=kk)
-    e_bytes = 4 * (rows.numel() + dest.numel() + recv.numel())
-    errs["route"] = _diff(w.shuffle_rows(rows, dest, n_dev=n_dev, k=kk),
-                          recv)
-    out["route"] = {
-        "max_abs_err": errs["route"],
-        "ms": cuda_ms(lambda: w.shuffle_rows(rows, dest, n_dev=n_dev,
-                                             k=kk), 10),
-        "plain_ms": cuda_ms(lambda: w.shuffle_rows_plain(
-            rows, dest, n_dev=n_dev, k=kk), 2),
-        "library_ms": None, "bytes": e_bytes,
-        "bound_ms": e_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "shape": f"mesh_append exchange: n_dev={n_dev} r={r} w={kk + 4} "
-                 f"-> {tuple(recv.shape)}"}
 
     crows, n_recv = compact_rows_plain(recv, pad_lanes=1)
     errs["compact"] = _worst(zip(compact_rows(recv, pad_lanes=1),
@@ -3086,6 +3366,7 @@ def main() -> int:
         a_edge, c_edge = check_tile_edges()
         err["tokenize"] = _merge_err(err["tokenize"], a_edge)
         err["group"] = _merge_err(err["group"], c_edge)
+        err["fnv"] = _merge_err(err["fnv"], check_fnv())
         corpus_keys = w.tokenize(torch.from_numpy(corpus_buf).to(DEVICE),
                                  max_word_len=MWL,
                                  t_cap=len(corpus_buf) // 4 + 1)[0]
@@ -3140,10 +3421,17 @@ def main() -> int:
         # Phase 4: kernel E against its plain version, its time, and B / C
         # at the reduce shape.
         rows1, dest1 = stream_step_rows(raws[0])
-        err["route"] = check_route(route_cases(rows1, dest1))
-        if err["route"] != 0:
-            failures.append("route differs from its plain version")
-        times["route"] = time_route(rows1, dest1)
+        err["route"] = check_route(route_cases(rows1, dest1)
+                                   + shared_route_cases())
+        times["route"] = route_entry(rows1, dest1, 1, MWL // 4,
+                                     "stream step", 50)
+        stream_fnv = stream_fnv_entry(raws[0])
+        err["route"] = _merge_err(err["route"],
+                                  times["route"]["max_abs_err"])
+        err["fnv"] = _merge_err(err["fnv"], stream_fnv["max_abs_err"])
+        for name in ("fnv", "route"):
+            if err[name] != 0:
+                failures.append(f"{name} differs from its plain version")
         shapes = {"reduce": reduce_shape_times(rows1, dest1)}
 
         # Phase 5: the streaming SPMD word count.
@@ -3205,6 +3493,14 @@ def main() -> int:
         err["pack6"], (pk, tb) = check_pack6(corpus_buf)
         times["pack6"] = time_pack6(pk, tb)
         mesh_shapes = mesh_fold_shapes(raws)
+        before_after = launches_before_after(raws)
+        log({"launches_before_after": before_after, "gpu": gpu})
+        for name, v in before_after.items():
+            if not v["outputs_equal"]:
+                failures.append(f"{name}: the older call sequence gives "
+                                "other outputs")
+        if before_after["route_dest_mesh_fold"]["after"] not in (None, 1):
+            failures.append("route_dest takes more than one CUDA launch")
         for name in ("hash_group", "pack6"):
             if err[name] != 0:
                 failures.append(f"{name} differs from its plain version")
@@ -3397,6 +3693,13 @@ def main() -> int:
         tf_rows, tf_err = tfidf_kernel_rows(raws)
         times.update(tf_rows)
         err.update(tf_err)
+        wave_shapes = wave_shape_rows(raws)
+        log({"tfidf_n8_wave_shapes": wave_shapes, "gpu": gpu})
+        for name, v in wave_shapes.items():
+            err[name] = _merge_err(err[name], v["max_abs_err"])
+            if v["max_abs_err"] != 0:
+                failures.append(f"{name} differs from its plain version at "
+                                "the tfidf_n8 wave's shape")
         for name in ("compact", "postings_append"):
             if err[name] != 0:
                 failures.append(f"{name} differs from its plain version")
@@ -3602,7 +3905,10 @@ def main() -> int:
         if name in grep_rows or name in tf_rows:
             row["at_shapes"] = tm["at_shapes"]
         if name in ("fnv", "route"):
-            row["at_shapes"] = {"mesh_fold": mesh_shapes[name]}
+            row["at_shapes"] = {"mesh_fold": mesh_shapes[name],
+                                "tfidf_n8": wave_shapes[name]}
+        if name == "fnv":
+            row["at_shapes"]["stream"] = stream_fnv
         if name == "hash_group":
             row["at_shapes"] = hash_shapes
         if name in ma_rows:

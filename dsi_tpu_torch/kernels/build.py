@@ -43,9 +43,11 @@ SIGNATURES = {
     "dsi_group": (_INT, [_P, _INT, _I64, _P, _P, _P, _I64, _P, _P, _P, _P,
                          _P, _P, _P]),
     "dsi_group_tile_rows": (_I64, []),
-    "dsi_fnv": (_INT, [_P, _I64, _P, _INT, _P, _P]),
-    "dsi_route_scratch_bytes": (_I64, [_INT, _I64]),
+    "dsi_fnv": (_INT, [_P, _INT, _I64, _INT, _P, _INT, _P, _P, _P, _INT,
+                       _INT, _INT, _P, _P, _P]),
+    "dsi_route_scratch_bytes": (_I64, [_INT, _I64, _INT]),
     "dsi_route": (_INT, [_P, _P, _INT, _I64, _INT, _INT, _P, _P, _P]),
+    "dsi_route_tile_rows": (_I64, [_INT]),
     "dsi_hash_group_scratch_bytes": (_I64, [_INT, _I64, _I64]),
     "dsi_hash_bucket": (_INT, [_P, _INT, _I64, _P, _P, _P, _P, _I64, _I64,
                                _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P]),

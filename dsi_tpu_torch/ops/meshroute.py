@@ -8,9 +8,9 @@ bytes, bit-exact with the host's ``ihash``.  The mesh is ``n_dev``
 virtual shards, the leading tensor dimension, so the reference's
 per-device routing and its ``all_to_all`` run for all shards at once:
 
-* ``route_dest``: the key lanes packed into u64 key words, kernel D over
-  the first ``len`` bytes, then ``& 0x7fffffff`` and ``% n_shards``;
-  invalid rows park on ``n_dev``;
+* ``route_dest``: kernel D on the key lanes as they lie, over the first
+  ``len`` bytes, with ``& 0x7fffffff`` and ``% n_shards`` in its
+  epilogue; invalid rows park on ``n_dev``;
 * ``exchange_rows``: kernel E, every shard's rows to their owning shard
   in stable order, one block per (destination, source) pair;
 * ``compact_received`` (``:83``): kernel L (``csrc/compact.cu``, through
@@ -35,9 +35,7 @@ from dsi_tpu_torch.ops.wordcount import (
     _ptr,
     _require,
     _stream,
-    _u32_value,
-    fnv1a32_packed,
-    pack_key_lanes,
+    fnv1a32_route,
     shuffle_rows,
 )
 
@@ -47,13 +45,12 @@ def route_dest(keys: torch.Tensor, lens: torch.Tensor, valid: torch.Tensor,
     """Owning shard per row: ``ihash(key) % n_shards`` for valid rows,
     ``park`` otherwise.  ``keys`` [rows, kk] int32 (big-endian u32 lanes),
     ``lens`` [rows] int32 key byte lengths, ``valid`` [rows] bool; returns
-    int32 [rows]."""
-    kk = keys.shape[1]
-    keys64 = torch.stack(pack_key_lanes(tuple(keys[:, j]
-                                              for j in range(kk))))
-    h = fnv1a32_packed(keys64, lens.contiguous(), 4 * kk)
-    dest = ((_u32_value(h) & 0x7FFFFFFF) % n_shards).to(torch.int32)
-    return torch.where(valid, dest, park).to(torch.int32)
+    int32 [rows].  One launch of kernel D on the lanes, its epilogue the
+    rule."""
+    return fnv1a32_route(keys.contiguous(), lens.contiguous(),
+                         4 * keys.shape[1], n_part=n_shards,
+                         n_dest=n_shards, park=park,
+                         valid=valid.contiguous())[2]
 
 
 def exchange_rows(rows: torch.Tensor, dest: torch.Tensor, *, n_dev: int,

@@ -18,7 +18,8 @@ of the word count:
 * ``tokenize``       — ``csrc/tokenize.cu``   (K1+K2, K6 front end)
 * ``radix_sort``     — ``csrc/radix_sort.cu`` (K3 sort)
 * ``group_sorted``   — ``csrc/group.cu``      (K3 group)
-* ``fnv1a32_packed`` — ``csrc/fnv.cu``        (K4)
+* ``fnv1a32_packed`` — ``csrc/fnv.cu``        (K4), and ``fnv1a32_route``,
+  the same launch with the partition rule of K8 and K11 as its epilogue
 * ``hash_group``     — ``csrc/hash_group.cu`` (K5, with B and C for the
   dirty repair)
 * ``pack6_decode``   — ``csrc/pack6.cu``      (K7, the 6-bit transport)
@@ -55,6 +56,8 @@ storage as uint32_t/uint64_t.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 from typing import Dict, Optional
 
@@ -69,6 +72,8 @@ _PAD_KEY64 = -1        # a pad row's u64 key word (all ones) as int64 bits
 _SIGN64 = torch.iinfo(torch.int64).min  # 1 << 63 as int64 bits
 # u32 mask keeping the first `keep` (0..4) big-endian bytes, by `keep`.
 _BYTE_MASKS = (0, 0xFF000000, 0xFFFF0000, 0xFFFFFF00, 0xFFFFFFFF)
+# The widest row kernel E takes (``csrc/route.cu`` kMaxWidth).
+_ROUTE_MAX_WIDTH = 32768
 
 # Launches of each kernel in this process; a plain-version call adds none.
 # The names of the kernels after J enter the dict at their first launch, so
@@ -234,6 +239,13 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_device(dev: torch.device):
+    """The context a launch on ``dev`` runs in: none when ``dev`` is the
+    current device (the check costs less host time than the switch)."""
+    return (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+            else torch.cuda.device(dev))
 
 
 def _require(t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -446,40 +458,141 @@ def group_sorted(skeys: torch.Tensor, counts: torch.Tensor, u_cap: int,
     return keys_u, totals, upos, payload_u, n_unique[0]
 
 
-# ── D: FNV-1a ────────────────────────────────────────────────────────────
+# ── D: FNV-1a, with the partition rule it feeds ──────────────────────────
+
+_FNV_WORDS, _FNV_LANES = 0, 1  # dsi_fnv's layouts
+
+
+def _key_byte(keys: torch.Tensor, j: int) -> torch.Tensor:
+    """Byte ``j`` (int64, 0..255) of every row's big-endian key bytes:
+    u64 key words word-major [k64, u] (int64) or u32 lanes row-major [u,
+    kk] (int32)."""
+    if keys.dtype == torch.int64:
+        return (keys[j // 8] >> (56 - 8 * (j % 8))) & 0xFF
+    return (keys[:, j // 4].to(torch.int64) >> (24 - 8 * (j % 4))) & 0xFF
+
+
+def _fnv_layout(keys: torch.Tensor, lens: torch.Tensor,
+                max_word_len: int) -> tuple:
+    """(layout, rows, width) of D's key operand, checked against
+    ``lens`` and ``max_word_len``."""
+    if keys.dtype == torch.int64:
+        _require(keys, torch.int64, 2, "fnv keys")
+        layout, (width, u), per = _FNV_WORDS, keys.shape, 8
+    else:
+        _require(keys, torch.int32, 2, "fnv keys")
+        layout, (u, width), per = _FNV_LANES, keys.shape, 4
+    _require(lens, torch.int32, 1, "fnv lengths")
+    if lens.shape[0] != u or per * width < max_word_len:
+        raise ValueError(f"fnv: bad shapes {tuple(keys.shape)} "
+                         f"{tuple(lens.shape)} mwl={max_word_len}")
+    return layout, u, width
 
 
 def fnv1a32_packed_plain(keys_u: torch.Tensor, len_u: torch.Tensor,
                          max_word_len: int) -> torch.Tensor:
     """Plain version of kernel D: FNV-1a 32 (Go hash/fnv.New32a,
     mr/worker.go:33-37) over the first min(len, max_word_len) bytes of
-    each row of the u64 key words ``keys_u`` [k64, u]; int32 bits."""
-    h = torch.full((keys_u.shape[1],), _FNV_OFFSET, dtype=torch.int64,
+    each row of ``keys_u``: u64 key words [k64, u] (int64 bits) or the
+    reference's big-endian u32 lanes [u, kk] (int32 bits); int32 bits."""
+    u = keys_u.shape[1] if keys_u.dtype == torch.int64 else keys_u.shape[0]
+    h = torch.full((u,), _FNV_OFFSET, dtype=torch.int64,
                    device=keys_u.device)
     for j in range(max_word_len):
-        b = (keys_u[j // 8] >> (56 - 8 * (j % 8))) & 0xFF
+        b = _key_byte(keys_u, j)
         h = torch.where(j < len_u, ((h ^ b) * _FNV_PRIME) & 0xFFFFFFFF, h)
     return _u32_bits(h)
+
+
+def fnv1a32_route_plain(keys: torch.Tensor, lens: torch.Tensor,
+                        max_word_len: int, *, n_part: int, n_dest: int,
+                        park: int, valid: Optional[torch.Tensor] = None,
+                        n_valid: Optional[torch.Tensor] = None):
+    """Plain version of kernel D with its epilogue: the hash ``h`` of
+    :func:`fnv1a32_packed_plain`, ``part = (h & 0x7fffffff) % n_part``
+    and ``dest = part % n_dest`` where the row is valid, ``park``
+    elsewhere.  A row is valid where the bool mask ``valid`` is set, else
+    below the int32 device scalar ``n_valid``, else always.  Returns (h,
+    part, dest), each int32 [u]."""
+    h = fnv1a32_packed_plain(keys, lens, max_word_len)
+    part = (_u32_value(h) & 0x7FFFFFFF) % n_part
+    if valid is None:
+        valid = (torch.arange(h.shape[0], device=h.device) < n_valid
+                 if n_valid is not None else torch.ones_like(h, dtype=bool))
+    dest = torch.where(valid, part % n_dest, park)
+    return h, part.to(torch.int32), dest.to(torch.int32)
+
+
+def _fnv(keys, lens, max_word_len, shape, ep=None):
+    """Kernel D's launch on operands of ``shape`` (``_fnv_layout``'s);
+    ``ep`` = (n_part, n_dest, park, valid, n_valid) adds the epilogue.
+    Returns h, or (h, part, dest) with ``ep``."""
+    layout, u, width = shape
+    dev = keys.device
+    # h, part and dest: views of one allocation (the host sets this call's
+    # time, and as_strided is its cheapest view).
+    out = torch.empty(u if ep is None else 3 * u, dtype=torch.int32,
+                      device=dev)
+    h = out.as_strided((u,), (1,), 0)
+    part = dest = valid = n_valid = None
+    n_part = n_dest = park = 0
+    if ep is not None:
+        n_part, n_dest, park, valid, n_valid = ep
+        part = out.as_strided((u,), (1,), u)
+        dest = out.as_strided((u,), (1,), 2 * u)
+    if u > 0:
+        lib = _lib()
+        with _on_device(dev):
+            rc = lib.dsi_fnv(
+                _ptr(keys), layout, u, width, _ptr(lens), max_word_len,
+                _ptr(h), _ptr(valid), _ptr(n_valid), n_part, n_dest, park,
+                _ptr(part), _ptr(dest),
+                torch._C._cuda_getCurrentRawStream(dev.index))
+        _launch("fnv", rc)
+    return h if ep is None else (h, part, dest)
 
 
 def fnv1a32_packed(keys_u: torch.Tensor, len_u: torch.Tensor,
                    max_word_len: int) -> torch.Tensor:
     """Kernel D (``csrc/fnv.cu``); see :func:`fnv1a32_packed_plain`."""
-    _require(keys_u, torch.int64, 2, "fnv keys")
-    _require(len_u, torch.int32, 1, "fnv lengths")
-    k64, u = keys_u.shape
-    if len_u.shape[0] != u or 8 * k64 < max_word_len:
-        raise ValueError(f"fnv: bad shapes {tuple(keys_u.shape)} "
-                         f"{tuple(len_u.shape)} mwl={max_word_len}")
+    shape = _fnv_layout(keys_u, len_u, max_word_len)
     if not _on_cuda(keys_u):
         return fnv1a32_packed_plain(keys_u, len_u, max_word_len)
-    lib = _lib()
-    out = torch.empty(u, dtype=torch.int32, device=keys_u.device)
-    with torch.cuda.device(keys_u.device):
-        _launch("fnv", lib.dsi_fnv(_ptr(keys_u), u, _ptr(len_u),
-                                   max_word_len, _ptr(out),
-                                   _stream(keys_u)))
-    return out
+    return _fnv(keys_u, len_u, max_word_len, shape)
+
+
+def fnv1a32_route(keys: torch.Tensor, lens: torch.Tensor, max_word_len: int,
+                  *, n_part: int, n_dest: int, park: int,
+                  valid: Optional[torch.Tensor] = None,
+                  n_valid: Optional[torch.Tensor] = None):
+    """Kernel D with its epilogue, one launch (``csrc/fnv.cu``); see
+    :func:`fnv1a32_route_plain`.  The reference computes the same in the
+    jitted program of the hash: ``map_prologue``'s partition rule
+    (``parallel/shuffle.py:98-121``) and ``route_dest``
+    (``ops/meshroute.py:48-63``)."""
+    shape = _fnv_layout(keys, lens, max_word_len)
+    u = shape[1]
+    if n_part < 1 or n_dest < 1 or (valid is not None
+                                    and n_valid is not None):
+        raise ValueError(f"fnv route: n_part={n_part} n_dest={n_dest}, "
+                         "valid and n_valid are exclusive")
+    if valid is not None:
+        _require(valid, torch.bool, 1, "fnv valid")
+        if valid.shape[0] != u:
+            raise ValueError(f"fnv route: valid {tuple(valid.shape)} for "
+                             f"{u} rows")
+    if n_valid is not None and (n_valid.dtype != torch.int32
+                                or n_valid.numel() != 1):
+        raise ValueError("fnv route: n_valid must be one int32 value")
+    if any(t is not None and t.device != keys.device
+           for t in (lens, valid, n_valid)):
+        raise ValueError("fnv route: operands on different devices")
+    if not _on_cuda(keys):
+        return fnv1a32_route_plain(keys, lens, max_word_len, n_part=n_part,
+                                   n_dest=n_dest, park=park, valid=valid,
+                                   n_valid=n_valid)
+    return _fnv(keys, lens, max_word_len, shape,
+                (n_part, n_dest, park, valid, n_valid))
 
 
 # ── E: route rows to their destination shard ────────────────────────────
@@ -516,31 +629,41 @@ def shuffle_rows_plain(rows: torch.Tensor, dest: torch.Tensor, *,
     return send.transpose(0, 1).reshape(n_dev, n_dev * r, w).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _route_scratch_words(n_dev: int, r: int, w: int) -> int:
+    """Kernel E's scratch for one shape, in int32 words."""
+    return -(-_lib().dsi_route_scratch_bytes(n_dev, r, w) // 4)
+
+
 def shuffle_rows(rows: torch.Tensor, dest: torch.Tensor, *, n_dev: int,
                  k: int) -> torch.Tensor:
     """Kernel E (``csrc/route.cu``); see :func:`shuffle_rows_plain`.
     Replaces the reference's ``shuffle_rows``
     (``parallel/shuffle.py``: argsort + scatter + ``lax.all_to_all``) for
     any payload width, so the mesh fold, TF-IDF and indexer steps can
-    reuse it."""
+    reuse it.  On the card: one allocation (recv with the kernel's
+    scratch behind it), one C call, a memset and two launches."""
     _require(rows, torch.int32, 3, "shuffle rows")
     _require(dest, torch.int32, 2, "shuffle dest")
     n_src, r, w = rows.shape
     if (n_src != n_dev or tuple(dest.shape) != (n_dev, r) or r < 1
-            or not 1 <= n_dev <= 1024 or not 0 <= k <= w):
+            or not 1 <= n_dev <= 1024 or not 0 <= k <= w
+            or not 1 <= w <= _ROUTE_MAX_WIDTH):
         raise ValueError(f"shuffle: bad shapes rows={tuple(rows.shape)} "
                          f"dest={tuple(dest.shape)} n_dev={n_dev} k={k}")
     if not _on_cuda(rows):
         return shuffle_rows_plain(rows, dest, n_dev=n_dev, k=k)
     lib = _lib()
-    recv = torch.empty((n_dev, n_dev * r, w), dtype=torch.int32,
-                       device=rows.device)
-    scratch = torch.empty(lib.dsi_route_scratch_bytes(n_dev, r),
-                          dtype=torch.uint8, device=rows.device)
-    with torch.cuda.device(rows.device):
-        _launch("route", lib.dsi_route(
-            _ptr(rows), _ptr(dest), n_dev, r, w, k, _ptr(recv),
-            _ptr(scratch), _stream(rows)))
+    dev = rows.device
+    n_recv = n_dev * n_dev * r * w
+    buf = torch.empty(n_recv + _route_scratch_words(n_dev, r, w),
+                      dtype=torch.int32, device=dev)
+    recv = buf.as_strided((n_dev, n_dev * r, w), (n_dev * r * w, w, 1), 0)
+    with _on_device(dev):
+        rc = lib.dsi_route(_ptr(rows), _ptr(dest), n_dev, r, w, k,
+                           _ptr(recv), _ptr(recv) + 4 * n_recv,
+                           torch._C._cuda_getCurrentRawStream(dev.index))
+    _launch("route", rc)
     return recv
 
 
@@ -745,22 +868,12 @@ def pack6_decode(packed: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 # ── the per-split program and its host wrapper ───────────────────────────
 
 
-def tokenize_group_core(chunk: torch.Tensor, *, max_word_len: int = 16,
-                        u_cap: int = 1 << 17, t_cap_frac: int = 4,
-                        grouper: str = "sort"):
-    """Exact unique-word counts over one uint8 chunk (zero-padded tail);
-    runs where ``chunk`` lies.
-
-    Returns (packed_u [u_cap, K] u32 bits, len_u [u_cap] i32, cnt_u
-    [u_cap] i32, fnv_u [u_cap] u32 bits, n_unique i32, max_len i32,
-    has_high bool, token_overflow bool) — the outputs of
-    ``dsi_tpu.ops.wordcount.tokenize_group_core``.  ``grouper`` is
-    ``"sort"`` (kernels B and C over all tokens: rows in word order) or
-    ``"hash"`` (kernel D per token, then kernel F: clean buckets in
-    bucket order, then the dirty uniques); a hash attempt that cannot
-    prove exactness reports ``token_overflow`` so the grouper ladder
-    re-runs the chunk through the sort grouper.
-    """
+def group_chunk(chunk: torch.Tensor, *, max_word_len: int, u_cap: int,
+                t_cap_frac: int, grouper: str):
+    """The chunk's unique words, before their hash: (keys_u [k64, u_cap]
+    int64, packed_u [u_cap, K] u32 bits, len_u, cnt_u [u_cap] i32,
+    n_unique i32, max_len i32, has_high bool, token_overflow bool).  See
+    :func:`tokenize_group_core`."""
     if grouper not in ("sort", "hash"):
         raise ValueError(f"unknown grouper {grouper!r}")
     n = chunk.shape[0]
@@ -779,10 +892,32 @@ def tokenize_group_core(chunk: torch.Tensor, *, max_word_len: int = 16,
         ones = torch.ones(t_cap, dtype=torch.int64, device=chunk.device)
         keys_u, totals, _, len_u, n_unique = group_sorted(
             skeys, ones, u_cap, payload=lengths, perm=perm)
-    packed_u = unpack_key_rows(keys_u.T, k)
+    return (keys_u, unpack_key_rows(keys_u.T, k), len_u,
+            totals.to(torch.int32), n_unique, sc[1], sc[2] != 0,
+            token_overflow)
+
+
+def tokenize_group_core(chunk: torch.Tensor, *, max_word_len: int = 16,
+                        u_cap: int = 1 << 17, t_cap_frac: int = 4,
+                        grouper: str = "sort"):
+    """Exact unique-word counts over one uint8 chunk (zero-padded tail);
+    runs where ``chunk`` lies.
+
+    Returns (packed_u [u_cap, K] u32 bits, len_u [u_cap] i32, cnt_u
+    [u_cap] i32, fnv_u [u_cap] u32 bits, n_unique i32, max_len i32,
+    has_high bool, token_overflow bool) — the outputs of
+    ``dsi_tpu.ops.wordcount.tokenize_group_core``.  ``grouper`` is
+    ``"sort"`` (kernels B and C over all tokens: rows in word order) or
+    ``"hash"`` (kernel D per token, then kernel F: clean buckets in
+    bucket order, then the dirty uniques); a hash attempt that cannot
+    prove exactness reports ``token_overflow`` so the grouper ladder
+    re-runs the chunk through the sort grouper.
+    """
+    keys_u, packed_u, len_u, cnt_u, *scal = group_chunk(
+        chunk, max_word_len=max_word_len, u_cap=u_cap,
+        t_cap_frac=t_cap_frac, grouper=grouper)
     fnv_u = fnv1a32_packed(keys_u, len_u, max_word_len)
-    return (packed_u, len_u, totals.to(torch.int32), fnv_u, n_unique,
-            sc[1], sc[2] != 0, token_overflow)
+    return (packed_u, len_u, cnt_u, fnv_u, *scal)
 
 
 def _pad_pow2(data: bytes, min_size: int = 256) -> np.ndarray:

@@ -49,7 +49,6 @@ item: ``aot``, checkpoints and ``resume``, and ``input_range``.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import os
 from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
@@ -67,6 +66,7 @@ from dsi_tpu_torch.ops.wordcount import (
     _launch,
     _lib,
     _on_cuda,
+    _on_device,
     _ptr,
     _require,
     _u32_bits,
@@ -300,8 +300,7 @@ def grep_step(chunks: torch.Tensor, pats: torch.Tensor, dlen: torch.Tensor,
             else None)
     scratch = torch.empty(_step_scratch_bytes(n_dev, n, l_cap, bins, k),
                           dtype=torch.uint8, device=dev)
-    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-          else torch.cuda.device(dev)):
+    with _on_device(dev):
         rc = lib.dsi_grep_step(
             _ptr(chunks), n_dev, n, _ptr(pats), pats.shape[1], _ptr(dlen),
             _ptr(bases), l_cap, bins, k, _ptr(hist_ext), _ptr(cand),

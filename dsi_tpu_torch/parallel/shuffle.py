@@ -7,9 +7,10 @@ tensor dimension on one card, and the all-to-all is the block transpose
 that kernel E (``csrc/route.cu``, launched by ``ops/wordcount.py
 shuffle_rows``) writes directly:
 
-* map     = per-shard tokenize / group / FNV (kernels A-D through
-  ``ops/wordcount.py tokenize_group_core``) plus the partition rule
-  ``part = fnv & 0x7fffffff % n_reduce``, ``dest = part % n_dev``;
+* map     = per-shard tokenize / group (kernels A-C through
+  ``ops/wordcount.py group_chunk``), then kernel D with the partition
+  rule ``part = fnv & 0x7fffffff % n_reduce``, ``dest = part % n_dev``
+  in its epilogue (``fnv1a32_route``);
 * shuffle = kernel E: every shard's rows to their destination shard, in
   stable order, one ``u_cap``-row block per (destination, source);
 * reduce  = per-shard sort (kernel B) and group (kernel C) of the
@@ -34,6 +35,8 @@ import torch
 from dsi_tpu_torch.ops.wordcount import (
     _u32_value,
     exactness_retry,
+    fnv1a32_route,
+    group_chunk,
     group_sorted,
     grouper_ladder,
     pack_key_lanes,
@@ -41,7 +44,6 @@ from dsi_tpu_torch.ops.wordcount import (
     resolve_device,
     shuffle_rows,
     to_device,
-    tokenize_group_core,
     unpack_key_rows,
 )
 
@@ -60,15 +62,14 @@ def map_prologue(chunk: torch.Tensor, *, n_dev: int, n_reduce: int,
 
     Returns (packed_u, len_u, cnt_u, part, dest, scalars) with scalars =
     (n_unique, max_len, has_high, token_overflow); part and dest int32."""
-    (packed_u, len_u, cnt_u, fnv_u, n_unique, max_len, has_high,
-     token_overflow) = tokenize_group_core(
+    keys_u, packed_u, len_u, cnt_u, n_unique, *scal = group_chunk(
         chunk, max_word_len=max_word_len, u_cap=u_cap,
         t_cap_frac=t_cap_frac, grouper=grouper)
-    uvalid = torch.arange(u_cap, device=chunk.device) < n_unique
-    part = (fnv_u & 0x7FFFFFFF) % n_reduce
-    dest = torch.where(uvalid, part % n_dev, n_dev).to(torch.int32)
-    return (packed_u, len_u, cnt_u, part.to(torch.int32), dest,
-            (n_unique, max_len, has_high, token_overflow))
+    # Kernel D with its epilogue: the hash, part and dest in one launch.
+    _, part, dest = fnv1a32_route(keys_u, len_u, max_word_len,
+                                  n_part=n_reduce, n_dest=n_dev, park=n_dev,
+                                  n_valid=n_unique)
+    return packed_u, len_u, cnt_u, part, dest, (n_unique, *scal)
 
 
 def _reduce_shard(recv: torch.Tensor, k: int, out_cap: int):

@@ -64,14 +64,14 @@ from dsi_tpu_torch.parallel.stepobj import EngineStep
 from dsi_tpu_torch.parallel.streaming import _not_ported
 
 
-def wave_received(chunks: torch.Tensor, doc_ids: torch.Tensor, *,
-                  n_dev: int, n_reduce: int, max_word_len: int, u_cap: int,
-                  t_cap_frac: int = 4, grouper: str = "sort",
-                  tf_ones: bool = False):
-    """The wave's map and shuffle (kernels A-E): per shard, its received
-    rows [n_dev, n_dev*u_cap, K+4] int32 in received order (source blocks
-    in shard order, each its rows then pad rows), and the map's [n_dev, 4]
-    int32 scalars (n_unique, max_len, has_high, token_overflow).
+def wave_rows(chunks: torch.Tensor, doc_ids: torch.Tensor, *, n_dev: int,
+              n_reduce: int, max_word_len: int, u_cap: int,
+              t_cap_frac: int = 4, grouper: str = "sort",
+              tf_ones: bool = False):
+    """The wave's map (kernels A-D): per shard, its send rows [n_dev,
+    u_cap, K+4] int32 (u32 bits: key lanes, len, tf, doc, part), their
+    destinations [n_dev, u_cap] int32 and the map's [n_dev, 4] int32
+    scalars (n_unique, max_len, has_high, token_overflow).
 
     The tf lane carries each word's count in its document, or 1 with
     ``tf_ones`` (the indexer's posting rows, one per distinct word)."""
@@ -79,7 +79,6 @@ def wave_received(chunks: torch.Tensor, doc_ids: torch.Tensor, *,
             or tuple(doc_ids.shape) != (n_dev,):
         raise ValueError(f"tfidf wave: chunks {tuple(chunks.shape)} "
                          f"doc_ids {tuple(doc_ids.shape)} n_dev={n_dev}")
-    k = max_word_len // 4
     rows, dests, map_scal = [], [], []
     for s in range(n_dev):
         packed_u, len_u, cnt_u, part, dest, sc = map_prologue(
@@ -93,9 +92,23 @@ def wave_received(chunks: torch.Tensor, doc_ids: torch.Tensor, *,
                                doc[:, None], part[:, None]], dim=1))
         dests.append(dest)
         map_scal.append(torch.stack([x.to(torch.int32) for x in sc]))
-    recv = shuffle_rows(torch.stack(rows), torch.stack(dests), n_dev=n_dev,
-                        k=k)
-    return recv, torch.stack(map_scal)
+    return torch.stack(rows), torch.stack(dests), torch.stack(map_scal)
+
+
+def wave_received(chunks: torch.Tensor, doc_ids: torch.Tensor, *,
+                  n_dev: int, n_reduce: int, max_word_len: int, u_cap: int,
+                  t_cap_frac: int = 4, grouper: str = "sort",
+                  tf_ones: bool = False):
+    """The wave's map and shuffle (kernels A-E): per shard, its received
+    rows [n_dev, n_dev*u_cap, K+4] int32 in received order (source blocks
+    in shard order, each its rows then pad rows), and the map's [n_dev, 4]
+    int32 scalars; see :func:`wave_rows`."""
+    rows, dests, map_scal = wave_rows(
+        chunks, doc_ids, n_dev=n_dev, n_reduce=n_reduce,
+        max_word_len=max_word_len, u_cap=u_cap, t_cap_frac=t_cap_frac,
+        grouper=grouper, tf_ones=tf_ones)
+    recv = shuffle_rows(rows, dests, n_dev=n_dev, k=max_word_len // 4)
+    return recv, map_scal
 
 
 def tfidf_wave_step(chunks: torch.Tensor, doc_ids: torch.Tensor, *,

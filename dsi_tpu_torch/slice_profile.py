@@ -32,7 +32,14 @@ lines:
   two C entry points and its wrapper's allocations as that tree made them,
   this tree's through ``grep_step``) on the bench corpus cut into 2 MiB
   rows at 1 and 8 shards, pattern ``the``, ``l_cap`` 262,144, each call
-  checked against ``grep_step_plain`` and one of each profiled;
+  checked against ``grep_step_plain`` and one of each profiled; and
+  kernels E and D (``route_ab``: the older versions through their older
+  C interface and wrappers, this tree's through ``shuffle_rows``,
+  ``fnv1a32_route`` and ``route_dest``): E at the stream step, the mesh
+  fold, the mesh append and ``tfidf_n8``'s wave, D as ``map_prologue``
+  (the hash, then eight torch ops before; one launch now) and
+  ``route_dest`` (the lanes packed, the hash, five torch ops before; one
+  launch now) run it, each checked against the plain versions;
 * with ``--stream``: ``stream_profile``, the bench's stream row (the
   corpus cycled to 64 MB, 2 MiB chunks, u_cap 2^15, depth 2) with the
   device table off and on at one shard, with the table on and the hash
@@ -553,6 +560,137 @@ def _grep_ab(base, raws) -> None:
                 grep_step_plain(*args, **kw))
 
 
+# The C interface of kernels D and E before D took both layouts and its
+# epilogue, and before E's scratch depended on the row width.
+_ROUTE_OLDER = {
+    "dsi_fnv": (_INT, [_P, _I64, _P, _INT, _P, _P]),
+    "dsi_route_scratch_bytes": (_I64, [_INT, _I64]),
+    "dsi_route": (_INT, [_P, _P, _INT, _I64, _INT, _INT, _P, _P, _P]),
+}
+
+
+def _route_older(lib, rows, dest, n_dev: int, k: int):
+    """Kernel E from ``lib`` through its older interface, with the two
+    allocations its wrapper made."""
+    _, r, w_ = rows.shape
+    recv = torch.empty((n_dev, n_dev * r, w_), dtype=torch.int32,
+                       device=rows.device)
+    scratch = torch.empty(lib.dsi_route_scratch_bytes(n_dev, r),
+                          dtype=torch.uint8, device=rows.device)
+    rc = lib.dsi_route(rows.data_ptr(), dest.data_ptr(), n_dev, r, w_, k,
+                       recv.data_ptr(), scratch.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"route launch failed: CUDA error {rc}")
+    return (recv,)
+
+
+def _fnv_older(lib, keys64, lens, mwl: int):
+    """Kernel D from ``lib`` through its older interface (u64 words)."""
+    out = torch.empty(lens.shape[0], dtype=torch.int32, device=lens.device)
+    rc = lib.dsi_fnv(keys64.data_ptr(), lens.shape[0], lens.data_ptr(), mwl,
+                     out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fnv launch failed: CUDA error {rc}")
+    return out
+
+
+def _route_dest_older(lib, keys, lens, valid, n_shards: int, park: int):
+    """``route_dest`` as the older tree ran it: the lanes packed into u64
+    words, D, then five torch ops."""
+    kk = keys.shape[1]
+    keys64 = torch.stack(w.pack_key_lanes(tuple(keys[:, j]
+                                                for j in range(kk))))
+    h = _fnv_older(lib, keys64, lens, 4 * kk)
+    dest = ((w._u32_value(h) & 0x7FFFFFFF) % n_shards).to(torch.int32)
+    return (torch.where(valid, dest, park).to(torch.int32),)
+
+
+def _map_rule_older(lib, keys_u, len_u, n_unique, n_reduce: int,
+                    n_dev: int):
+    """``map_prologue``'s hash and partition rule as the older tree ran
+    them: D, then eight torch ops."""
+    fnv_u = _fnv_older(lib, keys_u, len_u, 16)
+    uvalid = torch.arange(len_u.shape[0], device=len_u.device) < n_unique
+    part = (fnv_u & 0x7FFFFFFF) % n_reduce
+    dest = torch.where(uvalid, part % n_dev, n_dev).to(torch.int32)
+    return fnv_u, part.to(torch.int32), dest
+
+
+def _route_ab(base, raws) -> None:
+    """``route_ab``: kernel E from ``base`` (the older interface and
+    wrapper) and from this tree in turns at the stream step, the mesh
+    fold, the mesh append and ``tfidf_n8``'s wave; kernel D as
+    ``route_dest`` (mesh fold) and ``map_prologue`` (stream step) ran it
+    before and run it now, each checked against the plain versions."""
+    from dsi_tpu_torch.device import table as dt
+    from dsi_tpu_torch.ops.meshroute import route_dest
+    from dsi_tpu_torch.parallel.shuffle import (_slice_pack, map_prologue,
+                                                mapreduce_step)
+    from dsi_tpu_torch.parallel.tfidf import (_wave_chunk, tfidf_wave_step,
+                                              wave_rows)
+
+    step = np.zeros(1 << 21, np.uint8)
+    step[:len(raws[0])] = np.frombuffer(raws[0], np.uint8)
+    chunk = torch.from_numpy(step).cuda()
+    keys_u, _, len_u, _, n_unique, *_ = w.group_chunk(
+        chunk, max_word_len=16, u_cap=1 << 15, t_cap_frac=4, grouper="sort")
+    ep = dict(n_part=10, n_dest=1, park=1, n_valid=n_unique)
+    _ab("route_ab", "D stream step (map_prologue)", list(keys_u.shape), {
+        "baseline": lambda: _map_rule_older(base, keys_u, len_u, n_unique,
+                                            10, 1),
+        "change": lambda: w.fnv1a32_route(keys_u, len_u, 16, **ep)},
+        w.fnv1a32_route_plain(keys_u, len_u, 16, **ep))
+    packed_u, len_u, cnt_u, part, dest, _ = map_prologue(
+        chunk, n_dev=1, n_reduce=10, max_word_len=16, u_cap=1 << 15,
+        t_cap_frac=4)
+    rows1 = torch.cat([packed_u, len_u[:, None], cnt_u[:, None],
+                       part[:, None]], dim=1)[None].contiguous()
+    shapes = {"stream step": (rows1, dest[None].contiguous(), 1, 4)}
+
+    n_dev = 8
+    buf = np.zeros((n_dev, 1 << 21), np.uint8)
+    for i, raw in enumerate(raws[:n_dev]):
+        buf[i, :len(raw)] = np.frombuffer(raw, np.uint8)
+    out = mapreduce_step(torch.from_numpy(buf).cuda(), n_dev=n_dev,
+                         n_reduce=10, max_word_len=16, u_cap=1 << 15)
+    packed = _slice_pack(*out[:4], mp=out[0].shape[1])
+    operands = dt._route_operands(packed, out[4])
+    rkw = dict(n_shards=n_dev, park=n_dev)
+    _ab("route_ab", "D mesh fold (route_dest)", list(operands[0].shape), {
+        "baseline": lambda: _route_dest_older(base, *operands, **rkw),
+        "change": lambda: (route_dest(*operands, **rkw),)},
+        w.fnv1a32_route_plain(operands[0], operands[1], 16, n_part=n_dev,
+                              n_dest=n_dev, park=n_dev,
+                              valid=operands[2])[2:])
+    shapes["mesh fold"] = (packed, route_dest(*operands, **rkw).view(
+        n_dev, -1), n_dev, 4)
+
+    size = 1 << max(8, max(len(r) for r in raws).bit_length())
+    cap = w.rung0_cap(size, 1 << 15)
+    chunks = torch.from_numpy(_wave_chunk(raws, range(n_dev), n_dev,
+                                          size)).cuda()
+    ids = torch.arange(n_dev, dtype=torch.int32, device="cuda")
+    rows, scal = tfidf_wave_step(chunks, ids, n_dev=n_dev, n_reduce=10,
+                                 max_word_len=16, u_cap=cap)
+    r = rows.shape[1]
+    valid = torch.arange(r, device="cuda")[None, :] < scal[:, :1]
+    keys = torch.where(valid[..., None], rows[..., :4], -1).reshape(-1, 4)
+    lens = torch.where(valid, rows[..., 4], 0).reshape(-1)
+    shapes["mesh append"] = (rows, route_dest(
+        keys, lens, valid.reshape(-1), **rkw).view(n_dev, r), n_dev, 4)
+    wrows, wdests, _ = wave_rows(chunks, ids, n_dev=n_dev, n_reduce=10,
+                                 max_word_len=16, u_cap=cap)
+    shapes["tfidf_n8 wave"] = (wrows, wdests, n_dev, 4)
+    for at, (rows_, dest_, nd, k) in shapes.items():
+        _ab("route_ab", f"E {at}", list(rows_.shape), {
+            "baseline": lambda a=(rows_, dest_, nd, k): _route_older(base,
+                                                                     *a),
+            "change": lambda a=(rows_, dest_, nd, k): (w.shuffle_rows(
+                a[0], a[1], n_dev=a[2], k=a[3]),)},
+            (w.shuffle_rows_plain(rows_, dest_, n_dev=nd, k=k),))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-csrc", type=Path, default=None,
@@ -666,8 +804,20 @@ def main() -> int:
                 name: lambda lib=lib, k=k: _sort_with(lib, k)
                 for name, lib in (("baseline", base), ("change", new))},
                 w.radix_sort_plain(k))
-        _declare(base, _GREP_TWO_ENTRIES)
-        _grep_ab(base, raws)
+        # Each A/B is written for the interface its kernels had before
+        # their redesign; a baseline that already has the newer one skips it.
+        if hasattr(base, "dsi_grep_emit"):
+            _declare(base, _GREP_TWO_ENTRIES)
+            _grep_ab(base, raws)
+        else:
+            print(json.dumps({"grep_ab": "skipped: the baseline's J has "
+                                         "the one-call interface"}))
+        if not hasattr(base, "dsi_route_tile_rows"):
+            _declare(base, _ROUTE_OLDER)
+            _route_ab(base, raws)
+        else:
+            print(json.dumps({"route_ab": "skipped: the baseline's D and "
+                                          "E have the newer interface"}))
     return 0
 
 

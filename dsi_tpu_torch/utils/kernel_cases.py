@@ -1,19 +1,21 @@
-"""Edge cases for kernels A (tokenize), C (group runs) and J (the grep
-step) at tile edges.
+"""Edge cases for kernels A (tokenize), C (group runs), J (the grep
+step) and E (the shuffle) at tile edges, and for kernel D (FNV-1a with
+its partition epilogue).
 
 One set of inputs serves two checks: the CPU tests hold the port's plain
 versions against ``dsi_tpu`` on them at a small tile, and ``chip_smoke.py``
 holds each kernel against its plain version on the card with ``tile`` set
 to the kernel's own (``dsi_tokenize_tile_bytes``, ``dsi_group_tile_rows``,
-``dsi_grep_step_tile_bytes`` and ``dsi_grep_step_line_tile``).  Every case
-is made with numpy from a seed; every case of one call has the same shape,
-apart from A's ``odd_length`` and J's pattern lengths, so a compiled
-reference serves them all.
+``dsi_grep_step_tile_bytes``, ``dsi_grep_step_line_tile`` and
+``dsi_route_tile_rows``).  Every case is made with numpy from a seed; every
+case of one call has the same shape, apart from A's ``odd_length``, J's
+pattern lengths and E's and D's shapes, so a compiled reference serves
+most of them.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -31,6 +33,12 @@ GroupCase = Tuple[str, np.ndarray, np.ndarray, int, np.ndarray, np.ndarray]
 #  l_cap); every case has bins GREP_BINS and k GREP_K
 GrepCase = Tuple[str, np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]
 GREP_BINS, GREP_K = 8, 16
+# (name, rows u32 [n_dev, r, w], dest i32 [n_dev, r], n_dev, k)
+RouteCase = Tuple[str, np.ndarray, np.ndarray, int, int]
+# (name, lanes u32 [u, kk], lens i32 [u], max_word_len, epilogue): the
+# epilogue is None (the hash alone) or a dict of fnv1a32_route's keywords
+# n_part, n_dest, park and one of valid (bool [u]) or n_valid (an int)
+FnvCase = Tuple[str, np.ndarray, np.ndarray, int, Optional[dict]]
 
 
 def _text(rng, n: int, max_len: int = 14) -> np.ndarray:
@@ -363,4 +371,121 @@ def grep_cases(tile: int, line_tile: int, seed: int = 1234) -> List[GrepCase]:
         rows.append(t)
     case("bases_across_2_32", rows,
          bases=(1 << 32) - 5 - np.arange(8, dtype=np.int64) * 7)
+    return cases
+
+
+def route_cases(tile: Union[int, Callable[[int], int]],
+                seed: int = 1234) -> List[RouteCase]:
+    """Kernel E's edges for tiles of ``tile`` rows (an int, or the tile
+    for a row width ``w``, ``dsi_route_tile_rows``): dests set on each
+    tile's first and last rows, one destination's run crossing tile
+    edges, r = 1 and r = tile - 1 and tile + 1, every row parked, every
+    row to one destination, dests below 0 and above n_dev (dropped like
+    n_dev), n_dev 1, 3, 8 and 1024 (the contract's largest; the kernel's
+    write pass asks for more than 48 KB of shared memory there), widths
+    1, 7, 8, 19 and 20 with k = 0 and k = w, and real rows equal to the
+    pad row."""
+    rng = np.random.default_rng(seed)
+    tile_of = tile if callable(tile) else (lambda w: tile)
+    cases = []
+
+    def rows(n_dev, r, w):
+        return rng.integers(0, 1 << 32, (n_dev, r, w),
+                            dtype=np.uint64).astype(np.uint32)
+
+    def case(name, n_dev, r, w, k, dest):
+        cases.append((name, rows(n_dev, r, w),
+                      np.asarray(dest, np.int32).reshape(n_dev, r),
+                      n_dev, k))
+
+    t7 = tile_of(7)
+    r = 3 * t7 + 5
+    dest = rng.integers(0, 9, (8, r))
+    for e in range(t7, r, t7):  # the rows on each side of a tile edge
+        dest[:, e - 1] = rng.integers(0, 8, 8)
+        dest[:, e] = dest[:, e - 1]
+    dest[:, 0] = 0
+    dest[:, -1] = 7
+    case("tile_edges_n8", 8, r, 7, 4, dest)
+    # Long runs of one destination, each across one or two tile edges.
+    runs = (np.arange(r)[None, :] // (t7 + t7 // 3 + 1)
+            + np.arange(8)[:, None]) % 8
+    case("runs_across_tiles_n8", 8, r, 7, 4, runs)
+    case("all_parked_n8", 8, r, 7, 4, np.full((8, r), 8))
+    case("one_dest_n8", 8, r, 7, 4, np.full((8, r), 5))
+    pad_like = rng.integers(0, 9, (8, r))
+    case("pad_rows_in_payload_n8", 8, r, 7, 4, pad_like)
+    name, prow, pdest, _, _ = cases[-1]
+    prow[:, ::3, :4] = 0xFFFFFFFF  # real rows that look like pad rows
+    prow[:, ::3, 4:] = 0
+    prow[:, 1::5, :] = 0
+    case("r1_n8", 8, 1, 7, 4, rng.integers(0, 9, (8, 1)))
+    case("r_tile_plus_1_n8", 8, t7 + 1, 7, 4,
+         rng.integers(0, 9, (8, t7 + 1)))
+    case("r_tile_minus_1_n1", 1, t7 - 1, 7, 4,
+         rng.integers(0, 2, (1, t7 - 1)))
+    case("random_n1", 1, 2 * t7 + 3, 7, 4,
+         rng.integers(0, 2, (1, 2 * t7 + 3)))
+    case("out_of_range_n3", 3, 2 * t7 + 1, 7, 4,
+         rng.choice(np.array([-(1 << 31), -7, -1, 0, 1, 2, 3, 4, 1 << 30]),
+                    (3, 2 * t7 + 1)))
+    case("random_n3", 3, t7 + 7, 8, 4, rng.integers(0, 4, (3, t7 + 7)))
+    case("n1024", 1024, 3, 3, 2, rng.integers(0, 1025, (1024, 3)))
+    for w in (1, 7, 8, 19, 20):
+        tw = tile_of(w)
+        for k in (0, w):
+            case(f"w{w}_k{k}_n3", 3, tw + 3, w, k,
+                 rng.integers(0, 4, (3, tw + 3)))
+    return cases
+
+
+def lanes_to_words(lanes: np.ndarray) -> np.ndarray:
+    """[u, kk] big-endian u32 lanes as u64 key words, word-major [k64, u]
+    (lane 2j the high half of word j; an odd last lane's low half all
+    ones, as ``pack_key_lanes`` pads it)."""
+    u, kk = lanes.shape
+    if kk % 2:
+        lanes = np.concatenate([lanes, np.full((u, 1), 0xFFFFFFFF,
+                                               np.uint32)], axis=1)
+    hi = lanes[:, 0::2].astype(np.uint64)
+    lo = lanes[:, 1::2].astype(np.uint64)
+    return np.ascontiguousarray(((hi << np.uint64(32)) | lo).T)
+
+
+def fnv_cases(u: int = 600, seed: int = 1234) -> List[FnvCase]:
+    """Kernel D's edges over ``u`` rows (past a few of its 256-row
+    blocks), each to be run in both of its layouts (``lanes_to_words``):
+    lengths 0, max_word_len and past it, bytes 0x80-0xFF, widths 1, 2, 4
+    (its 16-byte loads), 5 and 16, a window narrower than the lanes, and
+    the epilogue with a bool mask, with ``n_valid`` 0, inside and past
+    ``u``, and without it."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def lanes(kk, lo=0, hi=256):
+        return rng.integers(lo, hi, (u, 4 * kk), dtype=np.uint64) \
+            .astype(np.uint8).view(">u4").astype(np.uint32)
+
+    def lens(mwl, extra=6):
+        ln = rng.integers(0, mwl + extra, u).astype(np.int32)
+        ln[::7] = 0
+        ln[1::7] = mwl
+        return ln
+
+    cases.append(("lens_0_mwl_and_past_kk4", lanes(4), lens(16), 16, None))
+    cases.append(("high_bytes_map_rule", lanes(4, 0x80), lens(16), 16,
+                  {"n_part": 10, "n_dest": 8, "park": 8,
+                   "n_valid": u // 2 + 3}))
+    cases.append(("kk5_mwl20_route_rule", lanes(5), lens(20), 20,
+                  {"n_part": 8, "n_dest": 8, "park": 8,
+                   "valid": rng.random(u) < 0.7}))
+    cases.append(("kk16_mwl64_none_valid", lanes(16), lens(64, 10), 64,
+                  {"n_part": 10, "n_dest": 3, "park": 3, "n_valid": 0}))
+    cases.append(("kk2_mwl8_keys", lanes(2), np.full(u, 8, np.int32), 8,
+                  {"n_part": 3, "n_dest": 3, "park": 3,
+                   "valid": np.ones(u, bool)}))
+    cases.append(("mwl12_under_kk4", lanes(4), lens(12, 8), 12,
+                  {"n_part": 1 << 20, "n_dest": 1, "park": 7,
+                   "n_valid": u + 5}))
+    cases.append(("kk1_mwl4", lanes(1), lens(4), 4, None))
     return cases
