@@ -73,7 +73,11 @@ Phases (any failure exits non-zero before the last line is printed):
    corpus and the stream (table on) with the sort and the hash grouper in
    turns, to show the gap beside its spread;
 8. grep: kernels H (literal and class, ``csrc/grep.cu``), I (the NFA,
-   ``csrc/nfa.cu``, in each state bucket) and J (the grep step,
+   ``csrc/nfa.cu``, in each state bucket, with its CUDA launches a call
+   (at most 6: its own two and H's epilogue's four) and its device time
+   by phase from ``torch.profiler``, and on the shared edge cases
+   ``kernel_cases.nfa_cases`` at its own group, ``dsi_nfa_group_bytes``,
+   one also from a chunk 5 bytes off a 16-byte boundary) and J (the grep step,
    ``csrc/grep_step.cu``, at 1 and 8 virtual shards, with its CUDA
    launches a call and device time from ``torch.profiler``: at most 3
    launches) against their plain versions at the main path's shapes, and
@@ -90,7 +94,7 @@ Phases (any failure exits non-zero before the last line is printed):
    against ``grep_host_oracle`` (MB/s beside the oracle's), at 8 virtual
    shards with the services mesh-sharded 8 ways against the same stream
    unsharded, and through the ``grepstream`` CLI with ``--check``; and
-   the tier-4 calibration (host ``re`` against kernel I) in each bucket;
+   the tier-4 calibration (host ``re`` against kernel I), a line a bucket;
 9. TF-IDF: kernels L (the stable valid-first compaction,
    ``csrc/compact.cu``) and M (the postings append,
    ``csrc/postings_append.cu``) against their plain versions at the wave's
@@ -134,10 +138,18 @@ Phases (any failure exits non-zero before the last line is printed):
    oracle's counts and to its raw run, with N launched at least once a
    wire step;
 12. the crash model checker: kernel O (``csrc/crash_sim.cu``) against
-   the plain version, every output of every instance, at 1,000 instances
-   in the CLI's configuration and the reference tests' two others and at
-   2^16 in the CLI's; a fleet of 2^20, equal to the plain version too,
-   whose first 2^16 instances must equal the 2^16 run; ``run_crash_model_check`` in the three
+   the plain version, every output of every instance, on the shared cases
+   (``kernel_cases.crash_cases``: logs past one mask word with timeout 1,
+   no worker with a horizon of 1, one worker that always exits, a run
+   from instance 37, the deadlines spilled to device memory with two
+   workers that always stall), on a run whose whole state spills, on
+   calls that alternate the shared bytes each of O's two instances asks
+   for (``CRASH_ALTERNATION``), at 1,000 instances in the CLI's
+   configuration and the reference tests' two others and at 2^16 in the
+   CLI's; a fleet of 2^20, equal to the plain version too, whose first
+   2^16 instances must equal the 2^16 run; each timed shape with its
+   CUDA launches a call (at most a memset and one kernel), device time
+   and scratch bytes; ``run_crash_model_check`` in the three
    configurations (``crashcheck``: every invariant holds, requeues under
    the CLI's faults, duplicates and reference-counter breaks under
    stalls) and ``crashcheck -n 1000`` in process (``crashcheck_cli``,
@@ -303,9 +315,16 @@ TFIDF_MB, TFIDF_U_CAP = 16.0, 1 << 15
 # The wire A/B row (bench.py:1125-1250): the corpus cycled to 16 MB at the
 # stream row's shapes.
 WIRE_MB = 16.0
-# H100 SXM float32 outside the tensor cores, NVIDIA data sheet: the peak
-# rate taken for the 32-bit integer work of kernel I's bit sets.
+# H100 SXM float32 outside the tensor cores, NVIDIA data sheet.
 SCALAR_OPS_PER_S = 67e12
+# Hopper's INT32 lanes are half its FP32 lanes, and an FP32 FMA counts two
+# operations in the 67 TFLOP/s: 67e12 / 2 / 2 integer operations a second
+# (132 SMs x 64 INT32 lanes x 1.98 GHz), the one rate for the integer work
+# of kernels I (bit sets) and O (threefry and the state machine).
+INT32_OPS_PER_S = SCALAR_OPS_PER_S / 4
+# Kernel I's CUDA launches a call: its own two (nfa_prep, nfa_scan) and
+# kernel H's epilogue's four (fill, count, scan, flags).
+NFA_MOST_LAUNCHES = 6
 
 
 def log(obj) -> None:
@@ -1788,12 +1807,92 @@ def grep_cli_path(files, cycles: int):
     return seconds, stats, w.launch_counts(), out.getvalue()
 
 
-def nfa_calibration():
+def nfa_calibration(gpu: str):
     """``calibrate_tier4`` in every state bucket on the card: host ``re``
-    MB/s against kernel I's (the evidence the tier-4 gate waits for)."""
+    MB/s against kernel I's (the evidence the tier-4 gate waits for), one
+    line a bucket."""
     from dsi_tpu_torch.ops.nfak import calibrate_tier4
 
-    return {s: calibrate_tier4(s, device=DEVICE) for s in (16, 32, 48)}
+    out = {}
+    for s in (16, 32, 48):
+        out[s] = calibrate_tier4(s, device=DEVICE)
+        log({"nfa_calibration": {"s_bucket": s, **out[s],
+                                 "kernel_wins": out[s]["kernel_mbps"]
+                                 > out[s]["host_mbps"], "gpu": gpu}})
+    return out
+
+
+def nfa_profile(chunk, table, v0, l_cap: int) -> dict:
+    """Kernel I's CUDA launches a call and device time (``call_profile``),
+    with the device time of each phase: ``nfa_prep``, then the scan run
+    to its phase 1 (block relations and in-group prefixes), 2 (the
+    look-back over groups and the block entries) and 3 (the re-walk and
+    the mask) read by difference, then H's epilogue.  Raises above
+    NFA_MOST_LAUNCHES."""
+    from dsi_tpu_torch.ops import nfak
+
+    def events(phases):
+        return _device_events(lambda: nfak.nfa_launch(
+            chunk, table, v0, l_cap, phases), 20, "nfa_scan")
+
+    full = events(3)
+    prof = _launch_summary(full, 20)
+    if prof["launches_per_call"] is None:
+        raise RuntimeError("nfa: torch.profiler kept no whole window of "
+                           "calls, so the launches a call are unknown")
+    if prof["launches_per_call"] > NFA_MOST_LAUNCHES:
+        raise RuntimeError(f"nfa: {prof['launches_per_call']} CUDA launches "
+                           f"a call, the design allows {NFA_MOST_LAUNCHES}")
+    part = [events(1), events(2), full]
+
+    def dev(evs, key):
+        if evs is None:
+            return None
+        return sum(t for k, _, t in evs if key in k) / 1e3 / 20
+
+    scan = [dev(e, "nfa_scan") for e in part]
+    if None in scan:
+        raise RuntimeError("nfa: torch.profiler kept no whole window of "
+                           "the scan run to one of its phases")
+    prof["device_ms_by_phase"] = {
+        "prep": dev(full, "nfa_prep"), "relations": scan[0],
+        "prefix": scan[1] - scan[0], "walk": scan[2] - scan[1],
+        "epilogue": prof["device_ms"] - dev(full, "nfa_")}
+    return prof
+
+
+def check_nfa_edges():
+    """Kernel I against ``nfa_kernel_plain`` on the shared edge cases
+    (``kernel_cases.nfa_cases``, the CPU tests' cases) at I's own group
+    (``dsi_nfa_group_bytes``), one case also from a chunk 5 bytes past a
+    16-byte boundary (no vector loads or stores).  Returns max_abs_err."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.kernels.build import library
+    from dsi_tpu_torch.ops import nfak
+    from dsi_tpu_torch.utils.kernel_cases import nfa_cases
+
+    group = library().dsi_nfa_group_bytes()
+    cases = nfa_cases(group)
+    cases.append((f"{cases[-1][0]}_offset_5", *cases[-1][1:]))
+    worst = 0
+    for name, buf, pattern, bucket, l_cap in cases:
+        table, v0 = nfak._build_table(*nfak.parse_nfa_pattern(pattern))
+        t = torch.from_numpy(table).to(DEVICE)
+        v = torch.from_numpy(v0).to(DEVICE)
+        chunk = torch.from_numpy(np.ascontiguousarray(buf)).to(DEVICE)
+        if name.endswith("_offset_5"):
+            flat = torch.zeros(chunk.numel() + 5, dtype=torch.uint8,
+                               device=DEVICE)[5:]
+            flat.copy_(chunk)
+            chunk = flat
+        d = _worst(zip(nfak.nfa_kernel(chunk, t, v, l_cap=l_cap),
+                       nfak.nfa_kernel_plain(chunk, t, v, l_cap=l_cap)))
+        sync()
+        worst = _merge_err(worst, d)
+        log({"nfa_edge_case": name, "n": len(buf), "s_bucket": bucket,
+             "group": group, "l_cap": l_cap, "max_abs_err": d})
+    return worst
 
 
 def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
@@ -1820,7 +1919,7 @@ def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
              "bound_by": "bytes", "shape": shape}
         if ops is not None:
             e["ops"] = ops
-            ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+            ops_ms = ops / INT32_OPS_PER_S * 1e3
             if ops_ms > e["bound_ms"]:
                 e["bound_ms"], e["bound_by"] = ops_ms, "operations"
         return e
@@ -1848,8 +1947,9 @@ def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
         nfa[s] = entry(
             lambda: nfak.nfa_kernel(chunk, t, v, l_cap=l_cap),
             lambda: nfak.nfa_kernel_plain(chunk, t, v, l_cap=l_cap),
-            flags_bytes + 256 * s * 8 + 8,
+            flags_bytes + 256 * s * s * 4 + 4 * s,
             f"S={s} {pat!r}: n={n} l_cap={l_cap}", ops=2 * n * (s + 1))
+        nfa[s].update(nfa_profile(chunk, t, v, l_cap))
     rows["nfa"] = nfa[16]
     rows["nfa"]["at_shapes"] = {f"S={s}": nfa[s] for s in (32, 48)}
 
@@ -2680,10 +2780,31 @@ CRASH_CONFIGS = {
     "stalls": dict(exit_prob=0.0, stall_prob=0.5, timeout=5, horizon=800),
 }
 CRASH_N, CRASH_LARGE, CRASH_FLEET = 1000, 1 << 16, 1 << 20
-# Hopper's INT32 lanes are half its FP32 lanes, and an FP32 FMA counts two
-# operations in the 67 TFLOP/s: 67e12 / 2 / 2 integer operations a second
-# (132 SMs x 64 INT32 lanes x 1.98 GHz).
-INT32_OPS_PER_S = SCALAR_OPS_PER_S / 4
+# Beside kernel_cases.crash_cases (the deadlines spilled): logs whose masks
+# alone do not fit one warp's shared memory, so all of the state spills.
+CRASH_SPILL_ALL = ("spill_all", 64, 0, dict(n_map=60000, n_reduce=10,
+                                            horizon=20))
+# Calls that alternate the shared bytes a launch asks of one instance of
+# kernel O, each held against the plain version: the register instance
+# (three workers) at 16 / 16 tasks (16 KiB a block), the CLI's sizes (9 KiB)
+# and 32 / 32 (32 KiB); the general one with the whole state spilled
+# (none), the deadlines spilled (the masks, 58 KiB), logs past one mask
+# word and the CLI's logs with four workers (every region in shared
+# memory).
+_CRASH_REG16 = ("reg_16x16", 96, 0, dict(n_map=16, n_reduce=16,
+                                         horizon=400))
+_CRASH_SPILL_DL = ("spill_deadlines", 64, 0, dict(n_map=1800, n_reduce=40,
+                                                  n_workers=1, horizon=60))
+CRASH_ALTERNATION = [
+    _CRASH_REG16, ("reg_cli", 96, 0, {}), _CRASH_REG16,
+    ("reg_32x32", 96, 0, dict(n_map=32, n_reduce=32, horizon=400)),
+    _CRASH_REG16,
+    CRASH_SPILL_ALL, _CRASH_SPILL_DL,
+    ("wide_logs", 64, 0, dict(n_map=33, n_reduce=65)), _CRASH_SPILL_DL,
+    ("cli_logs_4_workers", 96, 0, dict(n_workers=4)), CRASH_SPILL_ALL,
+    _CRASH_SPILL_DL]
+# Kernel O's CUDA launches a call: the counter's memset and one kernel.
+CRASH_MOST_LAUNCHES, CRASH_MOST_KERNELS = 2, 1
 # One threefry-2x32 block: the key schedule (2 xors), the first injection
 # (2 adds), 20 rounds of an add, a rotation (one funnel shift) and an xor,
 # and 5 injections of 3 adds.
@@ -2706,17 +2827,69 @@ def crash_ops(n: int, ticks: int, work: dict) -> int:
             + 3 * work["reports"] + 2 * ticks)
 
 
+def crash_profile(fn, cfg: dict, n: int) -> dict:
+    """``call_profile`` of one kernel O call with the scratch bytes it
+    takes after its outputs; raises above a memset and one kernel."""
+    from dsi_tpu_torch.parallel import simulate as sim
+
+    prof = call_profile(fn, "crash_sim")
+    if prof["launches_per_call"] is None:
+        raise RuntimeError("crash_sim: torch.profiler kept no whole window "
+                           "of calls, so the launches a call are unknown")
+    if prof["launches_per_call"] > CRASH_MOST_LAUNCHES \
+            or prof["kernels_per_call"] > CRASH_MOST_KERNELS:
+        raise RuntimeError(f"crash_sim: {prof['launches_per_call']} CUDA "
+                           f"launches and {prof['kernels_per_call']} kernels "
+                           "a call, the design allows a memset and one")
+    prof["scratch_bytes"] = sim.crash_scratch_bytes(n, **_crash_sizes(cfg))
+    return prof
+
+
+def _crash_sizes(cfg: dict) -> dict:
+    sizes = dict(n_map=8, n_reduce=10, n_workers=3)
+    sizes.update({k: cfg[k] for k in sizes if k in cfg})
+    return sizes
+
+
+def check_crash_cases():
+    """Kernel O against the plain version on the shared cases
+    (``kernel_cases.crash_cases``, the CPU tests' cases), CRASH_SPILL_ALL
+    and then CRASH_ALTERNATION in its order, every output of every
+    instance.  Returns max_abs_err."""
+    from dsi_tpu_torch.parallel import simulate as sim
+    from dsi_tpu_torch.utils.kernel_cases import CRASH_SEED, crash_cases
+
+    worst = 0
+    for name, n, first, kw in (crash_cases() + [CRASH_SPILL_ALL]
+                               + CRASH_ALTERNATION):
+        got = sim.simulate_batch(CRASH_SEED, n, first=first, device=DEVICE,
+                                 **kw)
+        want = sim.simulate_batch_plain(CRASH_SEED, n, first=first,
+                                        device=DEVICE, **kw)
+        d = 0
+        for k in sim.OUTPUTS:
+            d = _merge_err(d, _diff(got[k], want[k]))
+        sync()
+        worst = _merge_err(worst, d)
+        log({"crash_edge_case": name, "n": n, "first": first, **kw,
+             "scratch_bytes": sim.crash_scratch_bytes(n, **_crash_sizes(kw)),
+             "max_abs_err": d})
+    return worst
+
+
 def crash_kernel_rows():
     """Kernel O against the plain version on the card, every output of
-    every instance, at 1,000 instances in each configuration and at 2^16
-    in the CLI's; then a fleet of 2^20, held to the plain version as well,
-    whose first 2^16 instances must equal the 2^16 run.  Each bound counts
-    the work the plain version's run reports (:func:`crash_ops`).
-    Returns (times entry, max_abs_err, failures)."""
+    every instance: the shared cases (:func:`check_crash_cases`), 1,000
+    instances in each configuration and 2^16 in the CLI's; then a fleet
+    of 2^20, held to the plain version as well, whose first 2^16
+    instances must equal the 2^16 run.  Each timed shape also has its
+    launches a call, device time and scratch bytes (:func:`crash_profile`),
+    and each bound counts the work the plain version's run reports
+    (:func:`crash_ops`).  Returns (times entry, max_abs_err, failures)."""
     import torch
     from dsi_tpu_torch.parallel import simulate as sim
 
-    err, shapes, fails, large = 0, {}, [], None
+    err, shapes, fails, large = check_crash_cases(), {}, [], None
     for tag, cfg in CRASH_CONFIGS.items():
         for n in ((CRASH_N, CRASH_LARGE) if tag == "cli_default"
                   else (CRASH_N,)):
@@ -2750,6 +2923,9 @@ def crash_kernel_rows():
                 "library_ms": None, "max_abs_err": d,
                 "shape": f"{n} instances, 8 map, 10 reduce, 3 workers, "
                          + ", ".join(f"{k} {v}" for k, v in cfg.items())}
+            shapes[f"{tag}_{n}"].update(crash_profile(
+                lambda: sim.simulate_batch(0, n, device=DEVICE, **cfg), cfg,
+                n))
             log({"crash_case": f"{tag}_{n}", **shapes[f"{tag}_{n}"]})
     cfg = CRASH_CONFIGS["cli_default"]
     sync()
@@ -2786,7 +2962,9 @@ def crash_kernel_rows():
         "wall_s": fleet_s, "instances_per_s": CRASH_FLEET / (ms / 1e3),
         "wall_instances_per_s": CRASH_FLEET / fleet_s,
         "all_finished": bool(fleet["finished"].all()),
-        "shape": f"{CRASH_FLEET} instances, the CLI's configuration"}
+        "shape": f"{CRASH_FLEET} instances, the CLI's configuration",
+        **crash_profile(lambda: sim.simulate_batch(
+            0, CRASH_FLEET, device=DEVICE, **cfg), cfg, CRASH_FLEET)}
     log({"crash_fleet": shapes[f"cli_default_{CRASH_FLEET}"]})
     main = shapes[f"cli_default_{CRASH_N}"]
     return {**main, "at_shapes": {k: v for k, v in shapes.items()
@@ -3673,11 +3851,11 @@ def main() -> int:
                                                if k in st}}
         log({"grep_cli": {**grep["grep_cli"], "gpu": gpu,
                           "stdout": cli_out.splitlines()[:3]}})
-        calibration = nfa_calibration()
-        log({"nfa_calibration": calibration, "gpu": gpu})
+        nfa_calibration(gpu)
         grep_rows, topk_row, grep_err = grep_kernel_rows(raws[0], data)
         times.update(grep_rows)
         err.update(grep_err)
+        err["nfa"] = _merge_err(err["nfa"], check_nfa_edges())
         j_edge_err, emit_edge_err = check_grep_edges()
         err["grep_step"] = _merge_err(err["grep_step"], j_edge_err)
         err["radix_sort"] = _merge_err(err["radix_sort"],
@@ -3917,6 +4095,7 @@ def main() -> int:
             row["at_shapes"] = tm["at_shapes"]
         for key in ("j_ms", "j_device_ms", "j_launches_per_call",
                     "epilogue_device_ms", "device_ms_by_kernel",
+                    "device_ms_by_phase", "scratch_bytes",
                     "device_ms", "launches_per_call", "kernels_per_call",
                     "passes_run",
                     "skipped_passes", "path", "library_x_k64_ms", "rounds",

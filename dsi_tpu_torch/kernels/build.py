@@ -59,7 +59,8 @@ SIGNATURES = {
                         _P, _P, _P]),
     "dsi_line_flags": (_INT, [_P, _I64, _P, _I64, _P, _P, _P, _P]),
     "dsi_nfa_scratch_bytes": (_I64, [_I64, _INT]),
-    "dsi_nfa": (_INT, [_P, _I64, _P, _INT, _P, _I64, _P, _P, _P, _P]),
+    "dsi_nfa": (_INT, [_P, _I64, _P, _INT, _P, _I64, _P, _P, _P, _INT, _P]),
+    "dsi_nfa_group_bytes": (_I64, []),
     "dsi_grep_step_scratch_bytes": (_I64, [_INT, _I64, _I64, _INT, _INT]),
     "dsi_grep_step": (_INT, [_P, _INT, _I64, _P, _INT, _P, _P, _I64, _INT,
                              _INT, _P, _P, _P, _P, _P, _P, _P]),
@@ -72,6 +73,7 @@ SIGNATURES = {
                                    _P, _INT, _P, _P, _P, _P]),
     "dsi_wire_decode_scratch_bytes": (_I64, [_INT, _I64]),
     "dsi_wire_decode": (_INT, [_P, _INT, _I64, _I64, _I64, _INT, _P, _P, _P]),
+    "dsi_crash_sim_scratch_bytes": (_I64, [_I64, _INT, _INT, _INT]),
     "dsi_crash_sim": (_INT, [_I64, _I64, _I64, _I64, _INT, _INT, _INT, _INT,
                              _INT, _F32, _F32, _P, _P, _P]),
 }

@@ -9,10 +9,11 @@ them.  Groups, backrefs and nullable patterns decline to the host app.
 The pattern compiles on the host to an NFA of S <= 48 states and a
 ``[256, S, S]`` boolean transition table (row-vector convention: v' = v @
 M[byte]) and a start vector, as in the reference.  Kernel I
-(``csrc/nfa.cu``) takes the table in bit-set form — one u64 row mask per
-(byte, state), :func:`nfa_table_bits` — and computes the same
-per-position latch as the reference's three phases (per-block products,
-an exclusive prefix across blocks, a per-block re-walk), then kernel H's
+(``csrc/nfa.cu``) turns the table into bit-set form on the card — one u64
+row mask per (byte, state), as :func:`nfa_table_bits` — and computes the
+same per-position latch as the reference's three phases (per-block
+products, an exclusive prefix across blocks, here a decoupled look-back
+over groups of blocks, and a per-block re-walk), then kernel H's
 line-flag epilogue.  The table is a runtime argument: one build serves
 every pattern.
 
@@ -48,6 +49,7 @@ from dsi_tpu_torch.ops.wordcount import (
     _launch,
     _lib,
     _on_cuda,
+    _on_device,
     _pad_pow2,
     _ptr,
     _require,
@@ -350,9 +352,9 @@ def nfa_kernel(chunk: torch.Tensor, table: torch.Tensor, v0: torch.Tensor,
                *, l_cap: int):
     """Kernel I (``csrc/nfa.cu``); see :func:`nfa_kernel_plain`.  ``table``
     [256, S, S] float32 and ``v0`` [S] float32 lie on the chunk's device;
-    on the card they are turned into the bit-set form there.  Returns
-    (line_match [l_cap] int32 in line order, n_lines int32, overflow
-    bool), the shared tier contract."""
+    on the card the kernel's first launch turns them into the bit-set
+    form.  Returns (line_match [l_cap] int32 in line order, n_lines int32,
+    overflow bool), the shared tier contract."""
     _require(chunk, torch.uint8, 1, "nfa chunk")
     n = chunk.shape[0]
     s = table.shape[1]
@@ -360,20 +362,32 @@ def nfa_kernel(chunk: torch.Tensor, table: torch.Tensor, v0: torch.Tensor,
             or tuple(table.shape) != (256, s, s) or tuple(v0.shape) != (s,)):
         raise ValueError(f"nfa: bad shapes n={n} table={tuple(table.shape)} "
                          f"v0={tuple(v0.shape)} l_cap={l_cap}")
+    _require(table, torch.float32, 3, "nfa table")
+    _require(v0, torch.float32, 1, "nfa v0")
     if not _on_cuda(chunk):
         return nfa_kernel_plain(chunk, table, v0, l_cap=l_cap)
+    return nfa_launch(chunk, table, v0, l_cap, 3)
+
+
+def nfa_launch(chunk, table, v0, l_cap: int, phases: int):
+    """One C call of kernel I on checked card tensors: one allocation
+    (line_match, the two scalars, the scratch), no host sync.  ``phases``
+    3 runs everything; 1 or 2 stops the scan after that phase and leaves
+    the outputs unwritten, so ``chip_smoke.py`` can time each phase."""
     lib = _lib()
-    dev = chunk.device
-    bits, v0bits = nfa_table_bits(table, v0)
-    line_match = torch.empty(l_cap, dtype=torch.int32, device=dev)
-    scalars = torch.empty(2, dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.dsi_nfa_scratch_bytes(n, s), dtype=torch.uint8,
-                          device=dev)
-    with torch.cuda.device(dev):
+    n, s = chunk.shape[0], table.shape[1]
+    with _on_device(chunk.device):
+        buf = torch.empty(4 * (l_cap + 2) + lib.dsi_nfa_scratch_bytes(n, s),
+                          dtype=torch.uint8, device=chunk.device)
         _launch("nfa", lib.dsi_nfa(
-            _ptr(chunk), n, _ptr(bits), s, _ptr(v0bits), l_cap,
-            _ptr(line_match), _ptr(scalars), _ptr(scratch), _stream(chunk)))
-    return line_match, scalars[0], scalars[1] != 0
+            _ptr(chunk), n, _ptr(table), s, _ptr(v0), l_cap, _ptr(buf),
+            _ptr(buf) + 4 * l_cap, _ptr(buf) + 4 * (l_cap + 2), phases,
+            _stream(chunk)))
+    out = buf[:4 * (l_cap + 1)].view(torch.int32)
+    # The overflow word is 0 or 1: its low byte, viewed as bool, needs no
+    # launch.
+    at = 4 * (l_cap + 1)
+    return out[:l_cap], out[l_cap], buf[at:at + 1].view(torch.bool)[0]
 
 
 # ── the tier-4 cost model ───────────────────────────────────────────────

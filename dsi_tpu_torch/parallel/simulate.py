@@ -20,14 +20,16 @@ float32 mantissa.  So instance ``i`` of the port equals instance ``i`` of
 outputs, and does not depend on ``n``.
 
 :func:`simulate_batch` runs the instances on ``device``: kernel O
-(``csrc/crash_sim.cu``, one thread an instance) on the card, and on the
-CPU the plain version, which steps all instances as batched tensors tick
-by tick and freezes each on the tick where it finishes, as the vmapped
-``while_loop`` does.
+(``csrc/crash_sim.cu``: a persistent grid whose lanes each run one
+instance at a time out of registers and shared memory, refilled from a
+counter) on the card, and on the CPU the plain version, which steps all
+instances as batched tensors tick by tick and freezes each on the tick
+where it finishes, as the vmapped ``while_loop`` does.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -36,7 +38,7 @@ import torch
 from dsi_tpu_torch.ops.wordcount import (
     _launch,
     _lib,
-    _on_cuda,
+    _on_device,
     _ptr,
     _stream,
     resolve_device,
@@ -48,9 +50,6 @@ C = 2  # LOG_COMPLETED
 
 OUTPUTS = ("finished", "consistent", "safe", "ticks", "requeues",
            "duplicates", "buggy_would_break_barrier")
-_BOOL_OUTPUTS = ("finished", "consistent", "safe",
-                 "buggy_would_break_barrier")
-
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
@@ -296,14 +295,13 @@ def simulate_batch(seed: int, n_instances: int, *, n_map: int = 8,
     on the CPU."""
     _check_sizes(n_instances, n_map, n_reduce, n_workers)
     dev = resolve_device(device)
-    root = prng_key(seed, device=dev)
     exit_f, stall_f = _thresholds(exit_prob, stall_prob)
     kw = dict(n_map=n_map, n_reduce=n_reduce, n_workers=n_workers,
               timeout=timeout, horizon=horizon)
-    if not _on_cuda(root):
-        return _simulate_plain(split(root, n_instances, first), exit_f=exit_f,
-                               stall_f=stall_f, **kw)
-    return _crash_sim(root, seed, n_instances, first, exit_f=exit_f,
+    if dev.type == "cpu":
+        return _simulate_plain(split(prng_key(seed), n_instances, first),
+                               exit_f=exit_f, stall_f=stall_f, **kw)
+    return _crash_sim(dev, seed, n_instances, first, exit_f=exit_f,
                       stall_f=stall_f, **kw)
 
 
@@ -326,26 +324,42 @@ def simulate_batch_plain(seed: int, n_instances: int, *, n_map: int = 8,
                            stall_f=stall_f, work=work)
 
 
-def _crash_sim(root, seed, n, first, *, n_map, n_reduce, n_workers, timeout,
+@functools.lru_cache(maxsize=64)
+def crash_scratch_bytes(n: int, n_map: int, n_reduce: int,
+                        n_workers: int) -> int:
+    """Bytes kernel O takes after its outputs in a call of ``n`` instances:
+    the refill counter (4), then the device-memory spill, 0 bytes unless
+    one warp's state does not fit shared memory (``csrc/crash_sim.cu``)."""
+    nbytes = _lib().dsi_crash_sim_scratch_bytes(n, n_map, n_reduce,
+                                                n_workers)
+    if nbytes < 0:
+        raise RuntimeError(f"crash_sim scratch: CUDA error {-nbytes}")
+    return nbytes
+
+
+def _crash_sim(dev, seed, n, first, *, n_map, n_reduce, n_workers, timeout,
                horizon, exit_f, stall_f):
     """Kernel O (``csrc/crash_sim.cu``): replaces ``_sim_step`` (:76),
     ``simulate_job`` (:179) and the ``vmap`` of ``run_crash_model_check``
-    (:223).  Thread ``i`` keys itself as ``threefry(root, (0, first +
-    i))`` and keeps its state in global memory, instance fastest."""
-    dev = root.device
-    out = torch.empty((len(OUTPUTS), n), dtype=torch.int32, device=dev)
-    if n:
-        lib = _lib()
-        fields = 2 * n_map + 2 * n_reduce + 4 * n_workers
-        state = torch.empty(fields * n, dtype=torch.int32, device=dev)
-        r0, r1 = (int(v) for v in prng_key(seed))
-        with torch.cuda.device(dev):
-            _launch("crash_sim", lib.dsi_crash_sim(
+    (:223).  Lane by lane, instance ``i`` keys itself as ``threefry(root,
+    (0, first + i))`` and writes its outputs at ``i``: the counts as int32,
+    the flags as bytes viewed as bool.  One allocation (the outputs, the
+    counter and any spill), one C call: a memset and a launch, no host
+    sync."""
+    with _on_device(dev):
+        extra = crash_scratch_bytes(n, n_map, n_reduce, n_workers) if n else 0
+        buf = torch.empty(16 * n + extra, dtype=torch.uint8, device=dev)
+        if n:
+            r0, r1 = (int(v) for v in prng_key(seed))
+            _launch("crash_sim", _lib().dsi_crash_sim(
                 r0, r1, first, n, n_map, n_reduce, n_workers, timeout,
-                horizon, exit_f, stall_f, _ptr(state), _ptr(out),
-                _stream(root)))
-    return {name: (out[i] != 0 if name in _BOOL_OUTPUTS else out[i])
-            for i, name in enumerate(OUTPUTS)}
+                horizon, exit_f, stall_f, _ptr(buf), _ptr(buf) + 16 * n,
+                _stream(buf)))
+    ints = buf[:12 * n].view(torch.int32).view(3, n)
+    flags = buf[12 * n:16 * n].view(torch.bool).view(4, n)
+    return {"finished": flags[0], "consistent": flags[1], "safe": flags[2],
+            "ticks": ints[0], "requeues": ints[1], "duplicates": ints[2],
+            "buggy_would_break_barrier": flags[3]}
 
 
 def simulate_job(key: torch.Tensor, *, n_map: int = 8, n_reduce: int = 10,

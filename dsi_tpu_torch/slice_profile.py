@@ -1,6 +1,7 @@
 """Where the time of the port's word-count slice goes, on the card.
 
-    python -m dsi_tpu_torch.slice_profile [--baseline-csrc DIR] [--stream]
+    python -m dsi_tpu_torch.slice_profile [--baseline-csrc DIR [--ab A,B]]
+        [--stream]
     python -m dsi_tpu_torch.slice_profile --grep
     python -m dsi_tpu_torch.slice_profile --tfidf
     python -m dsi_tpu_torch.slice_profile --indexer
@@ -27,19 +28,15 @@ lines:
   (``tokenize_ab``), each version's scalars as its wrapper leaves them
   (the older interface had the caller zero them); C at the corpus and
   reduce shapes (``group_ab``); A and C each with one call of each
-  version profiled, its device time by launch; and kernel J with and
-  without its emit epilogue (``grep_ab``: the older version through its
-  two C entry points and its wrapper's allocations as that tree made them,
-  this tree's through ``grep_step``) on the bench corpus cut into 2 MiB
-  rows at 1 and 8 shards, pattern ``the``, ``l_cap`` 262,144, each call
-  checked against ``grep_step_plain`` and one of each profiled; and
-  kernels E and D (``route_ab``: the older versions through their older
-  C interface and wrappers, this tree's through ``shuffle_rows``,
-  ``fnv1a32_route`` and ``route_dest``): E at the stream step, the mesh
-  fold, the mesh append and ``tfidf_n8``'s wave, D as ``map_prologue``
-  (the hash, then eight torch ops before; one launch now) and
-  ``route_dest`` (the lanes packed, the hash, five torch ops before; one
-  launch now) run it, each checked against the plain versions;
+  version profiled, its device time by launch; and, through the
+  wrappers of the tree that holds that directory and of this tree, each
+  turn a process of its own with its tree first on the path, kernel O
+  (``crash_ab``: ``simulate_batch`` at 1,000, 2^16 and 2^20 instances in
+  the CLI's configuration) and kernel I (``nfa_ab``: ``nfa_kernel`` on the
+  bench's first file padded to 2^21 bytes in each state bucket), each
+  version's outputs checked against this tree's plain version; ``--ab``
+  names the A/Bs to run (``sort``, ``tokenize``, ``group``, ``crash``,
+  ``nfa``; all by default) and skips the profiles without a baseline;
 * with ``--stream``: ``stream_profile``, the bench's stream row (the
   corpus cycled to 64 MB, 2 MiB chunks, u_cap 2^15, depth 2) with the
   device table off and on at one shard, with the table on and the hash
@@ -86,10 +83,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -475,226 +472,132 @@ def _sort_with(lib, keys: torch.Tensor):
     return out, perm
 
 
-# The C interface of kernel J before it took one C call a step: the step
-# and its emit epilogue, each with its own scratch.
-_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_GREP_TWO_ENTRIES = {
-    "dsi_grep_step_scratch_bytes": (_I64, [_INT, _I64, _I64, _INT]),
-    "dsi_grep_step": (_INT, [_P, _INT, _I64, _P, _INT, _P, _P, _I64, _INT,
-                             _INT, _P, _P, _P, _P, _P]),
-    "dsi_grep_emit_scratch_bytes": (_I64, [_INT, _I64]),
-    "dsi_grep_emit": (_INT, [_P, _INT, _I64, _P, _I64, _INT, _P, _P, _P,
-                             _P, _P]),
-}
+# A wrapper-level A/B runs each turn in a process of its own, with the
+# tree under test first on the path, so each version runs through its own
+# wrappers and kernels built from its own csrc.  The process loads this
+# file and calls _turn; the workloads use only entry points whose
+# signatures both trees share.
+_TURN = ("import importlib.util, sys\n"
+         "spec = importlib.util.spec_from_file_location('_ab_turn', "
+         "sys.argv[1])\n"
+         "m = importlib.util.module_from_spec(spec)\n"
+         "spec.loader.exec_module(m)\n"
+         "m._turn(sys.argv[2], sys.argv[3])\n")
+_ROOT = Path(__file__).resolve().parents[1]
+_CRASH_CLI = dict(exit_prob=0.25, stall_prob=0.2, timeout=10, horizon=800)
 
 
-def _declare(lib, signatures: dict) -> None:
-    for name, (restype, argtypes) in signatures.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
+def _crash_workload(raw0: bytes):
+    """Kernel O through ``simulate_batch`` at 1,000, 2^16 and 2^20
+    instances in the CLI's configuration: (at, shape, call, plain)."""
+    from dsi_tpu_torch.parallel import simulate as sim
+
+    def outputs(d):
+        return tuple(d[k] for k in sim.OUTPUTS)
+
+    return [(f"n={n}", [n],
+             lambda n=n: outputs(sim.simulate_batch(0, n, device="cuda",
+                                                    **_CRASH_CLI)),
+             lambda n=n: outputs(sim.simulate_batch_plain(
+                 0, n, device="cuda", **_CRASH_CLI)))
+            for n in (1000, 1 << 16, 1 << 20)]
 
 
-def _grep_two_entries(lib, chunks, pats, dlen, bases, *, l_cap: int,
-                      bins: int, k: int, emit: bool):
-    """Kernel J from ``lib`` through its older two-entry interface, with
-    the allocations its wrapper made (seven tensors, two C calls)."""
-    n_dev, n = chunks.shape
-    dev = {"device": chunks.device}
-    stream = torch.cuda.current_stream().cuda_stream
-    hist_ext = torch.empty((n_dev, bins + 3), dtype=torch.int32, **dev)
-    cand = torch.empty((n_dev, k, 5), dtype=torch.int32, **dev)
-    scal = torch.empty((n_dev, 5), dtype=torch.int32, **dev)
-    scratch = torch.empty(lib.dsi_grep_step_scratch_bytes(n_dev, n, l_cap, k),
-                          dtype=torch.uint8, **dev)
-    rc = lib.dsi_grep_step(chunks.data_ptr(), n_dev, n, pats.data_ptr(),
-                           pats.shape[1], dlen.data_ptr(), bases.data_ptr(),
-                           l_cap, bins, k, hist_ext.data_ptr(),
-                           cand.data_ptr(), scal.data_ptr(),
-                           scratch.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"grep_step launch failed: CUDA error {rc}")
-    if not emit:
-        return hist_ext, cand, scal
-    comp = torch.empty((n_dev, n), dtype=torch.uint8, **dev)
-    kept = torch.empty(n_dev, dtype=torch.int32, **dev)
-    emit_scratch = torch.empty(lib.dsi_grep_emit_scratch_bytes(n_dev, n),
-                               dtype=torch.uint8, **dev)
-    rc = lib.dsi_grep_emit(chunks.data_ptr(), n_dev, n, dlen.data_ptr(),
-                           l_cap, k, scratch.data_ptr(),
-                           emit_scratch.data_ptr(), comp.data_ptr(),
-                           kept.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"grep_emit launch failed: CUDA error {rc}")
-    return hist_ext, cand, scal, comp, kept
+def _nfa_workload(raw0: bytes):
+    """Kernel I through ``nfa_kernel`` on ``raw0`` padded to a power of
+    two, one pattern a state bucket: (at, shape, call, plain)."""
+    from dsi_tpu_torch.ops import grepk, nfak
 
-
-def _grep_ab(base, raws) -> None:
-    """``grep_ab``: J with and without emit from ``base`` (the older
-    interface) and from this tree, in turns, at 1 and 8 shards."""
-    from dsi_tpu_torch.parallel.grepstream import grep_step, grep_step_plain
-
-    text = b"".join(raws)
-    for n_dev in (1, 8):
-        batch = np.zeros((n_dev, 1 << 21), np.uint8)
-        lens = np.zeros(n_dev, np.int32)
-        rest = text
-        for r in range(n_dev):
-            cut = rest.rfind(b"\n", 0, 1 << 21) + 1
-            batch[r, :cut] = np.frombuffer(rest[:cut], np.uint8)
-            lens[r] = cut
-            rest = rest[cut:]
-        args = (torch.from_numpy(batch).cuda(),
-                torch.from_numpy(np.tile(np.frombuffer(b"the", np.uint8),
-                                         (n_dev, 1))).cuda(),
-                torch.from_numpy(lens).cuda(),
-                torch.zeros(n_dev, dtype=torch.int64, device="cuda"))
-        for emit in (False, True):
-            kw = dict(l_cap=1 << 18, bins=8, k=16, emit=emit)
-            _ab("grep_ab", f"n_dev={n_dev} emit={emit}",
-                [n_dev, 1 << 21, kw["l_cap"]], {
-                    "baseline": lambda kw=kw, args=args: _grep_two_entries(
-                        base, *args, **kw),
-                    "change": lambda kw=kw, args=args: grep_step(*args,
-                                                                 **kw)},
-                grep_step_plain(*args, **kw))
-
-
-# The C interface of kernels D and E before D took both layouts and its
-# epilogue, and before E's scratch depended on the row width.
-_ROUTE_OLDER = {
-    "dsi_fnv": (_INT, [_P, _I64, _P, _INT, _P, _P]),
-    "dsi_route_scratch_bytes": (_I64, [_INT, _I64]),
-    "dsi_route": (_INT, [_P, _P, _INT, _I64, _INT, _INT, _P, _P, _P]),
-}
-
-
-def _route_older(lib, rows, dest, n_dev: int, k: int):
-    """Kernel E from ``lib`` through its older interface, with the two
-    allocations its wrapper made."""
-    _, r, w_ = rows.shape
-    recv = torch.empty((n_dev, n_dev * r, w_), dtype=torch.int32,
-                       device=rows.device)
-    scratch = torch.empty(lib.dsi_route_scratch_bytes(n_dev, r),
-                          dtype=torch.uint8, device=rows.device)
-    rc = lib.dsi_route(rows.data_ptr(), dest.data_ptr(), n_dev, r, w_, k,
-                       recv.data_ptr(), scratch.data_ptr(),
-                       torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"route launch failed: CUDA error {rc}")
-    return (recv,)
-
-
-def _fnv_older(lib, keys64, lens, mwl: int):
-    """Kernel D from ``lib`` through its older interface (u64 words)."""
-    out = torch.empty(lens.shape[0], dtype=torch.int32, device=lens.device)
-    rc = lib.dsi_fnv(keys64.data_ptr(), lens.shape[0], lens.data_ptr(), mwl,
-                     out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fnv launch failed: CUDA error {rc}")
+    chunk = torch.from_numpy(w._pad_pow2(raw0)).cuda()
+    n = chunk.shape[0]
+    l_cap = grepk.line_cap_rungs(n)[0]
+    out = []
+    for s, pat in ((16, "th[a-z]*e"), (32, "a{5,20}b"), (48, "a{20,40}b")):
+        table, v0 = (torch.from_numpy(x).cuda() for x in nfak._build_table(
+            *nfak.parse_nfa_pattern(pat)))
+        out.append((f"S={s} {pat}", [n, s, l_cap],
+                    lambda t=table, v=v0: nfak.nfa_kernel(chunk, t, v,
+                                                          l_cap=l_cap),
+                    lambda t=table, v=v0: nfak.nfa_kernel_plain(
+                        chunk, t, v, l_cap=l_cap)))
     return out
 
 
-def _route_dest_older(lib, keys, lens, valid, n_shards: int, park: int):
-    """``route_dest`` as the older tree ran it: the lanes packed into u64
-    words, D, then five torch ops."""
-    kk = keys.shape[1]
-    keys64 = torch.stack(w.pack_key_lanes(tuple(keys[:, j]
-                                                for j in range(kk))))
-    h = _fnv_older(lib, keys64, lens, 4 * kk)
-    dest = ((w._u32_value(h) & 0x7FFFFFFF) % n_shards).to(torch.int32)
-    return (torch.where(valid, dest, park).to(torch.int32),)
+_WORKLOADS = {"crash": _crash_workload, "nfa": _nfa_workload}
 
 
-def _map_rule_older(lib, keys_u, len_u, n_unique, n_reduce: int,
-                    n_dev: int):
-    """``map_prologue``'s hash and partition rule as the older tree ran
-    them: D, then eight torch ops."""
-    fnv_u = _fnv_older(lib, keys_u, len_u, 16)
-    uvalid = torch.arange(len_u.shape[0], device=len_u.device) < n_unique
-    part = (fnv_u & 0x7FFFFFFF) % n_reduce
-    dest = torch.where(uvalid, part % n_dev, n_dev).to(torch.int32)
-    return fnv_u, part.to(torch.int32), dest
+def _bench_raw0(work: str) -> bytes:
+    return Path(ensure_corpus(os.path.join(work, "c"), 8, (2 << 20) - 64,
+                              1234)[0]).read_bytes()
 
 
-def _route_ab(base, raws) -> None:
-    """``route_ab``: kernel E from ``base`` (the older interface and
-    wrapper) and from this tree in turns at the stream step, the mesh
-    fold, the mesh append and ``tfidf_n8``'s wave; kernel D as
-    ``route_dest`` (mesh fold) and ``map_prologue`` (stream step) ran it
-    before and run it now, each checked against the plain versions."""
-    from dsi_tpu_torch.device import table as dt
-    from dsi_tpu_torch.ops.meshroute import route_dest
-    from dsi_tpu_torch.parallel.shuffle import (_slice_pack, map_prologue,
-                                                mapreduce_step)
-    from dsi_tpu_torch.parallel.tfidf import (_wave_chunk, tfidf_wave_step,
-                                              wave_rows)
+def _turn(name: str, out: str) -> None:
+    """One turn of a wrapper-level A/B, in its own process: every shape
+    of workload ``name`` once (its outputs saved to ``out``), timed over
+    20 calls and profiled over one; prints the times as one JSON line."""
+    w.resolve_device("cuda")
+    with tempfile.TemporaryDirectory() as work:
+        raw0 = _bench_raw0(work)
+    saved, times = {}, {}
+    for at, _, call, _ in _WORKLOADS[name](raw0):
+        saved[at] = [torch.as_tensor(x).cpu() for x in call()]
+        times[at] = {"ms": _ms(call, 20),
+                     "device_ms_by_launch": [
+                         [e["name"][:40], e["device_ms"]]
+                         for e in _profile(call, top=8)["top"]]}
+    torch.save(saved, out)
+    print(json.dumps({"package": str(Path(w.__file__).resolve().parents[2]),
+                      "times": times}), flush=True)
 
-    step = np.zeros(1 << 21, np.uint8)
-    step[:len(raws[0])] = np.frombuffer(raws[0], np.uint8)
-    chunk = torch.from_numpy(step).cuda()
-    keys_u, _, len_u, _, n_unique, *_ = w.group_chunk(
-        chunk, max_word_len=16, u_cap=1 << 15, t_cap_frac=4, grouper="sort")
-    ep = dict(n_part=10, n_dest=1, park=1, n_valid=n_unique)
-    _ab("route_ab", "D stream step (map_prologue)", list(keys_u.shape), {
-        "baseline": lambda: _map_rule_older(base, keys_u, len_u, n_unique,
-                                            10, 1),
-        "change": lambda: w.fnv1a32_route(keys_u, len_u, 16, **ep)},
-        w.fnv1a32_route_plain(keys_u, len_u, 16, **ep))
-    packed_u, len_u, cnt_u, part, dest, _ = map_prologue(
-        chunk, n_dev=1, n_reduce=10, max_word_len=16, u_cap=1 << 15,
-        t_cap_frac=4)
-    rows1 = torch.cat([packed_u, len_u[:, None], cnt_u[:, None],
-                       part[:, None]], dim=1)[None].contiguous()
-    shapes = {"stream step": (rows1, dest[None].contiguous(), 1, 4)}
 
-    n_dev = 8
-    buf = np.zeros((n_dev, 1 << 21), np.uint8)
-    for i, raw in enumerate(raws[:n_dev]):
-        buf[i, :len(raw)] = np.frombuffer(raw, np.uint8)
-    out = mapreduce_step(torch.from_numpy(buf).cuda(), n_dev=n_dev,
-                         n_reduce=10, max_word_len=16, u_cap=1 << 15)
-    packed = _slice_pack(*out[:4], mp=out[0].shape[1])
-    operands = dt._route_operands(packed, out[4])
-    rkw = dict(n_shards=n_dev, park=n_dev)
-    _ab("route_ab", "D mesh fold (route_dest)", list(operands[0].shape), {
-        "baseline": lambda: _route_dest_older(base, *operands, **rkw),
-        "change": lambda: (route_dest(*operands, **rkw),)},
-        w.fnv1a32_route_plain(operands[0], operands[1], 16, n_part=n_dev,
-                              n_dest=n_dev, park=n_dev,
-                              valid=operands[2])[2:])
-    shapes["mesh fold"] = (packed, route_dest(*operands, **rkw).view(
-        n_dev, -1), n_dev, 4)
-
-    size = 1 << max(8, max(len(r) for r in raws).bit_length())
-    cap = w.rung0_cap(size, 1 << 15)
-    chunks = torch.from_numpy(_wave_chunk(raws, range(n_dev), n_dev,
-                                          size)).cuda()
-    ids = torch.arange(n_dev, dtype=torch.int32, device="cuda")
-    rows, scal = tfidf_wave_step(chunks, ids, n_dev=n_dev, n_reduce=10,
-                                 max_word_len=16, u_cap=cap)
-    r = rows.shape[1]
-    valid = torch.arange(r, device="cuda")[None, :] < scal[:, :1]
-    keys = torch.where(valid[..., None], rows[..., :4], -1).reshape(-1, 4)
-    lens = torch.where(valid, rows[..., 4], 0).reshape(-1)
-    shapes["mesh append"] = (rows, route_dest(
-        keys, lens, valid.reshape(-1), **rkw).view(n_dev, r), n_dev, 4)
-    wrows, wdests, _ = wave_rows(chunks, ids, n_dev=n_dev, n_reduce=10,
-                                 max_word_len=16, u_cap=cap)
-    shapes["tfidf_n8 wave"] = (wrows, wdests, n_dev, 4)
-    for at, (rows_, dest_, nd, k) in shapes.items():
-        _ab("route_ab", f"E {at}", list(rows_.shape), {
-            "baseline": lambda a=(rows_, dest_, nd, k): _route_older(base,
-                                                                     *a),
-            "change": lambda a=(rows_, dest_, nd, k): (w.shuffle_rows(
-                a[0], a[1], n_dev=a[2], k=a[3]),)},
-            (w.shuffle_rows_plain(rows_, dest_, n_dev=nd, k=k),))
+def _tree_ab(name: str, base_root: Path, raw0: bytes) -> None:
+    """``{name}_ab``: workload ``name`` through the wrappers of the tree
+    at ``base_root`` (for example the parent commit unpacked with ``git
+    archive``) and of this tree, in turns (baseline, change, change,
+    baseline), each a process of its own; every version's outputs checked
+    against this tree's plain version."""
+    roots = {"baseline": base_root, "change": _ROOT}
+    turns, outputs = [], {}
+    with tempfile.TemporaryDirectory() as work:
+        for k, who in enumerate(("baseline", "change", "change",
+                                 "baseline")):
+            out = os.path.join(work, f"{k}.pt")
+            env = {**os.environ, "PYTHONPATH": str(roots[who])}
+            run = subprocess.run(
+                [sys.executable, "-c", _TURN, __file__, name, out],
+                cwd=roots[who], env=env, capture_output=True, text=True,
+                timeout=1200)
+            if run.returncode != 0:
+                raise RuntimeError(f"{name}_ab {who} turn exited "
+                                   f"{run.returncode}: {run.stderr[-2000:]}")
+            got = json.loads(run.stdout.strip().splitlines()[-1])
+            if Path(got["package"]) != roots[who].resolve():
+                raise RuntimeError(f"{name}_ab {who} turn ran the package "
+                                   f"of {got['package']}, not {roots[who]}")
+            turns.append((who, got["times"]))
+            outputs.setdefault(who, torch.load(out))
+    for at, shape, _, plain in _WORKLOADS[name](raw0):
+        want = [torch.as_tensor(x).cpu() for x in plain()]
+        print(json.dumps({f"{name}_ab": {
+            "at": at, "shape": shape,
+            "equal_to_plain": {
+                who: all(torch.equal(g, x)
+                         for g, x in zip(got[at], want))
+                for who, got in outputs.items()},
+            "ms_in_turns": [[who, t[at]["ms"]] for who, t in turns],
+            "device_ms_by_launch": {who: t[at]["device_ms_by_launch"]
+                                    for who, t in turns[:2]}}}),
+              flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-csrc", type=Path, default=None,
                     help="csrc directory of the kernel version to compare")
+    ap.add_argument("--ab", default=None,
+                    help="with --baseline-csrc, the A/Bs to run (comma "
+                         "list of sort, tokenize, group, crash, nfa; "
+                         "default all), without the profiles")
     ap.add_argument("--stream", action="store_true",
                     help="also profile the stream row (stream_profile)")
     ap.add_argument("--grep", action="store_true",
@@ -753,19 +656,24 @@ def main() -> int:
             print(json.dumps({"stream_profile": _stream_profile(
                 files, sum(len(r) for r in raws) + len(raws) - 1)}),
                 flush=True)
+    abs_ = set(("sort tokenize group crash nfa" if args.ab is None
+                else args.ab.replace(",", " ")).split())
     buf, _, _ = _resolve_pieces(raws, None)
     for tag, kw in (("corpus_profile", {}),
                     ("corpus_hash_profile", {"grouper": "hash"}),
                     ("corpus_pack6_profile", {"pack6": True})):
-        print(json.dumps({tag: _profile(
-            lambda: corpus_wordcount(raws, device="cuda", **kw))}),
-            flush=True)
+        if args.ab is None:
+            print(json.dumps({tag: _profile(
+                lambda: corpus_wordcount(raws, device="cuda", **kw))}),
+                flush=True)
 
     chunk = torch.from_numpy(buf).cuda()
     keys = w.tokenize(chunk, max_word_len=16, t_cap=len(buf) // 4 + 1)[0]
-    print(json.dumps({"sort_profile": _profile(lambda: w.radix_sort(keys),
-                                               top=8)}), flush=True)
-    if args.baseline_csrc is not None:
+    if args.ab is None:
+        print(json.dumps({"sort_profile": _profile(
+            lambda: w.radix_sort(keys), top=8)}), flush=True)
+    if args.baseline_csrc is not None and abs_ & {"sort", "tokenize",
+                                                  "group"}:
         base = build.load(build.build(
             args.baseline_csrc, build.BUILD_DIR / "baseline"),
             names=("dsi_radix_sort_scratch_bytes", "dsi_radix_sort",
@@ -777,6 +685,8 @@ def main() -> int:
         for at, c, pl in (("corpus", chunk, True),
                           ("stream_step", torch.from_numpy(step).cuda(),
                            False)):
+            if "tokenize" not in abs_:
+                break
             t_cap = c.shape[0] // 4 + 1
             _ab("tokenize_ab", at, [c.shape[0], t_cap], {
                 "baseline": lambda c=c, t=t_cap, pl=pl: _tokenize_with(
@@ -792,6 +702,8 @@ def main() -> int:
                 ("corpus", keys, torch.ones_like(tok[1], dtype=torch.int64),
                  tok[2], w.rung0_cap(len(buf), 1 << 18)),
                 ("reduce", r_keys, r_counts, r_lens, r_keys.shape[1])):
+            if "group" not in abs_:
+                break
             sk, perm = w.radix_sort(k)
             sc = cnt[perm.long()]
             _ab("group_ab", at, [*sk.shape, u_cap], {
@@ -800,24 +712,17 @@ def main() -> int:
                 for name, lib in (("baseline", base), ("change", new))},
                 w.group_sorted_plain(sk, sc, u_cap, pay, perm))
         for at, k in (("corpus", keys), ("reduce", r_keys)):
+            if "sort" not in abs_:
+                break
             _ab("sort_ab", at, list(k.shape), {
                 name: lambda lib=lib, k=k: _sort_with(lib, k)
                 for name, lib in (("baseline", base), ("change", new))},
                 w.radix_sort_plain(k))
-        # Each A/B is written for the interface its kernels had before
-        # their redesign; a baseline that already has the newer one skips it.
-        if hasattr(base, "dsi_grep_emit"):
-            _declare(base, _GREP_TWO_ENTRIES)
-            _grep_ab(base, raws)
-        else:
-            print(json.dumps({"grep_ab": "skipped: the baseline's J has "
-                                         "the one-call interface"}))
-        if not hasattr(base, "dsi_route_tile_rows"):
-            _declare(base, _ROUTE_OLDER)
-            _route_ab(base, raws)
-        else:
-            print(json.dumps({"route_ab": "skipped: the baseline's D and "
-                                          "E have the newer interface"}))
+    if args.baseline_csrc is not None:
+        base_root = args.baseline_csrc.resolve().parents[1]
+        for name in _WORKLOADS:
+            if name in abs_:
+                _tree_ab(name, base_root, raws[0])
     return 0
 
 

@@ -1,6 +1,7 @@
 """Edge cases for kernels A (tokenize), C (group runs), J (the grep
-step) and E (the shuffle) at tile edges, and for kernel D (FNV-1a with
-its partition epilogue).
+step) and E (the shuffle) at tile edges, for kernel D (FNV-1a with its
+partition epilogue), kernel O (the crash model checker) and kernel I
+(the NFA scan) at its group edges.
 
 One set of inputs serves two checks: the CPU tests hold the port's plain
 versions against ``dsi_tpu`` on them at a small tile, and ``chip_smoke.py``
@@ -39,6 +40,15 @@ RouteCase = Tuple[str, np.ndarray, np.ndarray, int, int]
 # epilogue is None (the hash alone) or a dict of fnv1a32_route's keywords
 # n_part, n_dest, park and one of valid (bool [u]) or n_valid (an int)
 FnvCase = Tuple[str, np.ndarray, np.ndarray, int, Optional[dict]]
+# (name, n_instances, first, simulate_batch's keywords); every case has
+# seed CRASH_SEED
+CrashCase = Tuple[str, int, int, dict]
+CRASH_SEED = 3
+# (name, chunk u8 [n], pattern, state bucket, l_cap)
+NfaCase = Tuple[str, np.ndarray, str, int, int]
+# Kernel I's group (csrc/nfa.cu kGroup blocks of 256 bytes), the bytes one
+# CUDA block scans and publishes one aggregate for.
+NFA_GROUP_BYTES = 64 * 256
 
 
 def _text(rng, n: int, max_len: int = 14) -> np.ndarray:
@@ -488,4 +498,106 @@ def fnv_cases(u: int = 600, seed: int = 1234) -> List[FnvCase]:
                   {"n_part": 1 << 20, "n_dest": 1, "park": 7,
                    "n_valid": u + 5}))
     cases.append(("kk1_mwl4", lanes(1), lens(4), 4, None))
+    return cases
+
+
+def crash_cases() -> List[CrashCase]:
+    """Kernel O's cases: the reference tests' three configurations
+    (tests/test_simulate.py; the second is the CLI's), logs past one
+    32-bit mask word (n_map 33, n_reduce 65) with timeout 1 (worker state
+    in memory), no worker with a horizon of 1, one worker that always
+    exits, a run that starts at instance 37, and logs whose state does not
+    fit one warp's shared memory (n_map 1,800: the deadlines move to the
+    device-memory spill) with two workers that always stall, cut at its
+    horizon.  The counts are past one grid of 64 lanes where the refill
+    matters, and small, since the CPU tests compile the reference once a
+    configuration and model every lane."""
+    cli = dict(exit_prob=0.25, stall_prob=0.2, horizon=800)
+    return [
+        ("no_faults", 64, 0, dict(exit_prob=0.0, stall_prob=0.0,
+                                  horizon=200)),
+        ("cli", 80, 0, cli),
+        ("stalls", 64, 0, dict(exit_prob=0.0, stall_prob=0.5, timeout=5,
+                               horizon=800)),
+        ("wide_logs_timeout_1", 48, 0, dict(n_map=33, n_reduce=65,
+                                            timeout=1, horizon=800)),
+        ("no_workers_horizon_1", 64, 0, dict(n_workers=0, horizon=1)),
+        ("one_worker_exits", 48, 0, dict(n_workers=1, exit_prob=1.0,
+                                         stall_prob=0.0, horizon=60)),
+        ("cli_first_37", 48, 37, cli),
+        ("spill_deadlines_all_stall", 40, 0, dict(
+            n_map=1800, n_reduce=40, n_workers=2, exit_prob=0.0,
+            stall_prob=1.0, horizon=60)),
+    ]
+
+
+def _line_bytes(rng, n: int) -> np.ndarray:
+    """n bytes of lowercase words and spaces in lines of 20-120 bytes."""
+    out = np.frombuffer(rng.choice(np.frombuffer(
+        b"abcdefghijklmnopqrstuvwxyz      ", np.uint8), n).tobytes(),
+        np.uint8).copy()
+    at = 0
+    while True:
+        at += int(rng.integers(20, 121))
+        if at >= n:
+            return out
+        out[at] = 10
+
+
+def nfa_cases(group: int = NFA_GROUP_BYTES,
+              seed: int = 1234) -> List[NfaCase]:
+    """Kernel I's cases at a group of ``group`` bytes: every state bucket,
+    n below 256, n = 256, n one group less and more one block, matches
+    across a block edge and a group edge, a line spanning two groups, a $
+    match whose line end is a group's last byte, a chunk of newlines only
+    (its lines overflow ``l_cap``), and enough groups (34) that a
+    look-back reads past one window of 32 predecessors.  Cases of one
+    size and bucket share an ``l_cap``, so a compiled reference serves
+    them."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    l_cap = 1 << 13
+
+    def text(n):
+        buf = _line_bytes(rng, n)
+        buf[-1] = 0  # a pad byte, as _pad_pow2 leaves one
+        return buf
+
+    def put(buf, at, word: bytes):
+        buf[at:at + len(word)] = np.frombuffer(word, np.uint8)
+
+    small = text(200)
+    put(small, 10, b"the quick theme")
+    cases.append(("n200_s16", small, "th[a-z]*e", 16, l_cap))
+    b256 = text(256)
+    put(b256, 100, b"aaaaaab")
+    cases.append(("n256_s32", b256, "a{5,20}b", 32, l_cap))
+    for delta, tag in ((-256, "minus"), (256, "plus")):
+        buf = text(group + delta)
+        put(buf, 250, b" thxxxe ")
+        put(buf, len(buf) - 300, b" thaaaaae ")
+        cases.append((f"group_{tag}_one_block_s16", buf, "th[a-z]*e", 16,
+                      l_cap))
+    edge = text(2 * group)
+    put(edge, 250, b" thhhhhhe ")             # across the first block edge
+    put(edge, group - 3, b"\nth" + b"z" * 10 + b"e")  # over the group edge
+    cases.append(("block_and_group_edges_s16", edge, "th[a-z]*e", 16, l_cap))
+    dollar = text(2 * group)
+    put(dollar, group - 6, b" dogs\n")  # the \n is the group's last byte
+    put(dollar, group + 40, b" dog\n")
+    cases.append(("dollar_at_group_end_s16", dollar, "dogs?$", 16, l_cap))
+    cases.append(("only_newlines_s16", np.full(2 * group, 10, np.uint8),
+                  "^ab*c$", 16, l_cap))
+    runs = text(2 * group)
+    put(runs, group - 12, b"\n" + b"a" * 30 + b"b\n")  # a{20,40}b over it
+    cases.append(("group_edge_run_s48", runs, "a{20,40}b", 48, l_cap))
+    span = text(2 * group)
+    span[group // 2:group + group // 2] = ord("x")  # one line, two groups
+    put(span, group // 2 + 7, b"qu")
+    put(span, group + 50, b"ick")
+    cases.append(("line_spans_groups_s16", span, "qu+ick|x{3}z", 16, l_cap))
+    many = text(34 * group)
+    for g in range(0, 34, 5):
+        put(many, g * group - 2 if g else 5, b"the")
+    cases.append(("34_groups_s16", many, "th[a-z]*e", 16, l_cap))
     return cases
