@@ -270,8 +270,8 @@ PATH_KERNELS = {
     "tfidf": WC + ("compact",), "tfidf_n8": WC + ("compact",),
     "tfidf_acc": WC + ("compact", "postings_append"),
     # The indexer wave is the TF-IDF wave; the df top-k folds run B and C.
-    # The mesh append re-routes with D and E, compacts with L, appends
-    # with M.
+    # The mesh append re-routes with D and E and appends with M's received
+    # entry (compact_received fused in); L runs in the wave step.
     "indexer": WC + ("compact",), "indexer_n8": WC + ("compact",),
     "indexer_acc": WC + ("compact", "postings_append"),
     "indexer_mesh": WC + ("compact", "postings_append"),
@@ -763,6 +763,43 @@ def _launch_summary(events, reps: int) -> dict:
                 c for k, c, _ in events
                 if not k.startswith(("Memset", "Memcpy"))) // reps,
             "device_ms": sum(t for _, _, t in events) / 1e3 / reps}
+
+
+def allocs_per_call(fn):
+    """Device allocations that one call of ``fn()`` asks of PyTorch's
+    caching allocator, after a warm-up call; None off the card."""
+    import torch
+
+    if DEVICE != "cuda":
+        return None
+    fn()
+    sync()
+    key = "allocation.all.allocated"
+    before = torch.cuda.memory_stats()[key]
+    out = fn()
+    after = torch.cuda.memory_stats()[key]
+    del out
+    return after - before
+
+
+def wrapper_profile(fn, anchor: str, reps: int = 20) -> dict:
+    """A wrapper's CUDA launches, kernels and device time a call
+    (:func:`call_profile`) and its allocations (:func:`allocs_per_call`)."""
+    return {**call_profile(fn, anchor, reps),
+            "allocs_per_call": allocs_per_call(fn)}
+
+
+def over_budget(tag: str, prof: dict, launches: int, allocs: int) -> list:
+    """Failures when a profiled wrapper took more CUDA launches or device
+    allocations a call than its design (a whole window only)."""
+    out = []
+    got = prof.get("launches_per_call")
+    if got is not None and got > launches:
+        out.append(f"{tag}: {got} CUDA launches a call, above {launches}")
+    got = prof.get("allocs_per_call")
+    if got is not None and got > allocs:
+        out.append(f"{tag}: {got} allocations a call, above {allocs}")
+    return out
 
 
 def skipped_passes(keys, n=None) -> int:
@@ -1524,7 +1561,8 @@ def time_pack6(pk, tb):
             "plain_ms": cuda_ms(lambda: w.pack6_decode_plain(pk, tb), 5),
             "library_ms": None,  # no one PyTorch call decodes the codes
             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "shape": f"wire={pk.shape[0]} n={n}"}
+            "shape": f"wire={pk.shape[0]} n={n}",
+            **call_profile(lambda: w.pack6_decode(pk, tb), "pack6_decode")}
 
 
 def mesh_fold_shapes(raws):
@@ -1911,12 +1949,14 @@ def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
     l_cap = grepk.line_cap_rungs(n)[0]
     chunk = torch.from_numpy(buf).to(DEVICE)
 
-    def entry(fn, plain, nbytes, shape, reps=20, ops=None):
+    def entry(fn, plain, nbytes, shape, reps=20, ops=None, anchor=None):
         err = _worst(zip(fn(), plain()))
         e = {"max_abs_err": err, "ms": cuda_ms(fn, reps),
              "plain_ms": cuda_ms(plain, 3), "library_ms": None,
              "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
              "bound_by": "bytes", "shape": shape}
+        if anchor is not None:  # the call's CUDA launches and device time
+            e.update(call_profile(fn, anchor))
         if ops is not None:
             e["ops"] = ops
             ops_ms = ops / INT32_OPS_PER_S * 1e3
@@ -1928,13 +1968,14 @@ def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
     rows = {"grep": entry(
         lambda: grepk.grep_kernel(chunk, b"the", l_cap=l_cap),
         lambda: grepk.grep_kernel_plain(chunk, b"the", l_cap=l_cap),
-        flags_bytes, f"literal 'the': n={n} l_cap={l_cap}")}
+        flags_bytes, f"literal 'the': n={n} l_cap={l_cap}",
+        anchor="grep_flags")}
     ranges, a_s, a_e = regexk.parse_class_pattern("[Tt]he")
     kw = dict(ranges=ranges, anchor_start=a_s, anchor_end=a_e, l_cap=l_cap)
     rows["grep"]["at_shapes"] = {"class": entry(
         lambda: regexk.classgrep_kernel(chunk, **kw),
         lambda: regexk.classgrep_kernel_plain(chunk, **kw), flags_bytes,
-        f"class '[Tt]he' (K14): n={n} l_cap={l_cap}")}
+        f"class '[Tt]he' (K14): n={n} l_cap={l_cap}", anchor="grep_flags")}
 
     nfa = {}
     for s, pat in NFA_PATTERNS.items():
@@ -2142,10 +2183,49 @@ def tfidf_path(files, workdir, tag, oracle, tokens, **kw):
     return entry, launches, failures, res
 
 
-def tfidf_kernel_rows(raws):
+def check_compact_edges() -> int:
+    """L against its plain version at its own tile's edges
+    (``dsi_compact_tile_rows``): one row, one tile, one tile + 1, 128 tiles
+    + 1, 1,024 tiles + 1 (a block of two tiles), all rows valid, none or some,
+    both pad tests, a 64-byte row and rows wider than the stage (copied
+    unstaged); one case from a base 4 bytes off a 16-byte boundary.
+    Returns max_abs_err."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.kernels.build import library
+    from dsi_tpu_torch.ops.meshroute import compact_rows, compact_rows_plain
+
+    rng = np.random.default_rng(SEED)
+    err = 0
+    for n_dev, w, many in ((1, 8, 1024), (3, 8, 128), (2, 20, 128),
+                           (1, 5000, 2)):
+        tile = int(library().dsi_compact_tile_rows(n_dev, 1 << 16, w))
+        for r in sorted({1, 64, 65, tile, tile + 1, many * tile + 1}):
+            for frac in (0.0, 1.0, 0.5):
+                x = rng.integers(0, 1 << 31, (n_dev, r, w)).astype(np.int32)
+                pad = rng.random((n_dev, r)) < frac
+                x[pad, :2] = -1
+                x[~pad & (rng.random((n_dev, r)) < 0.2), 0] = -1
+                rows = torch.from_numpy(x).to(DEVICE)
+                for lanes in (1, 2):
+                    err = _merge_err(err, _worst(zip(
+                        compact_rows(rows, pad_lanes=lanes),
+                        compact_rows_plain(rows, pad_lanes=lanes))))
+    flat = torch.from_numpy(rng.integers(0, 1 << 31, 4097 * 8 + 1).astype(
+        np.int32)).to(DEVICE)
+    flat[1::16] = -1  # every other row a pad row (its lanes 0 and 1)
+    flat[2::16] = -1
+    off = flat[1:].view(1, 4097, 8)
+    return _merge_err(err, _worst(zip(compact_rows(off, pad_lanes=2),
+                                      compact_rows_plain(off, pad_lanes=2))))
+
+
+def tfidf_kernel_rows(raws, failures):
     """L and M at the TF-IDF wave's shapes, each held against its plain
-    version on the same device tensors and timed beside it.  Returns
-    ({kernel: entry with at_shapes}, {kernel: max_abs_err})."""
+    version on the same device tensors and timed beside it, with its CUDA
+    launches, allocations and device time a call (L at most 2 launches, M
+    1, each one allocation).  Returns ({kernel: entry with at_shapes},
+    {kernel: max_abs_err})."""
     import numpy as np
     import torch
     from dsi_tpu_torch.device.postings import (postings_append,
@@ -2170,6 +2250,10 @@ def tfidf_kernel_rows(raws):
                          compact_rows_plain(rows, pad_lanes=pad_lanes)))
         flag = (rows[..., :pad_lanes] == -1).all(-1).to(torch.int8)
         nbytes = 2 * rows.numel() * 4 + 4 * rows.shape[0]
+        prof = wrapper_profile(lambda: compact_rows(rows,
+                                                    pad_lanes=pad_lanes),
+                               "compact_write")
+        failures.extend(over_budget(f"compact {shape}", prof, 2, 1))
         return {"max_abs_err": err,
                 "ms": cuda_ms(lambda: compact_rows(rows,
                                                    pad_lanes=pad_lanes), reps),
@@ -2180,7 +2264,7 @@ def tfidf_kernel_rows(raws):
                     rows, 1, torch.argsort(flag, dim=1, stable=True)[
                         ..., None].expand_as(rows)), reps),
                 "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes", "shape": shape}
+                "bound_by": "bytes", "shape": shape, **prof}
 
     def l_rounds(rows, pad_lanes, reps=20):
         """Three rounds of L and its library pair at one shape, with L's
@@ -2197,6 +2281,8 @@ def tfidf_kernel_rows(raws):
         return [{"ms": cuda_ms(l_fn, reps), "library_ms": cuda_ms(lib, reps),
                  "device_ms": device_ms(l_fn, reps, "compact_")}
                 for _ in range(3)]
+
+    edge_err = check_compact_edges()
 
     recv1, recv8, recv64 = received(1, MWL), received(8, MWL), received(1, 64)
     lane0 = recv1.clone()
@@ -2215,6 +2301,8 @@ def tfidf_kernel_rows(raws):
                                             "lane-0-only rows")}
     rows_l["n_dev=1"]["rounds"] = l_rounds(recv1, 2)
     rows_l["n_dev=1"]["at_shapes"]["mwl64"]["rounds"] = l_rounds(recv64, 2)
+    rows_l["n_dev=1"]["at_shapes"]["tile_edges"] = {
+        "max_abs_err": edge_err, "shape": "dsi_compact_tile_rows edges"}
 
     def m_case(rows, scal, cap, n, dirty):
         opts = {"dtype": torch.int32, "device": DEVICE}
@@ -2235,13 +2323,16 @@ def tfidf_kernel_rows(raws):
                                       [0] * rows.shape[0])
         nbytes = 2 * nr * rows.shape[2] * 4 + 4 * 5 * rows.shape[0]
         kb, pb = base.clone(), base.clone()
+        prof = wrapper_profile(lambda: postings_append(kb, *args),
+                               "postings_append_copy")
+        failures.extend(over_budget(f"postings_append {shape}", prof, 1, 1))
         return {"max_abs_err": err,
                 "ms": cuda_ms(lambda: postings_append(kb, *args), reps),
                 "plain_ms": cuda_ms(lambda: postings_append_plain(pb, *args),
                                     5),
                 "library_ms": None, "bytes": nbytes,
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes", "shape": shape}
+                "bound_by": "bytes", "shape": shape, **prof}
 
     srecv1, n1 = compact_rows(recv1, pad_lanes=2)
     scal1 = torch.zeros((1, 5), dtype=torch.int32, device=DEVICE)
@@ -2485,22 +2576,27 @@ def indexer_path(files, workdir, tag, oracle, oracle_top, **kw):
     return entry, launches, failures, res
 
 
-def mesh_append_kernel_rows(raws):
-    """D, E, L and M as the mesh-sharded postings append (K20b) runs them on
-    the TF-IDF row's one wave of eight documents at ``MESH_SHARDS``
-    shards: the wave's compacted rows [8, 262,144, 8] re-routed by D (its
-    epilogue the rule), exchanged by E into [8, 2,097,152, 8], compacted
-    by L (``pad_lanes``
-    1) and appended by M into an empty buffer of eight times the rung-0
+def mesh_append_kernel_rows(raws, failures):
+    """D, E and M's received entry as the mesh-sharded postings append
+    (K20b) runs them on the TF-IDF row's one wave of eight documents at
+    ``MESH_SHARDS`` shards: the wave's compacted rows [8, 262,144, 8]
+    re-routed by D (its epilogue the rule), exchanged by E into [8,
+    2,097,152, 8] with its per-pair totals, and appended by M's received
+    entry (``compact_received`` fused into the append: at most 2 launches,
+    one allocation) into an empty buffer of eight times the rung-0
     capacity, each held against its plain version on the same device
-    tensors and timed beside it.  Returns ({kernel: entry}, {kernel:
-    max_abs_err})."""
+    tensors (the entry against L's then M's) and timed beside it; also L
+    alone on the same received rows (its general path).  Returns ({kernel:
+    entry}, {kernel: max_abs_err})."""
     import torch
-    from dsi_tpu_torch.device.postings import (postings_append,
-                                               postings_append_plain)
+    from dsi_tpu_torch.device.postings import (
+        postings_append_plain, postings_append_received,
+        postings_append_received_plain)
     from dsi_tpu_torch.ops import wordcount as w
     from dsi_tpu_torch.ops.meshroute import (compact_rows,
-                                             compact_rows_plain, route_dest)
+                                             compact_rows_plain,
+                                             exchange_rows, route_dest,
+                                             route_totals_plain)
     from dsi_tpu_torch.parallel.tfidf import _wave_chunk, tfidf_wave_step
 
     n_dev, kk = MESH_SHARDS, MWL // 4
@@ -2526,13 +2622,22 @@ def mesh_append_kernel_rows(raws):
                                 "mesh_append exchange", 10)}
     errs = {name: out[name]["max_abs_err"] for name in out}
 
-    recv = w.shuffle_rows_plain(rows, dest, n_dev=n_dev, k=kk)
+    # E as the append runs it, with its per-pair totals.
+    recv, totals = exchange_rows(rows, dest, n_dev=n_dev, kk=kk, totals=True)
+    errs["route"] = _merge_err(errs["route"], _worst(zip(
+        (recv, totals), (w.shuffle_rows_plain(rows, dest, n_dev=n_dev, k=kk),
+                         route_totals_plain(dest, n_dev=n_dev)))))
 
+    # L on the same received rows: its general path (compact_received).
     crows, n_recv = compact_rows_plain(recv, pad_lanes=1)
     errs["compact"] = _worst(zip(compact_rows(recv, pad_lanes=1),
                                  (crows, n_recv)))
     flag = (recv[..., 0] == -1).to(torch.int8)
     l_bytes = 2 * recv.numel() * 4 + 4 * n_dev
+    l_prof = wrapper_profile(lambda: compact_rows(recv, pad_lanes=1),
+                             "compact_write", 10)
+    failures.extend(over_budget("compact at the mesh append's recv", l_prof,
+                                2, 1))
     out["compact"] = {
         "max_abs_err": errs["compact"],
         "ms": cuda_ms(lambda: compact_rows(recv, pad_lanes=1), 10),
@@ -2544,31 +2649,53 @@ def mesh_append_kernel_rows(raws):
         "bytes": l_bytes, "bound_ms": l_bytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "shape": f"{list(recv.shape)} pad_lanes 1, "
-                 f"{int(n_recv.sum())} valid"}
+                 f"{int(n_recv.sum())} valid (L's general path; the mesh "
+                 "append runs M's received entry)", **l_prof}
 
+    # M's received entry against L then M plain, on the same tensors.
     bcap = n_dev * cap
     scal_m = n_recv.view(n_dev, 1).contiguous()
     opts = {"dtype": torch.int32, "device": DEVICE}
     zeros = torch.zeros(n_dev, **opts)
     kb = torch.zeros((n_dev, bcap, kk + 4), **opts)
-    pb = kb.clone()
-    got = postings_append(kb, zeros, zeros, crows, scal_m)
-    want = postings_append_plain(pb, zeros, zeros, crows, scal_m)
-    errs["postings_append"] = _worst(zip((kb,) + tuple(got),
-                                         (pb,) + tuple(want)))
-    if int(got[2][:, 0].max()) != 0:
-        errs["postings_append"] = -1  # the wave fits: it had to commit
+
+    def received(n, dirty):
+        k, p = kb.clone(), kb.clone()
+        got = postings_append_received(k, n, dirty, recv, totals)
+        want = postings_append_plain(p, n, dirty, crows, scal_m)
+        return _worst(zip((k,) + tuple(got), (p,) + tuple(want))), got[2]
+
+    err, flags = received(zeros, zeros)
+    if int(flags[:, 0].max()) != 0:
+        err = -1  # the wave fits: it had to commit
+    over = zeros.clone()
+    over[0] = bcap - int(n_recv[0]) + 1
+    for n, dirty in ((over, zeros), (zeros, torch.ones_like(zeros))):
+        e, flags = received(n, dirty)
+        err = _merge_err(err, e if int(flags[:, 0].min()) == 1 else -1)
+    errs["postings_append"] = err
     nr = int(n_recv.sum())
-    m_bytes = 2 * nr * (kk + 4) * 4 + 4 * 5 * n_dev
+    # The kept rows read and written once; totals, n and dirty read; the
+    # counts and flags written.
+    m_bytes = 2 * nr * (kk + 4) * 4 + 4 * (n_dev * n_dev + 6 * n_dev)
+
+    def fused():
+        return postings_append_received(kb, zeros, zeros, recv, totals)
+
+    m_prof = wrapper_profile(fused, "postings_append_write")
+    failures.extend(over_budget("postings_append (received entry)", m_prof,
+                                2, 1))
+    pb = kb.clone()
     out["postings_append"] = {
-        "max_abs_err": errs["postings_append"],
-        "ms": cuda_ms(lambda: postings_append(kb, zeros, zeros, crows,
-                                              scal_m), 20),
-        "plain_ms": cuda_ms(lambda: postings_append_plain(
-            pb, zeros, zeros, crows, scal_m), 2),
+        "max_abs_err": err,
+        "ms": cuda_ms(fused, 20),
+        "plain_ms": cuda_ms(lambda: postings_append_received_plain(
+            pb, zeros, zeros, recv, totals), 2),
         "library_ms": None, "bytes": m_bytes,
         "bound_ms": m_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "shape": f"rows {list(crows.shape)} into cap {bcap}, {nr} rows"}
+        "shape": f"received entry: recv {list(recv.shape)} into cap {bcap},"
+                 f" {nr} rows kept (L + M fused; overflow and dirty exact)",
+        **m_prof}
     return out, errs
 
 
@@ -2651,7 +2778,9 @@ def wire_kernel_rows(files):
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None, "max_abs_err": d,
             "shape": f"packed {list(pk.shape)} -> [{n_dev}, {n}], {mode}"
-                     + (f" lit_cap {cap}" if mode == "nib" else "")}
+                     + (f" lit_cap {cap}" if mode == "nib" else ""),
+            **call_profile(lambda: wcd.decode_chunk_device(pk, **kw),
+                           "wire_write" if mode == "nib" else "wire_decode7")}
         log({"wire_case": name, **shapes[name]})
     main = shapes["bench_b7_n1"]
     return {**main, "at_shapes": {k: v for k, v in shapes.items()
@@ -3868,7 +3997,7 @@ def main() -> int:
                             "the topk shape")
 
         # Phase 9: TF-IDF.
-        tf_rows, tf_err = tfidf_kernel_rows(raws)
+        tf_rows, tf_err = tfidf_kernel_rows(raws, failures)
         times.update(tf_rows)
         err.update(tf_err)
         wave_shapes = wave_shape_rows(raws)
@@ -3909,7 +4038,7 @@ def main() -> int:
                             "one wave")
 
         # Phase 10: the streaming indexer and the mesh-sharded postings.
-        ma_rows, ma_err = mesh_append_kernel_rows(raws)
+        ma_rows, ma_err = mesh_append_kernel_rows(raws, failures)
         log({"mesh_append_shapes": ma_rows, "gpu": gpu})
         for name, e in ma_err.items():
             err[name] = _merge_err(err[name], e)
@@ -3949,7 +4078,7 @@ def main() -> int:
             failures.append("indexer_n8: the eight documents took more "
                             "than one wave")
         # The mesh paths against the same walk unsharded, posting order
-        # included, and their second route: D, E and L launch again in
+        # included, and their second route: D, E and M launch again in
         # every mesh append (and D, E in every mesh df fold).
         for tag, base_tag, same in (
                 ("indexer_mesh", "indexer_n8",
@@ -3964,7 +4093,7 @@ def main() -> int:
             if st.get("mesh_shards") != MESH_SHARDS:
                 failures.append(f"{tag}: the postings were not "
                                 "mesh-sharded")
-            for name in ("fnv", "route", "compact"):
+            for name in ("fnv", "route", "postings_append"):
                 extra = (runs[tag]["launches"][name]
                          - runs[base_tag]["launches"][name])
                 if extra < max(1, st.get("appends", 0)):
@@ -4097,7 +4226,7 @@ def main() -> int:
                     "epilogue_device_ms", "device_ms_by_kernel",
                     "device_ms_by_phase", "scratch_bytes",
                     "device_ms", "launches_per_call", "kernels_per_call",
-                    "passes_run",
+                    "allocs_per_call", "passes_run",
                     "skipped_passes", "path", "library_x_k64_ms", "rounds",
                     "small_path_ms", "large_path_ms"):
             if key in tm:

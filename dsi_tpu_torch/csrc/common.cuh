@@ -49,6 +49,31 @@ __device__ T block_exclusive_scan(T v, T& total) {
   return result;
 }
 
+// Copies g[0, n) into shared memory at 16 bytes a thread, by a block of
+// THREADS threads (kernels E, L and M stage their tiles with it); returns
+// where word 0 landed in `stage` (n + 3 words), offset so that the 16-byte
+// aligned words of g land on 16-byte aligned words of the stage.
+template <int THREADS>
+__device__ uint32_t* load_words(const uint32_t* g, int n, uint32_t* stage) {
+  int head = int((4 - ((reinterpret_cast<uintptr_t>(g) >> 2) & 3)) & 3);
+  head = head < n ? head : n;
+  uint32_t* st = stage + ((4 - head) & 3);
+  const int nv = (n - head) >> 2;
+  const uint4* gv = reinterpret_cast<const uint4*>(g + head);
+  uint4* sv = reinterpret_cast<uint4*>(st + head);
+  for (int v = threadIdx.x; v < nv; v += THREADS) sv[v] = gv[v];
+  const int tail = head + 4 * nv;
+  const int x = threadIdx.x;
+  if (x < head) st[x] = g[x];
+  if (x < n - tail) st[tail + x] = g[tail + x];
+  return st;
+}
+
+// The words of a stage of n words for load_words, rounded up to 16 bytes.
+__host__ __device__ inline int64_t stage_words(int64_t n) {
+  return (n + 3 + 3) & ~int64_t(3);
+}
+
 constexpr int kScanThreads = 1024;
 
 // Exclusive scan of in[0, n) into out[0, n) by ONE block of kScanThreads:

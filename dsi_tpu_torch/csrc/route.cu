@@ -86,24 +86,6 @@ __device__ void load_dests(const int* g, int n, int n_dev, int* sd) {
   if (x < n - tail) sd[tail + x] = clamp_dest(g[tail + x], n_dev);
 }
 
-// Copies g[0, n) into shared memory at 16 bytes a thread; returns where
-// word 0 landed in `stage` (n + 3 words), offset so that the 16-byte
-// aligned words of g land on 16-byte aligned words of the stage.
-__device__ uint32_t* load_words(const uint32_t* g, int n, uint32_t* stage) {
-  int head = int((4 - ((reinterpret_cast<uintptr_t>(g) >> 2) & 3)) & 3);
-  head = head < n ? head : n;
-  uint32_t* st = stage + ((4 - head) & 3);
-  const int nv = (n - head) >> 2;
-  const uint4* gv = reinterpret_cast<const uint4*>(g + head);
-  uint4* sv = reinterpret_cast<uint4*>(st + head);
-  for (int v = threadIdx.x; v < nv; v += kEThreads) sv[v] = gv[v];
-  const int tail = head + 4 * nv;
-  const int x = threadIdx.x;
-  if (x < head) st[x] = g[x];
-  if (x < n - tail) st[tail + x] = g[tail + x];
-  return st;
-}
-
 // Warp w walks rows [w * stretch, (w + 1) * stretch) of the tile in order,
 // 32 at a time, and counts them per destination in its own counters
 // wcnt[w][.]; with `rank`, rank[i] = the rows of i's destination before i
@@ -315,7 +297,8 @@ __global__ void __launch_bounds__(kEThreads)
   // of the mesh shapes' tiles are) reads none of them.
   const uint32_t* st =
       n_sorted > 0
-          ? load_words(rows + (int64_t(s) * r + row0) * w, n * w, m.stage)
+          ? load_words<kEThreads>(rows + (int64_t(s) * r + row0) * w, n * w,
+                                  m.stage)
           : nullptr;
   __syncthreads();
 
@@ -363,6 +346,14 @@ extern "C" {
 
 // The rows a tile of kernel E holds for rows of w words.
 int64_t dsi_route_tile_rows(int w) { return tile_rows(w); }
+
+// Where, in bytes from the start of the scratch, dsi_route leaves
+// totals[s * n_dev + d] (i32): the rows of source s routed to d, so that
+// recv[d][s * r, s * r + totals[s * n_dev + d]) are that pair's rows and
+// the rest of its block pad.
+int64_t dsi_route_totals_offset(int n_dev, int64_t r, int w) {
+  return align8(4 * int64_t(n_dev) * n_dev * ceil_div(r, tile_rows(w)));
+}
 
 int64_t dsi_route_scratch_bytes(int n_dev, int64_t r, int w) {
   const int64_t tiles = ceil_div(r, tile_rows(w));

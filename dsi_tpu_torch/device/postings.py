@@ -18,12 +18,14 @@ when it fills.
 * ``mesh_postings_append`` (K20b, ``mesh_shards``): every valid row is
   re-routed to shard ``ihash(word) % n_shards`` before the append, a
   chain of the port's kernels: D (``route_dest``; rows past a shard's
-  count park on ``n_dev``), E (``exchange_rows``), L
-  (``compact_received``, the received rows valid-first in received
-  order) and M, given the compacted rows and L's counts.  A word's rows
-  come from one source shard (the wave's shuffle grouped them) and E
-  keeps source order, so per-word posting order survives the re-route;
-  the overflow stays global and ``dirty`` sticky, as M computes them.
+  count park on ``n_dev``), E (``exchange_rows`` with its per-pair
+  totals) and M's received entry (``postings_append_received``), which
+  does ``compact_received``'s work inside the append: it reads only each
+  pair's routed rows, drops those whose lane 0 is all ones, and writes
+  the rest in received order.  A word's rows come from one source shard
+  (the wave's shuffle grouped them) and E keeps source order, so
+  per-word posting order survives the re-route; the overflow stays
+  global and ``dirty`` sticky, as M computes them.
 * flags are confirmed ``lag`` appends late, as the device table's are:
   a ``non_blocking`` copy into pinned memory with a CUDA event, waited
   on only when the append leaves the window.  An append that overflowed
@@ -40,12 +42,13 @@ The checkpoint image is not ported yet.  ``stats`` receives ``appends``,
 from __future__ import annotations
 
 import collections
+import functools
 from typing import Callable, Deque, Optional, Tuple
 
 import numpy as np
 import torch
 
-from dsi_tpu_torch.ops.meshroute import (compact_received, exchange_rows,
+from dsi_tpu_torch.ops.meshroute import (compact_rows_plain, exchange_rows,
                                          route_dest)
 from dsi_tpu_torch.ops.wordcount import (
     _PAD_KEY32,
@@ -53,9 +56,9 @@ from dsi_tpu_torch.ops.wordcount import (
     _launch,
     _lib,
     _on_cuda,
+    _on_device,
     _ptr,
     _require,
-    _stream,
 )
 from dsi_tpu_torch.device.table import _pow2
 from dsi_tpu_torch.parallel.pipeline import timed
@@ -92,11 +95,24 @@ def postings_append_plain(buf, n, dirty, rows, scal):
     return out_n, no_op, torch.stack([no_op, out_n], dim=1)
 
 
+def _append_outputs(buf: torch.Tensor, extra_words: int = 0):
+    """One allocation for an append's (n_out, dirty_out, flags) and
+    ``extra_words`` of scratch: the tensors, and the address of each."""
+    n_dev = buf.shape[0]
+    outs = torch.empty(4 * n_dev + extra_words, dtype=torch.int32,
+                       device=buf.device)
+    base = _ptr(outs)
+    return ((outs.as_strided((n_dev,), (1,), 0),
+             outs.as_strided((n_dev,), (1,), n_dev),
+             outs.as_strided((n_dev, 2), (2, 1), 2 * n_dev)),
+            (base, base + 4 * n_dev, base + 8 * n_dev, base + 16 * n_dev))
+
+
 def postings_append(buf, n, dirty, rows, scal):
     """Kernel M (``csrc/postings_append.cu``); see
     :func:`postings_append_plain`.  The new counts come back in fresh
-    tensors: the kernel never writes the ``n`` and ``dirty`` its blocks
-    read."""
+    tensors, one allocation: the kernel never writes the ``n`` and
+    ``dirty`` its blocks read."""
     _require(buf, torch.int32, 3, "postings buf")
     _require(n, torch.int32, 1, "postings n")
     _require(dirty, torch.int32, 1, "postings dirty")
@@ -112,16 +128,76 @@ def postings_append(buf, n, dirty, rows, scal):
     if not _on_cuda(buf):
         return postings_append_plain(buf, n, dirty, rows, scal)
     lib = _lib()
-    opts = {"dtype": torch.int32, "device": buf.device}
-    n_out = torch.empty(n_dev, **opts)
-    dirty_out = torch.empty(n_dev, **opts)
-    flags = torch.empty((n_dev, 2), **opts)
-    with torch.cuda.device(buf.device):
-        _launch("postings_append", lib.dsi_postings_append(
+    dev = buf.device
+    outs, (p_n, p_dirty, p_flags, _) = _append_outputs(buf)
+    with _on_device(dev):
+        rc = lib.dsi_postings_append(
             _ptr(buf), n_dev, cap, w, _ptr(n), _ptr(dirty), _ptr(rows), r,
-            _ptr(scal), scal.shape[1], _ptr(n_out), _ptr(dirty_out),
-            _ptr(flags), _stream(buf)))
-    return n_out, dirty_out, flags
+            _ptr(scal), scal.shape[1], p_n, p_dirty, p_flags,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    _launch("postings_append", rc)
+    return outs
+
+
+def postings_append_received_plain(buf, n, dirty, recv, totals):
+    """Plain version of kernel M's received entry: of ``recv`` [n_dev,
+    n_dev*r, w] (an :func:`exchange_rows` result) only each pair's routed
+    rows ``recv[d, s*r : s*r + totals[s, d]]`` count, less those whose
+    lane 0 is all ones (``compact_received``'s pad test); the rest are
+    compacted in received order with :func:`compact_rows_plain` and
+    appended with :func:`postings_append_plain`.  Returns its (n_out,
+    dirty_out, flags)."""
+    n_dev, rr, _ = recv.shape
+    r = rr // n_dev
+    j = torch.arange(r, device=recv.device)
+    routed = (j[None, None, :] < totals.t()[:, :, None]).reshape(n_dev, rr)
+    rows = torch.where(routed[..., None], recv, _PAD_KEY32)
+    crows, n_recv = compact_rows_plain(rows, pad_lanes=1)
+    return postings_append_plain(buf, n, dirty, crows, n_recv.view(n_dev, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _received_scratch_words(n_dev: int, r: int) -> int:
+    return -(-_lib().dsi_postings_append_received_scratch_bytes(n_dev, r)
+             // 4)
+
+
+def postings_append_received(buf, n, dirty, recv, totals):
+    """Kernel M's received entry (``csrc/postings_append.cu``, counted as
+    ``postings_append``); see :func:`postings_append_received_plain`.
+    Fuses K20b's ``compact_received`` (kernel L's work) into the append:
+    two launches, no pad row read or written.  ``totals`` [n_dev, n_dev]
+    int32 is :func:`exchange_rows`'s; ``recv`` must be as kernel E wrote
+    it (pad rows past each pair's routed rows, lane 0 all ones).  One
+    allocation: the outputs and the kernel's scratch."""
+    for t, nd, what in ((buf, 3, "postings buf"), (n, 1, "postings n"),
+                        (dirty, 1, "postings dirty"),
+                        (recv, 3, "received rows"),
+                        (totals, 2, "route totals")):
+        _require(t, torch.int32, nd, what)
+    n_dev, cap, w = buf.shape
+    rr = recv.shape[1]
+    if (recv.shape[0] != n_dev or recv.shape[2] != w or rr < n_dev
+            or rr % n_dev or cap < 1 or not 1 <= n_dev <= 1024
+            or tuple(n.shape) != (n_dev,) or tuple(dirty.shape) != (n_dev,)
+            or tuple(totals.shape) != (n_dev, n_dev)):
+        raise ValueError(f"postings_append_received: bad shapes buf="
+                         f"{tuple(buf.shape)} recv={tuple(recv.shape)} "
+                         f"totals={tuple(totals.shape)}")
+    if not _on_cuda(buf):
+        return postings_append_received_plain(buf, n, dirty, recv, totals)
+    lib = _lib()
+    dev = buf.device
+    r = rr // n_dev
+    outs, (p_n, p_dirty, p_flags, p_scratch) = _append_outputs(
+        buf, _received_scratch_words(n_dev, r))
+    with _on_device(dev):
+        rc = lib.dsi_postings_append_received(
+            _ptr(buf), n_dev, cap, w, _ptr(n), _ptr(dirty), _ptr(recv), r,
+            _ptr(totals), p_n, p_dirty, p_flags, p_scratch,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    _launch("postings_append", rc)
+    return outs
 
 
 def mesh_postings_append(buf, n, dirty, rows, scal, *, kk: int,
@@ -129,20 +205,22 @@ def mesh_postings_append(buf, n, dirty, rows, scal, *, kk: int,
     """K20b (reference ``_mesh_append_device`` :104-141): re-route the
     wave's rows ``rows`` [n_dev, r, w] (the first ``scal[d, 0]`` of each
     shard valid; ``kk`` key lanes then the length) to shard ``ihash(word)
-    % n_shards`` with D and E, compact what each shard received with L,
-    and append it with M.  The received rows can number ``n_dev * r`` on
-    one shard.  Returns M's (n_out, dirty_out, flags)."""
+    % n_shards`` with D and E, and append what each shard received with
+    M's received entry, which compacts it as the reference's
+    ``compact_received`` does.  The received rows can number ``n_dev * r``
+    on one shard.  Returns M's (n_out, dirty_out, flags)."""
     n_dev, r, _ = rows.shape
+    if kk < 1:
+        raise ValueError(f"mesh_postings_append: kk={kk}, want a key lane")
     valid = (torch.arange(r, device=rows.device)[None, :]
              < scal[:, :1])
     keys = torch.where(valid[..., None], rows[..., :kk], _PAD_KEY32)
     lens = torch.where(valid, rows[..., kk], 0)
     dest = route_dest(keys.reshape(-1, kk), lens.reshape(-1),
                       valid.reshape(-1), n_shards=n_shards, park=n_dev)
-    recv = exchange_rows(rows, dest.view(n_dev, r), n_dev=n_dev, kk=kk)
-    crows, n_recv = compact_received(recv)
-    return postings_append(buf, n, dirty, crows,
-                           n_recv.view(n_dev, 1))
+    recv, totals = exchange_rows(rows, dest.view(n_dev, r), n_dev=n_dev,
+                                 kk=kk, totals=True)
+    return postings_append_received(buf, n, dirty, recv, totals)
 
 
 def _not_ported(what: str) -> NotImplementedError:

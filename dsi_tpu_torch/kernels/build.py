@@ -48,6 +48,7 @@ SIGNATURES = {
     "dsi_route_scratch_bytes": (_I64, [_INT, _I64, _INT]),
     "dsi_route": (_INT, [_P, _P, _INT, _I64, _INT, _INT, _P, _P, _P]),
     "dsi_route_tile_rows": (_I64, [_INT]),
+    "dsi_route_totals_offset": (_I64, [_INT, _I64, _INT]),
     "dsi_hash_group_scratch_bytes": (_I64, [_INT, _I64, _I64]),
     "dsi_hash_bucket": (_INT, [_P, _INT, _I64, _P, _P, _P, _P, _I64, _I64,
                                _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
@@ -67,10 +68,15 @@ SIGNATURES = {
     "dsi_grep_step_tile_bytes": (_I64, []),
     "dsi_grep_step_line_tile": (_I64, []),
     "dsi_relay_pack": (_INT, [_P, _INT, _I64, _P, _P, _P]),
-    "dsi_compact_scratch_bytes": (_I64, [_INT, _I64]),
+    "dsi_compact_scratch_bytes": (_I64, [_INT, _I64, _INT]),
+    "dsi_compact_tile_rows": (_I64, [_INT, _I64, _INT]),
     "dsi_compact": (_INT, [_P, _INT, _I64, _INT, _INT, _P, _P, _P, _P]),
     "dsi_postings_append": (_INT, [_P, _INT, _I64, _INT, _P, _P, _P, _I64,
                                    _P, _INT, _P, _P, _P, _P]),
+    "dsi_postings_append_received_scratch_bytes": (_I64, [_INT, _I64]),
+    "dsi_postings_append_received": (_INT, [_P, _INT, _I64, _INT, _P, _P,
+                                            _P, _I64, _P, _P, _P, _P, _P,
+                                            _P]),
     "dsi_wire_decode_scratch_bytes": (_I64, [_INT, _I64]),
     "dsi_wire_decode": (_INT, [_P, _INT, _I64, _I64, _I64, _INT, _P, _P, _P]),
     "dsi_crash_sim_scratch_bytes": (_I64, [_I64, _INT, _INT, _INT]),

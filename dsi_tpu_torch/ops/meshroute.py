@@ -12,15 +12,18 @@ per-device routing and its ``all_to_all`` run for all shards at once:
   ``len`` bytes, with ``& 0x7fffffff`` and ``% n_shards`` in its
   epilogue; invalid rows park on ``n_dev``;
 * ``exchange_rows``: kernel E, every shard's rows to their owning shard
-  in stable order, one block per (destination, source) pair;
+  in stable order, one block per (destination, source) pair; with
+  ``totals`` also each pair's routed row count, which E computes anyway;
 * ``compact_received`` (``:83``): kernel L (``csrc/compact.cu``, through
   :func:`compact_rows`), the stable valid-first partition of the
   received rows that the TF-IDF wave step shares
-  (``parallel/tfidf.py``).
+  (``parallel/tfidf.py``).  The mesh-sharded postings append fuses it
+  into kernel M instead (``device/postings.py``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -32,9 +35,9 @@ from dsi_tpu_torch.ops.wordcount import (
     _launch,
     _lib,
     _on_cuda,
+    _on_device,
     _ptr,
     _require,
-    _stream,
     fnv1a32_route,
     shuffle_rows,
 )
@@ -54,13 +57,45 @@ def route_dest(keys: torch.Tensor, lens: torch.Tensor, valid: torch.Tensor,
 
 
 def exchange_rows(rows: torch.Tensor, dest: torch.Tensor, *, n_dev: int,
-                  kk: int) -> torch.Tensor:
+                  kk: int, totals: bool = False):
     """All-to-all every shard's rows ``rows`` [n_dev, r, kk+p] (int32) to
     their owning shards ``dest`` [n_dev, r] (``n_dev`` parks a row).
     Returns [n_dev, n_dev*r, kk+p]: per destination, the source blocks in
     shard order, each its rows in order then pad rows (key lanes all ones,
-    zero payload)."""
-    return shuffle_rows(rows, dest, n_dev=n_dev, k=kk)
+    zero payload).  With ``totals``, returns (recv, totals [n_dev, n_dev]
+    int32): ``totals[s, d]`` rows of source s went to d, so
+    ``recv[d, s*r : s*r + totals[s, d]]`` are that pair's rows.  On the
+    card ``totals`` is a view of the scratch kernel E leaves behind
+    ``recv`` (``dsi_route_totals_offset``); on the CPU the destination
+    counts that :func:`shuffle_rows_plain` scatters by."""
+    recv = shuffle_rows(rows, dest, n_dev=n_dev, k=kk)
+    if not totals:
+        return recv
+    if not _on_cuda(recv):
+        return recv, route_totals_plain(dest, n_dev=n_dev)
+    r, w = rows.shape[1], rows.shape[2]
+    return recv, recv.as_strided(
+        (n_dev, n_dev), (n_dev, 1),
+        n_dev * n_dev * r * w + _route_totals_word(n_dev, r, w))
+
+
+def route_totals_plain(dest: torch.Tensor, *, n_dev: int) -> torch.Tensor:
+    """[n_dev, n_dev] int32: per source shard (row of ``dest`` [n_dev,
+    r]), its rows bound for each destination; a dest outside [0, n_dev)
+    is dropped, as :func:`shuffle_rows_plain` parks it."""
+    d = dest.to(torch.int64)
+    d = torch.where((d < 0) | (d > n_dev), n_dev, d)
+    src = torch.arange(dest.shape[0], device=dest.device)[:, None]
+    counts = torch.bincount((src * (n_dev + 1) + d).reshape(-1),
+                            minlength=dest.shape[0] * (n_dev + 1))
+    return counts.view(-1, n_dev + 1)[:, :n_dev].to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _route_totals_word(n_dev: int, r: int, w: int) -> int:
+    """Where kernel E's per-pair totals sit in its scratch, in int32
+    words."""
+    return _lib().dsi_route_totals_offset(n_dev, r, w) // 4
 
 
 def compact_rows_plain(rows: torch.Tensor, *, pad_lanes: int):
@@ -74,11 +109,19 @@ def compact_rows_plain(rows: torch.Tensor, *, pad_lanes: int):
     return out, (~is_pad).sum(dim=1).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _compact_scratch_words(n_dev: int, r: int, w: int) -> int:
+    """Kernel L's scratch for one shape, in int32 words."""
+    return -(-_lib().dsi_compact_scratch_bytes(n_dev, r, w) // 4)
+
+
 def compact_rows(rows: torch.Tensor, *, pad_lanes: int):
     """Kernel L (``csrc/compact.cu``); see :func:`compact_rows_plain`.
     Replaces the stable pad-bit partitions of ``dsi_tpu``'s TF-IDF wave
     step (``parallel/tfidf.py:124-134``, ``pad_lanes`` 2: the first
-    packed u64 key word) and of ``compact_received`` (``pad_lanes`` 1)."""
+    packed u64 key word) and of ``compact_received`` (``pad_lanes`` 1).
+    On the card: one allocation (the rows, then ``n_valid``, then the
+    kernel's scratch), one C call, two launches."""
     _require(rows, torch.int32, 3, "compact rows")
     n_dev, r, w = rows.shape
     if n_dev < 1 or r < 1 or not 1 <= pad_lanes <= w:
@@ -87,14 +130,18 @@ def compact_rows(rows: torch.Tensor, *, pad_lanes: int):
     if not _on_cuda(rows):
         return compact_rows_plain(rows, pad_lanes=pad_lanes)
     lib = _lib()
-    out = torch.empty_like(rows)
-    n_valid = torch.empty(n_dev, dtype=torch.int32, device=rows.device)
-    scratch = torch.empty(lib.dsi_compact_scratch_bytes(n_dev, r),
-                          dtype=torch.uint8, device=rows.device)
-    with torch.cuda.device(rows.device):
-        _launch("compact", lib.dsi_compact(
-            _ptr(rows), n_dev, r, w, pad_lanes, _ptr(out), _ptr(n_valid),
-            _ptr(scratch), _stream(rows)))
+    dev = rows.device
+    words = n_dev * r * w
+    buf = torch.empty(words + n_dev + _compact_scratch_words(n_dev, r, w),
+                      dtype=torch.int32, device=dev)
+    out = buf.as_strided((n_dev, r, w), (r * w, w, 1), 0)
+    n_valid = buf.as_strided((n_dev,), (1,), words)
+    base = _ptr(buf)
+    with _on_device(dev):
+        rc = lib.dsi_compact(_ptr(rows), n_dev, r, w, pad_lanes, base,
+                             base + 4 * words, base + 4 * (words + n_dev),
+                             torch._C._cuda_getCurrentRawStream(dev.index))
+    _launch("compact", rc)
     return out, n_valid
 
 

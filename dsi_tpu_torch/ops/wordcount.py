@@ -39,7 +39,8 @@ The grep and TF-IDF kernels launch from their own modules through the same
 (K21); ``compact`` (``ops/meshroute.py``) —
 ``csrc/compact.cu`` (K18's partition, ``compact_received``);
 ``postings_append`` (``device/postings.py``) —
-``csrc/postings_append.cu`` (K20a); ``wire_decode`` (``ops/wirecodec.py``)
+``csrc/postings_append.cu`` (K20a, and K20b's compaction and append in
+its received entry); ``wire_decode`` (``ops/wirecodec.py``)
 — ``csrc/wire_decode.cu`` (K22); ``crash_sim`` (``parallel/simulate.py``)
 — ``csrc/crash_sim.cu`` (K23).
 

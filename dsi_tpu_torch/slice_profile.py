@@ -33,10 +33,15 @@ lines:
   turn a process of its own with its tree first on the path, kernel O
   (``crash_ab``: ``simulate_batch`` at 1,000, 2^16 and 2^20 instances in
   the CLI's configuration) and kernel I (``nfa_ab``: ``nfa_kernel`` on the
-  bench's first file padded to 2^21 bytes in each state bucket), each
-  version's outputs checked against this tree's plain version; ``--ab``
-  names the A/Bs to run (``sort``, ``tokenize``, ``group``, ``crash``,
-  ``nfa``; all by default) and skips the profiles without a baseline;
+  bench's first file padded to 2^21 bytes in each state bucket), kernel
+  L (``compact_ab``: ``compact_rows`` on the TF-IDF wave's received rows,
+  every shard the bench's first file, at 1 and 8 shards) and kernel M
+  (``append_ab``: ``postings_append`` of that wave's compacted rows at one
+  shard, and ``mesh_postings_append`` of the 8-shard wave, whose L and M
+  work this tree fuses), each version's outputs checked against this
+  tree's plain version; ``--ab`` names the A/Bs to run (``sort``,
+  ``tokenize``, ``group``, ``crash``, ``nfa``, ``compact``, ``append``;
+  all by default) and skips the profiles without a baseline;
 * with ``--stream``: ``stream_profile``, the bench's stream row (the
   corpus cycled to 64 MB, 2 MiB chunks, u_cap 2^15, depth 2) with the
   device table off and on at one shard, with the table on and the hash
@@ -523,7 +528,71 @@ def _nfa_workload(raw0: bytes):
     return out
 
 
-_WORKLOADS = {"crash": _crash_workload, "nfa": _nfa_workload}
+def _wave_inputs(raw0: bytes, n_dev: int):
+    """The TF-IDF row's wave at ``n_dev`` shards, every shard the document
+    ``raw0`` (2 MiB chunks, u_cap the rung-0 capacity of 2^15, 16-byte
+    words): its received rows [n_dev, n_dev * 32,768, 8] and its
+    compacted rows and scalars, each through the tree's own kernels."""
+    from dsi_tpu_torch.parallel.tfidf import (_wave_chunk, tfidf_wave_step,
+                                              wave_received)
+
+    size = 1 << max(8, len(raw0).bit_length())
+    chunks = torch.from_numpy(_wave_chunk([raw0] * n_dev, range(n_dev),
+                                          n_dev, size)).cuda()
+    ids = torch.arange(n_dev, dtype=torch.int32, device="cuda")
+    kw = dict(n_dev=n_dev, n_reduce=10, max_word_len=16,
+              u_cap=w.rung0_cap(size, 1 << 15))
+    recv, _ = wave_received(chunks, ids, **kw)
+    return recv, tfidf_wave_step(chunks, ids, **kw)
+
+
+def _compact_workload(raw0: bytes):
+    """Kernel L through ``compact_rows`` on the TF-IDF wave's received
+    rows at 1 and 8 shards: (at, shape, call, plain)."""
+    from dsi_tpu_torch.ops.meshroute import compact_rows, compact_rows_plain
+
+    out = []
+    for n_dev in (1, 8):
+        recv = _wave_inputs(raw0, n_dev)[0]
+        out.append((f"n_dev={n_dev}", list(recv.shape),
+                    lambda x=recv: compact_rows(x, pad_lanes=2),
+                    lambda x=recv: compact_rows_plain(x, pad_lanes=2)))
+    return out
+
+
+def _append_workload(raw0: bytes):
+    """Kernel M through ``postings_append`` (the wave's compacted rows at
+    one shard into a buffer of its capacity) and through
+    ``mesh_postings_append`` (the 8-shard wave re-routed, exchanged and
+    appended into eight times the rung-0 capacity): (at, shape, call,
+    plain); the plain chain runs on CPU copies.  Each call appends at
+    offset 0 of the same buffer, so every call writes the same bytes."""
+    from dsi_tpu_torch.device.postings import (mesh_postings_append,
+                                               postings_append)
+
+    def mesh(buf, n, dirty, rows, scal):
+        return mesh_postings_append(buf, n, dirty, rows, scal, kk=4,
+                                    n_shards=8)
+
+    out = []
+    for n_dev, at, fn in ((1, "postings_append", postings_append),
+                          (8, "mesh_postings_append", mesh)):
+        rows, scal = _wave_inputs(raw0, n_dev)[1]
+        cap = rows.shape[1]  # n_dev x the rung-0 capacity
+        args = (torch.zeros((n_dev, cap, rows.shape[2]), dtype=torch.int32,
+                            device="cuda"),
+                torch.zeros(n_dev, dtype=torch.int32, device="cuda"))
+        args = args + args[1:] + (rows, scal)
+        out.append((f"{at} n_dev={n_dev}",
+                    [list(rows.shape), cap, int(scal[:, 0].sum())],
+                    lambda fn=fn, a=args: (a[0],) + tuple(fn(*a)),
+                    lambda fn=fn, a=args: (lambda c: (c[0],) + tuple(fn(*c)))(
+                        [t.cpu() for t in a])))
+    return out
+
+
+_WORKLOADS = {"crash": _crash_workload, "nfa": _nfa_workload,
+              "compact": _compact_workload, "append": _append_workload}
 
 
 def _bench_raw0(work: str) -> bytes:
@@ -534,14 +603,14 @@ def _bench_raw0(work: str) -> bytes:
 def _turn(name: str, out: str) -> None:
     """One turn of a wrapper-level A/B, in its own process: every shape
     of workload ``name`` once (its outputs saved to ``out``), timed over
-    20 calls and profiled over one; prints the times as one JSON line."""
+    50 calls and profiled over one; prints the times as one JSON line."""
     w.resolve_device("cuda")
     with tempfile.TemporaryDirectory() as work:
         raw0 = _bench_raw0(work)
     saved, times = {}, {}
     for at, _, call, _ in _WORKLOADS[name](raw0):
         saved[at] = [torch.as_tensor(x).cpu() for x in call()]
-        times[at] = {"ms": _ms(call, 20),
+        times[at] = {"ms": _ms(call, 50),
                      "device_ms_by_launch": [
                          [e["name"][:40], e["device_ms"]]
                          for e in _profile(call, top=8)["top"]]}
@@ -596,8 +665,9 @@ def main() -> int:
                     help="csrc directory of the kernel version to compare")
     ap.add_argument("--ab", default=None,
                     help="with --baseline-csrc, the A/Bs to run (comma "
-                         "list of sort, tokenize, group, crash, nfa; "
-                         "default all), without the profiles")
+                         "list of sort, tokenize, group, crash, nfa, "
+                         "compact, append; default all), without the "
+                         "profiles")
     ap.add_argument("--stream", action="store_true",
                     help="also profile the stream row (stream_profile)")
     ap.add_argument("--grep", action="store_true",
@@ -656,7 +726,8 @@ def main() -> int:
             print(json.dumps({"stream_profile": _stream_profile(
                 files, sum(len(r) for r in raws) + len(raws) - 1)}),
                 flush=True)
-    abs_ = set(("sort tokenize group crash nfa" if args.ab is None
+    abs_ = set(("sort tokenize group crash nfa compact append"
+                if args.ab is None
                 else args.ab.replace(",", " ")).split())
     buf, _, _ = _resolve_pieces(raws, None)
     for tag, kw in (("corpus_profile", {}),

@@ -13,6 +13,10 @@ partitions and through ``dsi_tpu_torch.ops.meshroute.compact_rows``
   lane 0: ``pad_lanes=1``.
 
 Rows, pad rows included, and counts equal bit for bit, order included.
+A numpy model of the kernel's two passes (``compact_model``: mask words
+from ballots, tile counts, ranks from both) is held against the same
+references at its tile edges: one row, one tile, one tile + 1, all rows
+valid or none.
 """
 
 from __future__ import annotations
@@ -134,3 +138,125 @@ def test_cpu_compaction_counts_no_launch():
     counts = tw.launch_counts()
     assert set(counts) == set(tw.KERNEL_NAMES)
     assert not any(counts.values())
+
+
+# ── kernel L's two passes as a numpy model ────────────────────────────────
+
+
+def _tile_rows(n_dev: int, r: int, w: int) -> int:
+    """``csrc/compact.cu tile_rows``: 32 rows at least, else at most 16 KB
+    and 1,024 rows a tile, halved while the grid has fewer than 128
+    blocks, down to 64 rows."""
+    t = 32
+    while 2 * t <= 1024 and 2 * t * w <= 4096:
+        t *= 2
+    while t > 64 and n_dev * -(-r // t) < 128:
+        t //= 2
+    return t
+
+
+def _block_rows(n_dev: int, r: int, w: int) -> int:
+    """``block_rows``: whole tiles, doubled while a shard has more than
+    1,024 blocks."""
+    b = _tile_rows(n_dev, r, w)
+    while -(-r // b) > 1024:
+        b *= 2
+    return b
+
+
+def compact_model(rows: np.ndarray, pad_lanes: int, tile: int, block: int):
+    """Kernel L as ``csrc/compact.cu`` computes it: ``compact_count`` keeps
+    one ballot a warp per 32 rows as a block's mask word and their
+    popcounts as its count; ``compact_write`` takes its first valid slot
+    and n_valid from the counts, then tile by tile ranks the rows from
+    the mask words (valid first, then pad, each in row order) and writes
+    the two runs."""
+    n_dev, r, w = rows.shape
+    blocks, mw = -(-r // block), block // 32
+    valid = np.zeros((n_dev, blocks * block), bool)
+    valid[:, :r] = ~(rows[..., :pad_lanes] == PAD).all(-1)
+    lanes = np.arange(32, dtype=np.uint64)
+    masks = (valid.reshape(n_dev, blocks, mw, 32).astype(np.uint64)
+             << lanes).sum(-1).astype(np.uint32)
+    counts = np.bitwise_count(masks).sum(-1, dtype=np.int64)
+    out = np.empty_like(rows)
+    for s in range(n_dev):
+        total = int(counts[s].sum())
+        for x in range(blocks):
+            before = int(counts[s, :x].sum())
+            row0 = x * block
+            vrow, prow = before, total + row0 - before
+            for a in range(0, min(r - row0, block), tile):
+                n = min(r - row0 - a, tile)
+                m = masks[s, x, a // 32:a // 32 + -(-n // 32)]
+                pc = np.bitwise_count(m).astype(np.int64)
+                wbefore = np.cumsum(pc) - pc
+                i = np.arange(n)
+                mi = m[i >> 5].astype(np.int64)
+                bit = (mi >> (i & 31)) & 1
+                vb = wbefore[i >> 5] + np.bitwise_count(
+                    mi & ((1 << (i & 31)) - 1))
+                nv = int(pc.sum())
+                order = np.empty(n, np.int64)
+                order[np.where(bit == 1, vb, nv + i - vb)] = i
+                q = np.arange(n)
+                dst = np.where(q < nv, vrow + q, prow + q - nv)
+                out[s, dst] = rows[s, row0 + a + order]
+                vrow += nv
+                prow += n - nv
+    return out, counts.sum(1)
+
+
+_REF_RECEIVED = jax.jit(jmr.compact_received)
+
+
+@pytest.mark.parametrize("kind", ("no_pad", "all_pad", "lane0_only"))
+@pytest.mark.parametrize("n_dev,r,w", (
+    (1, 1, 8),          # one row
+    (3, 64, 8),         # one tile of the 64-row floor
+    (3, 65, 8),         # one tile + 1
+    (1, 65536, 8),      # 128 tiles of 512 rows
+    (1, 65537, 8),      # ... + 1
+    (1, 32769, 68),     # 1,024 32-row tiles + 1: two tiles a block
+    (2, 513, 20),       # 64-row tiles of the 64-byte rung's rows
+    (1, 33, 5000),      # 32-row tiles copied unstaged, one row over
+))
+def test_compact_model_matches_reference(n_dev, r, w, kind):
+    tile, block = _tile_rows(n_dev, r, w), _block_rows(n_dev, r, w)
+    assert (block > tile) == (r == 32769)
+    rows = _rows(kind, n_dev, r, w, seed=r + w)
+    for pad_lanes in (1, 2):
+        got, n_valid = compact_model(rows, pad_lanes, tile, block)
+        for d in range(n_dev):
+            if pad_lanes == 1:
+                want, want_n = _REF_RECEIVED(jnp.asarray(rows[d]))
+            elif w <= 20:
+                want, want_n = _ref_wave_partition(rows[d], w - 4)
+            else:  # a wave's key lanes are at most 16
+                continue
+            np.testing.assert_array_equal(got[d], np.asarray(want))
+            assert int(n_valid[d]) == int(want_n)
+
+
+def test_compact_and_append_c_interface():
+    """L's entry keeps its C signature; its scratch and tile depend on the
+    row width; M gains its received entry (the mesh append's compaction
+    fused in), and E hands out where its per-pair totals lie."""
+    import ctypes
+
+    from dsi_tpu_torch.kernels import build
+
+    p, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    sig = build.SIGNATURES
+    assert sig["dsi_compact"] == (c_int, [p, c_int, i64, c_int, c_int, p, p,
+                                          p, p])
+    assert sig["dsi_compact_scratch_bytes"] == (i64, [c_int, i64, c_int])
+    assert sig["dsi_compact_tile_rows"] == (i64, [c_int, i64, c_int])
+    assert sig["dsi_postings_append"] == (c_int, [p, c_int, i64, c_int, p, p,
+                                                  p, i64, p, c_int, p, p, p,
+                                                  p])
+    assert sig["dsi_postings_append_received"] == (
+        c_int, [p, c_int, i64, c_int, p, p, p, i64, p, p, p, p, p, p])
+    assert sig["dsi_postings_append_received_scratch_bytes"] == (
+        i64, [c_int, i64])
+    assert sig["dsi_route_totals_offset"] == (i64, [c_int, i64, c_int])

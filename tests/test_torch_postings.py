@@ -8,7 +8,11 @@ virtual CPU mesh and into ``dsi_tpu_torch.device.postings
 (stale rows past the write offsets included), the counts, the dirty bits
 and the flags equal bit for bit.  Then one sequence of waves, some larger
 than the buffer, goes through both services with lagged flags: the rows
-handed to the sink, in order, and the counters agree.
+handed to the sink, in order, and the counters agree.  Kernel M's
+received entry (the mesh append's compaction fused into the append) goes
+through the same check against the reference's ``compact_received`` then
+``_append_step``: only each pair's routed rows count, and those whose lane
+0 is all ones are dropped.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from dsi_tpu.device import postings as jp
+from dsi_tpu.ops import meshroute as jmr
 from dsi_tpu.parallel import shuffle as js
 from dsi_tpu_torch.device import postings as tp
 from dsi_tpu_torch.interop import to_numpy, to_tensor
@@ -86,6 +91,70 @@ def test_append_matches_reference(kind, n_dev):
     assert no_op == (kind in ("overflow_one_shard", "sticky_dirty"))
     if no_op:  # a no-op keeps the old buffer byte for byte
         np.testing.assert_array_equal(to_numpy(tbuf, np.uint32), buf)
+
+
+def _received_case(kind: str, n_dev: int, seed: int):
+    """A buffer and what kernel E hands the mesh append: recv [n_dev,
+    n_dev*r, W] whose pair blocks hold ``totals[s, d]`` rows (about one in
+    six with lane 0 alone all ones), then E's pad rows."""
+    buf, n, dirty, _, _ = _case(kind, n_dev, seed)
+    rng = np.random.default_rng(seed + 1)
+    r = 12 if n_dev == 1 else 5  # 64 - max(n) rows fit every shard
+    totals = rng.integers(0, r + 1, (n_dev, n_dev)).astype(np.int32)
+    if kind == "overflow_one_shard":
+        totals[0, -1] = max(totals[0, -1], 2)
+    recv = np.zeros((n_dev, n_dev * r, W), np.uint32)
+    recv[..., :W - 4] = 0xFFFFFFFF
+    for s in range(n_dev):
+        for d in range(n_dev):
+            h = rng.integers(0, 1 << 31, (totals[s, d], W)).astype(np.uint32)
+            h[rng.random(len(h)) < 0.15, 0] = 0xFFFFFFFF
+            recv[d, s * r:s * r + len(h)] = h
+    if kind == "overflow_one_shard":  # the last shard keeps two rows
+        n[-1] = 64 - 1
+        recv[-1, :2, 0] = 0
+    return buf, n, dirty, recv, totals
+
+
+_REF_RECEIVED = jax.jit(jmr.compact_received)
+
+
+@pytest.mark.parametrize("kind", ("fits", "overflow_one_shard",
+                                  "sticky_dirty"))
+@pytest.mark.parametrize("n_dev", (1, 8))
+def test_append_received_matches_reference(kind, n_dev):
+    # Kernel M's received entry (plain) against the reference's
+    # compact_received of each shard's received rows, then _append_device.
+    buf, n, dirty, recv, totals = _received_case(kind, n_dev, seed=n_dev)
+    crows, n_recv = zip(*(_REF_RECEIVED(jax.numpy.asarray(recv[d]))
+                          for d in range(n_dev)))
+    scal = np.asarray(n_recv, np.int32)[:, None]
+    want = _ref_append(buf, n, dirty, np.stack(crows), scal)
+    tbuf = to_tensor(buf)
+    got = tp.postings_append_received(tbuf, to_tensor(n), to_tensor(dirty),
+                                      to_tensor(recv), to_tensor(totals))
+    np.testing.assert_array_equal(to_numpy(tbuf, np.uint32), want[0])
+    for g, w in zip(got, want[1:]):
+        np.testing.assert_array_equal(to_numpy(g), w)
+    assert bool(want[3][:, 0].any()) == (kind != "fits")
+    heads = sum(int(totals[s, d]) for s in range(n_dev) for d in range(n_dev))
+    assert int(scal.sum()) < heads  # lane-0 rows were dropped
+
+
+def test_append_received_rejects_bad_operands():
+    z1 = torch.zeros(2, dtype=torch.int32)
+    buf = torch.zeros((2, 8, W), dtype=torch.int32)
+    recv = torch.zeros((2, 6, W), dtype=torch.int32)
+    with pytest.raises(ValueError):  # totals not [n_dev, n_dev]
+        tp.postings_append_received(buf, z1, z1, recv,
+                                    torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError):  # recv rows not n_dev blocks
+        tp.postings_append_received(buf, z1, z1, recv[:, :5].contiguous(),
+                                    torch.zeros((2, 2), dtype=torch.int32))
+    with pytest.raises(ValueError):  # no key lane to test
+        tp.mesh_postings_append(buf, z1, z1, recv[:, :3].contiguous(),
+                                torch.zeros((2, 5), dtype=torch.int32),
+                                kk=0, n_shards=2)
 
 
 def _waves(n_dev: int, seed: int):
