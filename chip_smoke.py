@@ -753,15 +753,17 @@ def call_profile(fn, anchors, reps: int = 20, names: bool = False) -> dict:
 
 def _launch_summary(events, reps: int) -> dict:
     """``launches_per_call``, ``kernels_per_call`` (less memsets and
-    copies) and ``device_ms`` of ``reps`` calls' events, each None without
-    a whole window."""
+    copies), ``copies_per_call`` (Memcpys) and ``device_ms`` of ``reps``
+    calls' events, each None without a whole window."""
     if events is None:
         return {"launches_per_call": None, "kernels_per_call": None,
-                "device_ms": None}
+                "copies_per_call": None, "device_ms": None}
     return {"launches_per_call": sum(c for _, c, _ in events) // reps,
             "kernels_per_call": sum(
                 c for k, c, _ in events
                 if not k.startswith(("Memset", "Memcpy"))) // reps,
+            "copies_per_call": sum(
+                c for k, c, _ in events if k.startswith("Memcpy")) // reps,
             "device_ms": sum(t for _, _, t in events) / 1e3 / reps}
 
 
@@ -800,6 +802,14 @@ def over_budget(tag: str, prof: dict, launches: int, allocs: int) -> list:
     if got is not None and got > allocs:
         out.append(f"{tag}: {got} allocations a call, above {allocs}")
     return out
+
+
+def unmeasured(tag: str, prof: dict, keys=("launches_per_call",
+                                           "allocs_per_call")) -> list:
+    """Failures for each of ``keys`` that ``prof`` left None (the profiler
+    kept no whole window), so a gate on it cannot pass unmeasured."""
+    return [f"{tag}: {k} not measured (no whole profiler window)"
+            for k in keys if prof.get(k) is None]
 
 
 def skipped_passes(keys, n=None) -> int:
@@ -2752,10 +2762,82 @@ def wire_cases(files):
     return cases
 
 
-def wire_kernel_rows(files):
+def stream_handle_failures() -> list:
+    """Every wrapper launches on ``ops/wordcount.py _stream``, which reads
+    the private binding ``torch._C._cuda_getCurrentRawStream``: failures
+    where that binding is gone or gives another stream than
+    ``torch.cuda.current_stream(dev).cuda_stream``, on the default stream
+    and on a side stream; logs the PyTorch version it was checked with and
+    both handles' host time a call (1,000 calls each)."""
+    import torch
+    from dsi_tpu_torch.ops import wordcount as w
+
+    t = torch.zeros(1, device=DEVICE)
+    dev = t.device
+    if not hasattr(torch._C, "_cuda_getCurrentRawStream"):
+        return [f"torch {torch.__version__} has no "
+                "torch._C._cuda_getCurrentRawStream (ops/wordcount.py "
+                "_stream)"]
+    got = {"default": (w._stream(t),
+                       torch.cuda.current_stream(dev).cuda_stream)}
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        got["side"] = (w._stream(t),
+                       torch.cuda.current_stream(dev).cuda_stream)
+    us = {}
+    for what, fn in (("_stream", lambda: w._stream(t)),
+                     ("current_stream(dev).cuda_stream",
+                      lambda: torch.cuda.current_stream(dev).cuda_stream)):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        us[what] = (time.perf_counter() - t0) * 1e3
+    log({"stream_handle": {k: list(v) for k, v in got.items()},
+         "host_us_a_call": us, "torch": torch.__version__})
+    return [f"_stream gives {a:#x} on the {k} stream, not {b:#x}"
+            for k, (a, b) in got.items() if a != b]
+
+
+def check_wire_edges() -> int:
+    """Kernel N on ``kernel_cases.wire_cases`` at its own tile for each
+    shape (``dsi_wire_decode_tile_bytes``): escapes across every tile edge,
+    rows with none, rows of escapes only, the clamp and rows of odd width,
+    at [1, 2 MiB], [8, 2 MiB] and [8, 2 MiB + 8] (rows off the 16-byte
+    grid), each held to ``decode_chunk_plain`` and to
+    the encoder's input where there is one.  Returns the worst
+    max_abs_err."""
+    import torch
+    from dsi_tpu_torch.kernels.build import library
+    from dsi_tpu_torch.ops import wirecodec as wcd
+    from dsi_tpu_torch.utils import kernel_cases as kc
+
+    err = 0
+    tile = int(library().dsi_wire_decode_tile_bytes())
+    for n_dev, n in ((1, STREAM_CHUNK), (8, STREAM_CHUNK),
+                     (8, STREAM_CHUNK + 8)):
+        for name, packed_np, cap, batch in kc.wire_cases(n_dev, n, tile):
+            pk = torch.from_numpy(packed_np).to(DEVICE)
+            kw = dict(n=n, lit_cap=cap, mode="nib")
+            got = wcd.decode_chunk_device(pk, **kw)
+            d = _diff(got, wcd.decode_chunk_plain(pk, **kw))
+            if batch is not None:
+                d = _merge_err(d, _diff(got,
+                                        torch.from_numpy(batch).to(DEVICE)))
+            err = _merge_err(err, d)
+            log({"wire_edge_case": f"{name} [{n_dev}, {n}]", "tile": tile,
+                 "lit_cap": cap, "max_abs_err": d})
+    return err
+
+
+def wire_kernel_rows(files, failures):
     """Kernel N against ``decode_chunk_plain`` on the card (and against the
-    encoder's input), each case timed beside its plain version and its
-    bound: the packed bytes read and n_dev * n written once.  Returns
+    encoder's input), each case timed through the wrapper beside its plain
+    version and its bound (the packed bytes read and n_dev * n written
+    once), with its CUDA launches, Memcpys and allocations a call
+    (``wrapper_profile``): the run fails above 1 launch and 1 allocation
+    in the 7-bit mode, 2 and 2 in the nibble mode, or where either went
+    unmeasured; then the edge cases (:func:`check_wire_edges`).  Returns
     (times entry, max_abs_err)."""
     import torch
     from dsi_tpu_torch.ops import wirecodec as wcd
@@ -2772,16 +2854,23 @@ def wire_kernel_rows(files):
         sync()
         err = _merge_err(err, d)
         nbytes = pk.numel() + n_dev * n
+        ms = cuda_ms(lambda: wcd.decode_chunk_device(pk, **kw), 50)
+        prof = wrapper_profile(
+            lambda: wcd.decode_chunk_device(pk, **kw),
+            "wire_decode_nib" if mode == "nib" else "wire_decode7")
+        most = 2 if mode == "nib" else 1
+        failures += unmeasured(f"wire_decode {name}", prof)
+        failures += over_budget(f"wire_decode {name}", prof, most, most)
         shapes[name] = {
-            "ms": cuda_ms(lambda: wcd.decode_chunk_device(pk, **kw), 50),
+            "ms": ms,
             "plain_ms": cuda_ms(lambda: wcd.decode_chunk_plain(pk, **kw), 5),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None, "max_abs_err": d,
             "shape": f"packed {list(pk.shape)} -> [{n_dev}, {n}], {mode}"
                      + (f" lit_cap {cap}" if mode == "nib" else ""),
-            **call_profile(lambda: wcd.decode_chunk_device(pk, **kw),
-                           "wire_write" if mode == "nib" else "wire_decode7")}
+            **prof}
         log({"wire_case": name, **shapes[name]})
+    err = _merge_err(err, check_wire_edges())
     main = shapes["bench_b7_n1"]
     return {**main, "at_shapes": {k: v for k, v in shapes.items()
                                   if k != "bench_b7_n1"}}, err
@@ -3287,12 +3376,80 @@ def emit_kernel_rows(plan_raw: bytes, pg_raw: bytes):
     return {**main, "at_shapes": rows}, err
 
 
-def relay_kernel_rows():
-    """P against ``relay_pack_plain`` at [1, 1 MiB] and [8, 1 MiB] with the
-    offsets 0, mid-row and ``cap - kept`` on the same device tensors, timed
-    beside it; then a DeviceRelay fed 64 appends at [8, 1 MiB], every row
-    held to the host concatenation of what was appended.  Returns (times
-    entry, max_abs_err, relay entry)."""
+def check_relay_edges() -> int:
+    """Kernel P on ``kernel_cases.relay_cases`` at [1, 2^20], [8, 2^20],
+    [8, 2^20 - 5] (rows off the 16-byte grid) and [40, 4093] (more rows
+    than one launch takes): offsets at every residue mod 16 around
+    mid-row, below 0, below ``-cap``, at and past ``cap``, mixed, each held
+    to ``relay_pack_plain``.  Returns the worst max_abs_err."""
+    import torch
+    from dsi_tpu_torch.device.relay import relay_pack, relay_pack_plain
+    from dsi_tpu_torch.utils import kernel_cases as kc
+
+    err = 0
+    for n_dev, cap in ((1, PLAN_CHUNK), (8, PLAN_CHUNK), (8, PLAN_CHUNK - 5),
+                       (40, 4093)):
+        for name, acc_np, off, new_np in kc.relay_cases(n_dev, cap):
+            acc = torch.from_numpy(acc_np).to(DEVICE)
+            new = torch.from_numpy(new_np).to(DEVICE)
+            got = relay_pack(acc.clone(), off, new)
+            d = _diff(got, relay_pack_plain(
+                acc, torch.from_numpy(off).to(DEVICE), new))
+            err = _merge_err(err, d)
+            log({"relay_edge_case": f"{name} [{n_dev}, {cap}]",
+                 "off": off.tolist(), "max_abs_err": d})
+    return err
+
+
+def relay_append_rows(failures) -> dict:
+    """One packing ``DeviceRelay.append`` (one byte a row after an open
+    buffer's fill point) at [1, 2^20] and [8, 2^20], through
+    ``wrapper_profile``: its CUDA launches, Memcpys, device time and
+    allocations a call, timed with CUDA events; the run fails above one
+    launch, any Memcpy or any allocation a call, or where one of the
+    three went unmeasured."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.device.relay import DeviceRelay
+
+    rows = {}
+    for n_dev in (1, 8):
+        relay = DeviceRelay(n_dev, cap=PLAN_CHUNK, device=DEVICE)
+        relay.append(torch.zeros((n_dev, PLAN_CHUNK), dtype=torch.uint8,
+                                 device=DEVICE), np.ones(n_dev, np.int64))
+        one = torch.ones((n_dev, PLAN_CHUNK), dtype=torch.uint8,
+                         device=DEVICE)
+        kept = np.ones(n_dev, np.int64)
+        ms = cuda_ms(lambda: relay.append(one, kept), 50)
+        prof = wrapper_profile(lambda: relay.append(one, kept),
+                               "relay_pack_kernel")
+        tag = f"relay_append [{n_dev}, {PLAN_CHUNK}]"
+        failures += unmeasured(tag, prof, ("launches_per_call",
+                                           "copies_per_call",
+                                           "allocs_per_call"))
+        failures += over_budget(tag, prof, 1, 0)
+        if prof["copies_per_call"]:
+            failures.append(f"{tag}: {prof['copies_per_call']} Memcpys a "
+                            "call")
+        rows[f"append_d{n_dev}"] = {
+            "ms": ms, **prof,
+            "shape": f"DeviceRelay.append [{n_dev}, {PLAN_CHUNK}], 1 byte a "
+                     "row after the fill point"}
+        log({"relay_append": tag, **rows[f"append_d{n_dev}"]})
+    return rows
+
+
+def relay_kernel_rows(failures):
+    """P against ``relay_pack_plain`` at [1, 2^20] and [8, 2^20] with the
+    offsets 0, mid-row and ``cap - kept`` (host arrays, as the relay
+    passes them) on the same device tensors, timed beside it, each with
+    its launches and allocations a call (the run fails above one launch
+    or any allocation, or where either went unmeasured); P's edge cases
+    (:func:`check_relay_edges`); one packing ``DeviceRelay.append``
+    (:func:`relay_append_rows`); then a
+    DeviceRelay fed 64 appends at [8, 1 MiB], every row held to the host
+    concatenation of what was appended.  Returns (times entry,
+    max_abs_err, relay entry)."""
     import numpy as np
     import torch
     from dsi_tpu_torch.device.relay import (DeviceRelay, relay_pack,
@@ -3309,27 +3466,34 @@ def relay_kernel_rows():
         for r in range(n_dev):
             new_np[r, :kept[r]] = rng.integers(1, 256, kept[r])
         new = torch.from_numpy(new_np).to(DEVICE)
-        for where, off_np in (("zero", np.zeros(n_dev)),
+        for where, off_np in (("zero", np.zeros(n_dev, np.int64)),
                               ("mid", np.full(n_dev, cap // 2)),
                               ("cap-kept", cap - kept)):
-            off = torch.from_numpy(off_np.astype(np.int32)).to(DEVICE)
-            got = relay_pack(acc.clone(), off, new)
-            d = _worst([(got, relay_pack_plain(acc, off, new))])
+            off_dev = torch.from_numpy(off_np).to(DEVICE)
+            got = relay_pack(acc.clone(), off_np, new)
+            d = _worst([(got, relay_pack_plain(acc, off_dev, new))])
             err = _merge_err(err, d)
             work = acc.clone()
+            ms = cuda_ms(lambda: relay_pack(work, off_np, new), 50)
+            prof = wrapper_profile(lambda: relay_pack(work, off_np, new),
+                                   "relay_pack_kernel")
+            failures += unmeasured(f"relay_pack {where}_d{n_dev}", prof)
+            failures += over_budget(f"relay_pack {where}_d{n_dev}", prof, 1,
+                                    0)
             moved = int((cap - off_np).sum())
-            nbytes = 2 * moved + 4 * n_dev
+            nbytes = 2 * moved
             rows[f"{where}_d{n_dev}"] = {
-                "max_abs_err": d,
-                "ms": cuda_ms(lambda: relay_pack(work, off, new), 50),
-                "device_ms": device_ms(lambda: relay_pack(work, off, new),
-                                       50, "relay_pack_kernel"),
-                "plain_ms": cuda_ms(lambda: relay_pack_plain(acc, off, new),
-                                    10),
+                "max_abs_err": d, "ms": ms, **prof,
+                "plain_ms": cuda_ms(lambda: relay_pack_plain(acc, off_dev,
+                                                             new), 10),
                 "library_ms": None, "bytes": nbytes,
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes",
                 "shape": f"[{n_dev}, {cap}] off {where}"}
+            log({"relay_case": f"{where}_d{n_dev}",
+                 **rows[f"{where}_d{n_dev}"]})
+    err = _merge_err(err, check_relay_edges())
+    rows.update(relay_append_rows(failures))
     # 64 appends of up to a quarter row: packs, seals and the open tail.
     n_dev = 8
     relay_st: dict = {}
@@ -3653,7 +3817,7 @@ def main() -> int:
          "ptxas": [ln.strip() for ln in build.build_log.splitlines()
                    if "registers" in ln or ln.startswith("==")]})
 
-    failures = []
+    failures = stream_handle_failures()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as work:
         t0 = time.perf_counter()
         files = ensure_corpus(os.path.join(work, "corpus"), N_FILES,
@@ -4102,7 +4266,8 @@ def main() -> int:
                                     f"{st.get('appends')} appends")
 
         # Phase 11: the compressed chunk upload.
-        times["wire_decode"], err["wire_decode"] = wire_kernel_rows(files)
+        times["wire_decode"], err["wire_decode"] = wire_kernel_rows(
+            files, failures)
         if err["wire_decode"] != 0:
             failures.append("wire_decode differs from its plain version")
         ok, pack_row = wire_pack_rows(files)
@@ -4130,7 +4295,7 @@ def main() -> int:
                                                                 data)
         err["grep_emit"] = _merge_err(err["grep_emit"], emit_edge_err)
         times["relay_pack"], err["relay_pack"], relay_entry = \
-            relay_kernel_rows()
+            relay_kernel_rows(failures)
         log({"relay_appends": relay_entry, "gpu": gpu})
         for name in ("grep_emit", "relay_pack"):
             if err[name] != 0:
@@ -4226,7 +4391,7 @@ def main() -> int:
                     "epilogue_device_ms", "device_ms_by_kernel",
                     "device_ms_by_phase", "scratch_bytes",
                     "device_ms", "launches_per_call", "kernels_per_call",
-                    "allocs_per_call", "passes_run",
+                    "copies_per_call", "allocs_per_call", "passes_run",
                     "skipped_passes", "path", "library_x_k64_ms", "rounds",
                     "small_path_ms", "large_path_ms"):
             if key in tm:

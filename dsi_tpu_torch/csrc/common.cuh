@@ -69,6 +69,44 @@ __device__ uint32_t* load_words(const uint32_t* g, int n, uint32_t* stage) {
   return st;
 }
 
+// The 16 bytes at byte address p, of any alignment, for a warp whose lane
+// l + 1 asks for p + 16 (so every lane has the same p % 16; kernels N and P
+// read with it).  Each lane loads the aligned 16 bytes at or below p, takes
+// the next aligned 16 from lane l + 1 with __shfl_down_sync (lane 31 loads
+// them itself) and funnel-shifts the pair into place: one 16-byte load a
+// lane.  Only aligned vectors that overlap [lo, hi) are read; the bytes of
+// the others are undefined.  Every lane of the warp must call it.
+__device__ __forceinline__ uint4 load16_any(uintptr_t p, uintptr_t lo,
+                                            uintptr_t hi) {
+  const unsigned sh = unsigned(p & 15);
+  const uintptr_t a = p - sh;
+  uint4 x = make_uint4(0u, 0u, 0u, 0u);
+  if (a + 16 > lo && a < hi) x = __ldg(reinterpret_cast<const uint4*>(a));
+  if (sh == 0) return x;  // the same branch in every lane
+  uint4 y;
+  y.x = __shfl_down_sync(kFullMask, x.x, 1);
+  y.y = __shfl_down_sync(kFullMask, x.y, 1);
+  y.z = __shfl_down_sync(kFullMask, x.z, 1);
+  y.w = __shfl_down_sync(kFullMask, x.w, 1);
+  if ((threadIdx.x & 31) == 31) {
+    y = make_uint4(0u, 0u, 0u, 0u);
+    if (a + 32 > lo && a + 16 < hi) {
+      y = __ldg(reinterpret_cast<const uint4*>(a + 16));
+    }
+  }
+  const uint32_t w[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+  const unsigned q = sh >> 2, bits = 8 * (sh & 3);
+  uint32_t s[5];
+#pragma unroll
+  for (int m = 0; m < 5; ++m) {
+    s[m] = q == 0 ? w[m] : q == 1 ? w[m + 1] : q == 2 ? w[m + 2] : w[m + 3];
+  }
+  return make_uint4(__funnelshift_r(s[0], s[1], bits),
+                    __funnelshift_r(s[1], s[2], bits),
+                    __funnelshift_r(s[2], s[3], bits),
+                    __funnelshift_r(s[3], s[4], bits));
+}
+
 // The words of a stage of n words for load_words, rounded up to 16 bytes.
 __host__ __device__ inline int64_t stage_words(int64_t n) {
   return (n + 3 + 3) & ~int64_t(3);
@@ -103,9 +141,9 @@ __global__ void scan_exclusive_kernel(const T* in, T* out, int64_t n,
 // ── Decoupled look-back over one column of tiles ─────────────────────────
 //
 // Merrill & Garland's single-pass scan (as in CUB's tile state), shared by
-// kernels A and C.  Tiles are numbered in the order blocks claim them from
-// a ticket counter, so every tile a block waits on belongs to a block that
-// already runs: no co-residency is assumed.  Tile j publishes the pair
+// kernels A, C, J and N.  Tiles are numbered in the order blocks claim them
+// from a ticket counter, so every tile a block waits on belongs to a block
+// that already runs: no co-residency is assumed.  Tile j publishes the pair
 // (count, sum) twice: its own aggregate as soon as it has it, then its
 // inclusive prefix once it has looked back.  status[j] is state << 32 |
 // count (state 0 until the first publish); each state's int64 sum has its

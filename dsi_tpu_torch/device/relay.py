@@ -47,6 +47,7 @@ from dsi_tpu_torch.ops.wordcount import (
     _launch,
     _lib,
     _on_cuda,
+    _on_device,
     _ptr,
     _require,
     _stream,
@@ -75,29 +76,40 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
             and b0 < a0 + a.numel() * a.element_size())
 
 
-def relay_pack(acc: torch.Tensor, off: torch.Tensor,
-               new: torch.Tensor) -> torch.Tensor:
+def relay_pack(acc: torch.Tensor, off, new: torch.Tensor) -> torch.Tensor:
     """Kernel P (``csrc/relay_pack.cu``): :func:`relay_pack_plain`'s
     function written in place into ``acc`` (the reference donates it), so
     only each row's ``[off[r], cap)`` moves.  ``acc`` and ``new`` [n_dev,
-    cap] uint8, ``off`` [n_dev] int32; ``new`` must not alias ``acc``.
-    Returns ``acc``."""
+    cap] uint8; ``new`` must not alias ``acc``.  ``off`` [n_dev] is on the
+    host, an integer numpy array or a CPU int32 tensor: on the card the
+    offsets are the launch's arguments, so a CUDA ``off`` (a hidden sync
+    to read) raises.  Returns ``acc``."""
     _require(acc, torch.uint8, 2, "relay_pack acc")
     _require(new, torch.uint8, 2, "relay_pack new")
-    _require(off, torch.int32, 1, "relay_pack off")
+    if isinstance(off, torch.Tensor):
+        _require(off, torch.int32, 1, "relay_pack off")
+        if off.device.type != "cpu":
+            raise ValueError(f"relay_pack: off must be on the host, got "
+                             f"{off.device}")
+        off = off.numpy()
+    off = np.asarray(off)
     n_dev, cap = acc.shape
-    if (tuple(new.shape) != (n_dev, cap) or off.shape[0] != n_dev
-            or cap < 1 or not (acc.device == new.device == off.device)):
+    if (tuple(new.shape) != (n_dev, cap) or off.shape != (n_dev,)
+            or off.dtype.kind not in "iu" or cap < 1
+            or acc.device != new.device):
         raise ValueError(f"relay_pack: bad operands acc={tuple(acc.shape)} "
-                         f"new={tuple(new.shape)} off={tuple(off.shape)} on "
-                         f"{acc.device}, {new.device}, {off.device}")
+                         f"new={tuple(new.shape)} off={off.shape} "
+                         f"{off.dtype} on {acc.device}, {new.device}")
     if _overlap(acc, new):
         raise ValueError("relay_pack: new aliases acc")
     if not _on_cuda(acc):
-        return acc.copy_(relay_pack_plain(acc, off, new))
-    with torch.cuda.device(acc.device):
+        return acc.copy_(relay_pack_plain(acc, torch.from_numpy(off), new))
+    off = np.ascontiguousarray(off, dtype=np.int64)
+    if min(off.tolist()) >= cap:
+        return acc  # nothing to write, nothing launched
+    with _on_device(acc.device):
         _launch("relay_pack", _lib().dsi_relay_pack(
-            _ptr(acc), n_dev, cap, _ptr(off), _ptr(new), _stream(acc)))
+            _ptr(acc), n_dev, cap, off.ctypes.data, _ptr(new), _stream(acc)))
     return acc
 
 
@@ -148,28 +160,25 @@ class DeviceRelay:
         (packed into the open buffer, or adopted as the next one): the
         producer must not reuse it."""
         kept = np.asarray(kept, dtype=np.int64)
-        if int(kept.sum()) == 0:
+        content = int(kept.sum())
+        if content == 0:
             return
         if (tuple(comp_dev.shape) != (self.n_dev, self.cap)
                 or comp_dev.device.type != self.device.type):
             raise ValueError(f"relay append: want [{self.n_dev}, {self.cap}]"
                              f" on {self.device}, got "
                              f"{tuple(comp_dev.shape)} on {comp_dev.device}")
-        self.total_bytes += int(kept.sum())
-        self.stats["plan_handoff_bytes"] += int(kept.sum())
-        if self._acc is None:
-            self._acc = comp_dev
-            self._lens = kept.copy()
-        elif bool(((self._lens + kept) > self.cap).any()):
-            self._seal()
+        self.total_bytes += content
+        self.stats["plan_handoff_bytes"] += content
+        filled = self._lens + kept
+        if self._acc is None or int(filled.max()) > self.cap:
+            if self._acc is not None:
+                self._seal()
             self._acc = comp_dev
             self._lens = kept.copy()
         else:
-            off = torch.from_numpy(self._lens.astype(np.int32))
-            if self.device.type == "cuda":
-                off = off.pin_memory().to(self.device, non_blocking=True)
-            self._acc = relay_pack(self._acc, off, comp_dev)
-            self._lens += kept
+            self._acc = relay_pack(self._acc, self._lens, comp_dev)
+            self._lens = filled
         self._maybe_spill()
 
     def _seal(self) -> None:

@@ -79,6 +79,7 @@ SIGNATURES = {
                                             _P]),
     "dsi_wire_decode_scratch_bytes": (_I64, [_INT, _I64]),
     "dsi_wire_decode": (_INT, [_P, _INT, _I64, _I64, _I64, _INT, _P, _P, _P]),
+    "dsi_wire_decode_tile_bytes": (_I64, []),
     "dsi_crash_sim_scratch_bytes": (_I64, [_I64, _INT, _INT, _INT]),
     "dsi_crash_sim": (_INT, [_I64, _I64, _I64, _I64, _INT, _INT, _INT, _INT,
                              _INT, _F32, _F32, _P, _P, _P]),

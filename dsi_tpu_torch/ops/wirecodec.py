@@ -33,6 +33,7 @@ from dsi_tpu_torch.ops.wordcount import (
     _launch,
     _lib,
     _on_cuda,
+    _on_device,
     _ptr,
     _require,
     _stream,
@@ -442,16 +443,20 @@ def decode_chunk_device(packed: torch.Tensor, *, n: int, lit_cap: int,
     ``_decode7_impl`` (:417) and ``decode_chunk_device`` (:481).  A CUDA
     ``packed`` launches the kernel on the current stream (the decode is
     asynchronous, like the reference's dispatch); a CPU one runs the plain
-    version."""
+    version.  The 7-bit mode is one launch and one allocation (``out``);
+    the nibble mode a memset and one launch, ``out`` and its look-back
+    state."""
     _check_packed(packed, n, lit_cap, mode)
     if not _on_cuda(packed):
         return decode_chunk_plain(packed, n=n, lit_cap=lit_cap, mode=mode)
     lib = _lib()
     n_dev, width = packed.shape
     out = torch.empty((n_dev, n), dtype=torch.uint8, device=packed.device)
-    scratch = torch.empty(lib.dsi_wire_decode_scratch_bytes(n_dev, n),
-                          dtype=torch.uint8, device=packed.device)
-    with torch.cuda.device(packed.device):
+    scratch = None
+    if mode == "nib":
+        scratch = torch.empty(lib.dsi_wire_decode_scratch_bytes(n_dev, n),
+                              dtype=torch.uint8, device=packed.device)
+    with _on_device(packed.device):
         _launch("wire_decode", lib.dsi_wire_decode(
             _ptr(packed), n_dev, n, width, lit_cap, _MODES[mode], _ptr(out),
             _ptr(scratch), _stream(packed)))

@@ -239,7 +239,14 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream on ``t``'s device, from
+    the private binding PyTorch's generated code uses, a small fraction of
+    the host time of ``torch.cuda.current_stream(dev).cuda_stream``.
+    ``chip_smoke.py stream_handle_failures`` holds the two equal on the
+    card, on the default and a side stream, and logs both times beside
+    the PyTorch version, so a release that renames the binding fails
+    there first."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _on_device(dev: torch.device):

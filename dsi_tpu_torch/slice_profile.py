@@ -8,6 +8,7 @@
     python -m dsi_tpu_torch.slice_profile --wire
     python -m dsi_tpu_torch.slice_profile --crashcheck
     python -m dsi_tpu_torch.slice_profile --plan
+    python -m dsi_tpu_torch.slice_profile --host-profile [--baseline-csrc DIR]
 
 On the bench corpus (8 files x (2 MiB - 64), seed 1234) it prints JSON
 lines:
@@ -38,10 +39,20 @@ lines:
   every shard the bench's first file, at 1 and 8 shards) and kernel M
   (``append_ab``: ``postings_append`` of that wave's compacted rows at one
   shard, and ``mesh_postings_append`` of the 8-shard wave, whose L and M
-  work this tree fuses), each version's outputs checked against this
-  tree's plain version; ``--ab`` names the A/Bs to run (``sort``,
-  ``tokenize``, ``group``, ``crash``, ``nfa``, ``compact``, ``append``;
-  all by default) and skips the profiles without a baseline;
+  work this tree fuses), kernel P (``relay_ab``: a ``DeviceRelay`` at [1,
+  2^20] and [8, 2^20] adopting a quarter-full buffer, then packing 8
+  appends) and kernel N (``wire_ab``: ``decode_chunk_device`` on the
+  bench's text at [1, 2 MiB], 7-bit, and on low-entropy text at [1, 2
+  MiB] and [8, 2 MiB], nibble), each version's outputs checked against
+  this tree's plain version; ``--ab`` names the A/Bs to run (``sort``,
+  ``tokenize``, ``group``, ``crash``, ``nfa``, ``compact``, ``append``,
+  ``relay``, ``wire``; all by default) and skips the profiles without a
+  baseline;
+* with ``--host-profile`` (and nothing else): ``host_profile``, where the
+  host time of the ``relay_ab`` and ``wire_ab`` workloads' calls goes, in
+  this tree and, with ``--baseline-csrc``, in the tree that holds that
+  directory, each a process of its own: every shape's call 1,000 times
+  under ``cProfile`` (a call's wall and its heaviest functions);
 * with ``--stream``: ``stream_profile``, the bench's stream row (the
   corpus cycled to 64 MB, 2 MiB chunks, u_cap 2^15, depth 2) with the
   device table off and on at one shard, with the table on and the hash
@@ -487,7 +498,7 @@ _TURN = ("import importlib.util, sys\n"
          "sys.argv[1])\n"
          "m = importlib.util.module_from_spec(spec)\n"
          "spec.loader.exec_module(m)\n"
-         "m._turn(sys.argv[2], sys.argv[3])\n")
+         "getattr(m, sys.argv[2])(*sys.argv[3:])\n")
 _ROOT = Path(__file__).resolve().parents[1]
 _CRASH_CLI = dict(exit_prob=0.25, stall_prob=0.2, timeout=10, horizon=800)
 
@@ -591,8 +602,88 @@ def _append_workload(raw0: bytes):
     return out
 
 
+RELAY_CAP, RELAY_PACKS = 1 << 20, 8
+
+
+def _relay_rows(rng, n_dev: int, hi: int):
+    """[n_dev, RELAY_CAP] uint8 with kept[r] < hi nonzero bytes in row r
+    and a zero tail (a step's compacted grep output), and kept."""
+    kept = rng.integers(hi // 2, hi, n_dev)
+    buf = np.zeros((n_dev, RELAY_CAP), np.uint8)
+    for r in range(n_dev):
+        buf[r, :kept[r]] = rng.integers(1, 256, kept[r])
+    return buf, kept
+
+
+def _relay_workload(raw0: bytes):
+    """Kernel P through ``DeviceRelay.append``: a relay at [1, 2^20] and
+    [8, 2^20] adopts a quarter-full buffer, then packs RELAY_PACKS appends
+    of up to 1/16 of a row each after its fill point (no seal); the call
+    returns the open buffer, the plain version the rows' concatenation:
+    (at, shape, call, plain)."""
+    from dsi_tpu_torch.device.relay import DeviceRelay
+
+    out = []
+    for n_dev in (1, 8):
+        rng = np.random.default_rng(1234 + n_dev)
+        steps = [_relay_rows(rng, n_dev, RELAY_CAP // 4)] + [
+            _relay_rows(rng, n_dev, RELAY_CAP // 16)
+            for _ in range(RELAY_PACKS)]
+        want = np.zeros((n_dev, RELAY_CAP), np.uint8)
+        for r in range(n_dev):
+            row = np.concatenate([b[r, :k[r]] for b, k in steps])
+            want[r, :row.size] = row
+        dev = [(torch.from_numpy(b).cuda(), k) for b, k in steps]
+
+        def call(dev=dev, n_dev=n_dev):
+            relay = DeviceRelay(n_dev, cap=RELAY_CAP, device="cuda")
+            relay.append(dev[0][0].clone(), dev[0][1])
+            for buf, kept in dev[1:]:
+                relay.append(buf, kept)
+            return list(relay.batches())
+
+        out.append((f"n_dev={n_dev}", [n_dev, RELAY_CAP, RELAY_PACKS], call,
+                    lambda want=want: [torch.from_numpy(want)]))
+    return out
+
+
+def _wire_batches(raw0: bytes):
+    """(at, batch) for kernel N: the bench's text at [1, 2 MiB] (the 7-bit
+    mode), the low-entropy text at [1, 2 MiB] (nibble, rung 8) and at [8,
+    2 MiB]."""
+    n = 1 << 21
+    text = raw0 + b"\n"
+    bench = np.frombuffer(text * (n // len(text) + 1), np.uint8)[:n]
+    unit = lowent_unit()
+    low = np.frombuffer(unit * (8 * n // len(unit) + 1), np.uint8)
+    return [("b7 [1, 2 MiB]", bench.reshape(1, n)),
+            ("nib [1, 2 MiB]", low[:n].reshape(1, n)),
+            ("nib [8, 2 MiB]", low[:8 * n].reshape(8, n))]
+
+
+def _wire_workload(raw0: bytes):
+    """Kernel N through ``decode_chunk_device`` on :func:`_wire_batches`,
+    each encoded by ``encode_chunk``: (at, shape, call, plain)."""
+    from dsi_tpu_torch.ops.wirecodec import (decode_chunk_device,
+                                             decode_chunk_plain, encode_chunk)
+
+    out = []
+    for at, batch in _wire_batches(raw0):
+        mode, packed, cap = encode_chunk(batch)
+        if mode != at[:len(mode)]:
+            raise RuntimeError(f"wire workload {at} encoded as {mode}")
+        pk = torch.from_numpy(packed).cuda()
+        kw = dict(n=batch.shape[1], lit_cap=cap, mode=mode)
+        out.append((f"{at} lit_cap {cap}", list(pk.shape),
+                    lambda pk=pk, kw=kw: [decode_chunk_device(pk, **kw)],
+                    lambda pk=pk, kw=kw: [decode_chunk_plain(pk, **kw)]))
+    return out
+
+
 _WORKLOADS = {"crash": _crash_workload, "nfa": _nfa_workload,
-              "compact": _compact_workload, "append": _append_workload}
+              "compact": _compact_workload, "append": _append_workload,
+              "relay": _relay_workload, "wire": _wire_workload}
+HOST_CALLS = 1000
 
 
 def _bench_raw0(work: str) -> bytes:
@@ -619,6 +710,57 @@ def _turn(name: str, out: str) -> None:
                       "times": times}), flush=True)
 
 
+def _host_turn(name: str) -> None:
+    """Where the host time of workload ``name``'s wrappers goes, in this
+    process's tree: each shape's call HOST_CALLS times under ``cProfile``
+    after a warm-up; prints, a call, the wall and the heaviest functions
+    by their own time (microseconds) as one JSON line."""
+    import cProfile
+    import pstats
+
+    w.resolve_device("cuda")
+    with tempfile.TemporaryDirectory() as work:
+        raw0 = _bench_raw0(work)
+    result = {}
+    for at, _, call, _ in _WORKLOADS[name](raw0):
+        call()
+        torch.cuda.synchronize()
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        for _ in range(HOST_CALLS):
+            call()
+        prof.disable()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        rows = sorted(pstats.Stats(prof).stats.items(),
+                      key=lambda kv: kv[1][2], reverse=True)
+        result[at] = {"us_a_call": wall / HOST_CALLS * 1e6, "top": [
+            [f"{Path(f).name}:{ln} {fn}", nc // HOST_CALLS,
+             tt / HOST_CALLS * 1e6, ct / HOST_CALLS * 1e6]
+            for (f, ln, fn), (_, nc, tt, ct, _) in rows[:14]]}
+    print(json.dumps({"package": str(Path(w.__file__).resolve().parents[2]),
+                      "host_profile": result}), flush=True)
+
+
+def _run_tree(root: Path, *argv: str) -> dict:
+    """``_TURN`` in a process of its own with the tree at ``root`` first on
+    the path, calling this file's function ``argv[0]`` with the rest;
+    returns its last output line, checked to come from that tree."""
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    run = subprocess.run([sys.executable, "-c", _TURN, __file__, *argv],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=1200)
+    if run.returncode != 0:
+        raise RuntimeError(f"{argv} in {root} exited {run.returncode}: "
+                           f"{run.stderr[-2000:]}")
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    if Path(got["package"]) != root.resolve():
+        raise RuntimeError(f"{argv} ran the package of {got['package']}, "
+                           f"not {root}")
+    return got
+
+
 def _tree_ab(name: str, base_root: Path, raw0: bytes) -> None:
     """``{name}_ab``: workload ``name`` through the wrappers of the tree
     at ``base_root`` (for example the parent commit unpacked with ``git
@@ -631,18 +773,7 @@ def _tree_ab(name: str, base_root: Path, raw0: bytes) -> None:
         for k, who in enumerate(("baseline", "change", "change",
                                  "baseline")):
             out = os.path.join(work, f"{k}.pt")
-            env = {**os.environ, "PYTHONPATH": str(roots[who])}
-            run = subprocess.run(
-                [sys.executable, "-c", _TURN, __file__, name, out],
-                cwd=roots[who], env=env, capture_output=True, text=True,
-                timeout=1200)
-            if run.returncode != 0:
-                raise RuntimeError(f"{name}_ab {who} turn exited "
-                                   f"{run.returncode}: {run.stderr[-2000:]}")
-            got = json.loads(run.stdout.strip().splitlines()[-1])
-            if Path(got["package"]) != roots[who].resolve():
-                raise RuntimeError(f"{name}_ab {who} turn ran the package "
-                                   f"of {got['package']}, not {roots[who]}")
+            got = _run_tree(roots[who], "_turn", name, out)
             turns.append((who, got["times"]))
             outputs.setdefault(who, torch.load(out))
     for at, shape, _, plain in _WORKLOADS[name](raw0):
@@ -666,8 +797,12 @@ def main() -> int:
     ap.add_argument("--ab", default=None,
                     help="with --baseline-csrc, the A/Bs to run (comma "
                          "list of sort, tokenize, group, crash, nfa, "
-                         "compact, append; default all), without the "
-                         "profiles")
+                         "compact, append, relay, wire; default all), "
+                         "without the profiles")
+    ap.add_argument("--host-profile", action="store_true",
+                    help="cProfile 1,000 calls of the relay and wire "
+                         "workloads (host_profile), in this tree and, with "
+                         "--baseline-csrc, in the tree that holds it")
     ap.add_argument("--stream", action="store_true",
                     help="also profile the stream row (stream_profile)")
     ap.add_argument("--grep", action="store_true",
@@ -695,6 +830,18 @@ def main() -> int:
     build.library()
     if args.crashcheck:
         print(json.dumps({"crash_profile": _crash_profile()}), flush=True)
+        return 0
+    if args.host_profile:
+        roots = {"change": _ROOT}
+        if args.baseline_csrc is not None:
+            roots = {"baseline": args.baseline_csrc.resolve().parents[1],
+                     **roots}
+        for who, root in roots.items():
+            for name in ("relay", "wire"):
+                got = _run_tree(root, "_host_turn", name)
+                print(json.dumps({"host_profile": {
+                    "tree": who, "workload": name, **got["host_profile"]}}),
+                    flush=True)
         return 0
     with tempfile.TemporaryDirectory() as work:
         files = ensure_corpus(os.path.join(work, "c"), 8, (2 << 20) - 64,
@@ -726,7 +873,7 @@ def main() -> int:
             print(json.dumps({"stream_profile": _stream_profile(
                 files, sum(len(r) for r in raws) + len(raws) - 1)}),
                 flush=True)
-    abs_ = set(("sort tokenize group crash nfa compact append"
+    abs_ = set(("sort tokenize group crash nfa compact append relay wire"
                 if args.ab is None
                 else args.ab.replace(",", " ")).split())
     buf, _, _ = _resolve_pieces(raws, None)

@@ -1,7 +1,9 @@
 """Edge cases for kernels A (tokenize), C (group runs), J (the grep
 step) and E (the shuffle) at tile edges, for kernel D (FNV-1a with its
-partition epilogue), kernel O (the crash model checker) and kernel I
-(the NFA scan) at its group edges.
+partition epilogue), kernel O (the crash model checker), kernel I
+(the NFA scan) at its group edges, kernel P (the relay pack) at every
+offset residue mod 16 and past the row, and kernel N (the wire decode)
+with escapes across its tile edges.
 
 One set of inputs serves two checks: the CPU tests hold the port's plain
 versions against ``dsi_tpu`` on them at a small tile, and ``chip_smoke.py``
@@ -49,6 +51,12 @@ NfaCase = Tuple[str, np.ndarray, str, int, int]
 # Kernel I's group (csrc/nfa.cu kGroup blocks of 256 bytes), the bytes one
 # CUDA block scans and publishes one aggregate for.
 NFA_GROUP_BYTES = 64 * 256
+# (name, acc u8 [n_dev, cap], off i64 [n_dev], new u8 [n_dev, cap])
+RelayCase = Tuple[str, np.ndarray, np.ndarray, np.ndarray]
+# (name, packed u8 [n_dev, width], lit_cap, the encoder's input u8
+#  [n_dev, n] or None for a hand-made packed tensor); every case's n is
+#  the call's
+WireCase = Tuple[str, np.ndarray, int, Optional[np.ndarray]]
 
 
 def _text(rng, n: int, max_len: int = 14) -> np.ndarray:
@@ -601,3 +609,124 @@ def nfa_cases(group: int = NFA_GROUP_BYTES,
         put(many, g * group - 2 if g else 5, b"the")
     cases.append(("34_groups_s16", many, "th[a-z]*e", 16, l_cap))
     return cases
+
+
+def relay_cases(n_dev: int, cap: int, seed: int = 1234) -> List[RelayCase]:
+    """Kernel P's cases at [n_dev, cap] (any cap, also one that is not a
+    multiple of 16): random acc and new rows, and offsets 0, ``cap -
+    kept``, sixteen consecutive ones around mid-row (every residue mod 16,
+    ``n_dev`` a case), one below 0 (new shifted left, its tail clamped to
+    its last byte), one below ``-cap`` (every byte that last one), ``cap``
+    and past it (nothing written), and at more than one row all of them
+    mixed in one call."""
+    rng = np.random.default_rng(seed + 7 * n_dev + cap % 97)
+
+    def rows():
+        return rng.integers(0, 256, (n_dev, cap), dtype=np.uint8)
+
+    def case(name, off):
+        return (name, rows(), np.asarray(off, np.int64).reshape(n_dev),
+                rows())
+
+    mid = cap // 2
+    kept = rng.integers(1, cap, n_dev)
+    cases = [case("zero", np.zeros(n_dev)), case("cap_kept", cap - kept)]
+    for j in range(0, 16, n_dev):
+        cases.append(case(f"mid_res{j}",
+                          mid - 8 + j + np.arange(n_dev) % 16))
+    for name, o in (("negative", -5), ("below_minus_cap", -cap - 3),
+                    ("at_cap", cap), ("past_cap", cap + 7)):
+        cases.append(case(name, np.full(n_dev, o)))
+    if n_dev > 1:
+        mixed = np.array([-5, -cap - 3, cap, cap + 7, 0, 1, mid + 3,
+                          cap - 1])
+        cases.append(case("mixed", np.resize(mixed, n_dev)))
+    return cases
+
+
+_WIRE_COMMON = np.frombuffer(b"etaoinshrdlu \n", np.uint8)
+_WIRE_RARE = np.frombuffer(b"vwxyzqjkVWXYZQJK", np.uint8)
+
+
+def wire_cases(n_dev: int, n: int, tile_bytes: int,
+               seed: int = 1234) -> List[WireCase]:
+    """Kernel N's nibble-mode cases at [n_dev, n] (n % 8 == 0), with
+    ``tile_bytes`` packed bytes a tile: escapes on both sides of every
+    tile edge (encoded), rows with no escape (encoded), rows of
+    escapes only and rows whose escapes overrun the literal region (the
+    clamp), both hand-made, and a hand-made row of odd width (every row's
+    nibbles off the 16-byte grid)."""
+    from dsi_tpu_torch.ops.wirecodec import encode_chunk, packed_width
+
+    rng = np.random.default_rng(seed + n_dev)
+    half = n // 2
+
+    def common():
+        return rng.choice(_WIRE_COMMON, (n_dev, n)).astype(np.uint8)
+
+    def encoded(name, batch):
+        mode, packed, cap = encode_chunk(batch)
+        if mode != "nib":
+            raise ValueError(f"wire case {name} encoded as {mode}")
+        return (name, packed, cap, batch)
+
+    edges = common()
+    for t in range(0, half, tile_bytes):
+        for d in (-3, -2, -1, 0, 1, 2):
+            i = 2 * t + d
+            if 0 <= i < n:
+                edges[:, i] = rng.choice(_WIRE_RARE, n_dev)
+    cases = [encoded("tile_edges", edges), encoded("no_escape", common())]
+    lit_cap = max(1, n // 4)
+    every = rng.integers(0, 256, (n_dev, packed_width(n, lit_cap)),
+                        dtype=np.uint8)
+    every[:, 16:16 + half] = 0xFF
+    cases.append(("all_escapes", every, lit_cap, None))
+    lit_cap = max(1, n // 8)
+    clamp = rng.integers(0, 256, (n_dev, packed_width(n, lit_cap)),
+                         dtype=np.uint8)
+    clamp[:, 16:16 + half // 2] = 0xFF  # n / 2 escapes, 4x the region
+    cases.append(("clamp", clamp, lit_cap, None))
+    lit_cap = max(1, n // 8) + 3
+    odd = rng.integers(0, 256, (n_dev, packed_width(n, lit_cap)),
+                       dtype=np.uint8)
+    cases.append(("odd_width", odd, lit_cap, None))
+    return cases
+
+
+def load16_any_model(mem: np.ndarray, base: int, p: np.ndarray, lo: int,
+                     hi: int, warp: int = 32) -> np.ndarray:
+    """A numpy model of ``csrc/common.cuh load16_any`` for the CPU tests
+    of kernels N and P: the 16 bytes at each address of ``p`` (int64
+    [threads], a warp every ``warp`` (32 on the card; fewer where a test's
+    small tile has fewer threads), lane l + 1 asking for lane l's address
+    + 16) of the bytes ``mem`` placed at address ``base``.  Each lane
+    loads the aligned vector at or below its address, takes the next from
+    lane l + 1 (the warp's last lane loads it), and shifts the pair into
+    place word by word, as the kernel's selects and funnel shifts do.  A
+    vector that does not overlap [lo, hi) is not read and holds 0xCD; a
+    read byte outside ``mem`` is 0xEE (the memory around an
+    allocation)."""
+    sh = int(p[0]) & 15
+    assert p.size % warp == 0 and np.all((p & 15) == sh)
+    assert np.all(np.diff(p.reshape(-1, warp), axis=1) == 16)
+
+    def load(a):
+        idx = a[:, None] + np.arange(16) - base
+        got = np.where((idx >= 0) & (idx < mem.size),
+                       mem[np.clip(idx, 0, mem.size - 1)], 0xEE)
+        read = (a + 16 > lo) & (a < hi)
+        return np.where(read[:, None], got, 0xCD).astype(np.uint8)
+
+    a = p - sh
+    x = load(a)
+    if sh == 0:
+        return x
+    y = np.roll(x.reshape(-1, warp, 16), -1, axis=1).reshape(-1, 16)
+    last = np.arange(p.size) % warp == warp - 1
+    y[last] = load(a[last] + 16)
+    w = np.concatenate([x, y], 1).view("<u4").astype(np.uint64)  # [m, 8]
+    q, bits = sh >> 2, 8 * (sh & 3)
+    s = w[:, q:q + 5]
+    v = ((s[:, :4] >> np.uint64(bits)) | (s[:, 1:] << np.uint64(32 - bits)))
+    return (v & np.uint64(0xFFFFFFFF)).astype("<u4").view(np.uint8)

@@ -3,11 +3,17 @@
 
 ``relay_pack_plain`` and the CPU path of ``relay_pack`` are held to the
 reference's ``_pack_impl`` at offsets 0, mid-row, ``cap - kept`` and
-random, at 1 and 8 rows.  The two packages' relays take the same seeded
-appends (8 rows, the reference on its 8-device virtual mesh) and must
-hand over the same buffers, fill lengths and stats through seals, a
-spill budget, ``take_sealed``/``finish`` and ``host_blocks``; a
-``capture`` image from either package restores in the other.
+random, at 1 and 8 rows.  A numpy model of kernel P's design (the row's
+blocks from the fill point, one aligned 16-byte load a lane with the
+neighbour lane's shifted in, 16-byte stores inside the row) is held to
+``_pack_impl`` on ``kernel_cases.relay_cases``: every offset residue mod
+16, offsets below 0, below ``-cap``, at and past ``cap``, caps off the
+16-byte grid and rows at any address alignment.  The two packages'
+relays take the same seeded appends (8 rows, the reference on its
+8-device virtual mesh) and must hand over the same buffers, fill lengths
+and stats through seals, a spill budget, ``take_sealed``/``finish`` and
+``host_blocks``; a ``capture`` image from either package restores in the
+other.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from dsi_tpu.device import relay as jr
 from dsi_tpu.parallel import shuffle as js
 from dsi_tpu_torch.device import relay as tr
 from dsi_tpu_torch.ops import wordcount as tw
+from dsi_tpu_torch.utils import kernel_cases as kc
 
 N_DEV = 8
 
@@ -90,6 +97,82 @@ def test_pack_refuses_alias_and_counts_no_launch():
     tr.relay_pack(acc, torch.zeros(2, dtype=torch.int32),
                   torch.ones((2, 32), dtype=torch.uint8))
     assert tw.launch_counts()["relay_pack"] == 0
+
+
+def test_pack_takes_offsets_on_the_host():
+    """On the card the offsets are launch arguments: ``off`` is a host
+    array or a CPU tensor, and one elsewhere (a read would be a hidden
+    sync) raises before anything runs."""
+    acc = torch.zeros((2, 32), dtype=torch.uint8)
+    new = torch.ones((2, 32), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="on the host"):
+        tr.relay_pack(acc, torch.zeros(2, dtype=torch.int32, device="meta"),
+                      new)
+    with pytest.raises(ValueError, match="bad operands"):
+        tr.relay_pack(acc, np.zeros(2, np.float32), new)
+    assert tr.relay_pack(acc, np.array([3, 40]), new) is acc  # numpy off
+    assert acc[0, :3].sum() == 0 and bool((acc[0, 3:] == 1).all())
+    assert acc[1].sum() == 0
+
+
+# ── P's design as a numpy model ────────────────────────────────────────────
+
+P_THREADS = 256
+
+
+def pack_model(acc, off, new, acc_base: int, new_base: int):
+    """Kernel P as ``csrc/relay_pack.cu`` does it, acc and new [n_dev,
+    cap] placed at addresses ``acc_base`` and ``new_base``: (out, the
+    vectors of each row stored byte by byte).  A row's blocks start at the
+    aligned vector holding its fill point; a thread's source bytes come
+    through ``load16_any`` from new's row (the clamp past its end where
+    off < 0); a vector wholly inside [max(off, 0), cap) is one 16-byte
+    store."""
+    n_dev, cap = acc.shape
+    out = acc.copy()
+    mem = new.reshape(-1)
+    byte_vectors = []
+    for r in range(n_dev):
+        o = int(off[r])
+        if o >= cap:  # no block
+            byte_vectors.append(0)
+            continue
+        start = max(o, 0)
+        row_addr = acc_base + r * cap
+        v0 = ((row_addr + start) & ~15) - row_addr
+        vectors = -(-(cap - v0) // 16)
+        blocks = -(-vectors // P_THREADS)
+        i0 = v0 + 16 * np.arange(blocks * P_THREADS, dtype=np.int64)
+        src = new_base + r * cap
+        v = kc.load16_any_model(mem, new_base, src + i0 - o, src, src + cap)
+        j = i0[:, None] + np.arange(16) - o
+        v = np.where(j > cap - 1, new[r, cap - 1], v)
+        i = i0[:, None] + np.arange(16)
+        full = (i0 >= start) & (i0 + 16 <= cap)
+        assert np.all(((row_addr + i0[full]) & 15) == 0)
+        keep = (i >= start) & (i < cap)
+        assert np.all(keep[~full].sum(1) < 16)  # a byte-stored vector
+        out[r, i[keep]] = v[keep]
+        byte_vectors.append(int((~full & keep.any(1)).sum()))
+        # No block is launched only to return.
+        assert keep.reshape(blocks, -1).any(1).all()
+    return out, byte_vectors
+
+
+@pytest.mark.parametrize("n_dev,cap,bases", [
+    (1, 256, (0, 0)), (1, 200, (0, 0)), (8, 256, (0, 5)),
+    (8, 1000, (0, 0)), (8, 4093, (512, 1027)), (3, 8200, (16, 8)),
+])
+def test_pack_model_matches_reference(n_dev, cap, bases):
+    for name, acc, off, new in kc.relay_cases(n_dev, cap):
+        want = np.asarray(jr._pack_impl(acc, off.astype(np.int32), new))
+        got, byte_vectors = pack_model(acc, off, new, *bases)
+        assert np.array_equal(got, want), name
+        # Byte stores only at the fill point and the row's end.
+        assert max(byte_vectors) <= 2, name
+        acc_t = torch.from_numpy(acc.copy())
+        tr.relay_pack(acc_t, off, torch.from_numpy(new))
+        assert np.array_equal(acc_t.numpy(), want), name
 
 
 # ── the relays ──────────────────────────────────────────────────────────

@@ -8,7 +8,13 @@ width) every encoder must give the reference's bytes and every decoder its
 values.  The plain decode of kernel N (``decode_chunk_plain``) must equal
 the reference's jitted ``decode_chunk_device`` on the JAX CPU backend in
 both modes, at 1 and 8 shards, and on a hand-made packed tensor whose
-escapes exceed its literal region (the clamp).  Tolerance: exact.
+escapes exceed its literal region (the clamp).  Numpy models of kernel
+N's designs (7-bit: one thread a 7-byte group; nibble: one 16-byte load a
+thread, its 32 nibbles' escape mask, a tile scan, the decoupled look-back
+over the row's tiles under any mix of published states, the dictionary
+looked up four nibbles at a time, literals read once in order) are held
+to ``_decode_impl`` and ``_decode7_impl`` on ``kernel_cases.wire_cases``
+with tiles small enough that a row spans several.  Tolerance: exact.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from dsi_tpu.ops import wirecodec as jwc
 from dsi_tpu_torch.ops import wirecodec as twc
 from dsi_tpu_torch.ops import wordcount as tw
+from dsi_tpu_torch.utils import kernel_cases as kc
 
 # 14 frequent symbols (the dictionary's bulk) and rare ones that escape.
 _COMMON = np.frombuffer(b"etaoinshrdlu \n", np.uint8)
@@ -219,3 +226,200 @@ def test_chunk_shapes_and_switch_match_reference(monkeypatch):
         for flag in (None, True, False):
             assert twc.wire_upload_default(flag) == \
                 jwc.wire_upload_default(flag)
+
+
+# ── N's designs as numpy models ──────────────────────────────────────────
+
+
+def decode7_model(packed, n: int):
+    """Kernel N's 7-bit mode as ``csrc/wire_decode.cu wire_decode7``: one
+    thread a group, its 7 bytes a little-endian u64, lane k = (v >> 7k) &
+    0x7F, stored as one u64."""
+    grp = packed.reshape(-1, 7).astype(np.uint64)
+    v = np.zeros(grp.shape[0], np.uint64)
+    for j in range(7):
+        v |= grp[:, j] << np.uint64(8 * j)
+    o = np.zeros_like(v)
+    for k in range(8):
+        o |= ((v >> np.uint64(7 * k)) & np.uint64(0x7F)) << np.uint64(8 * k)
+    return o.astype("<u8").view(np.uint8).reshape(packed.shape[0], n)
+
+
+def _swap_nibbles(x):
+    return ((x >> 4) & 0x0F0F0F0F) | ((x & 0x0F0F0F0F) << 4)
+
+
+def _escapes8(sw):
+    t = sw & (sw >> 1) & (sw >> 2) & (sw >> 3) & 0x11111111
+    t = (t | (t >> 3)) & 0x03030303
+    t = (t | (t >> 6)) & 0x000F000F
+    return (t | (t >> 12)) & 0xFF
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm: byte k of the result is byte (sel >> 4k) & 7 of
+    the 8 bytes y:x."""
+    x, y, sel = np.broadcast_arrays(x, y, sel)
+    src = np.stack([(x >> (8 * k)) & 0xFF for k in range(4)]
+                   + [(y >> (8 * k)) & 0xFF for k in range(4)], -1)
+    out = np.zeros_like(x)
+    for k in range(4):
+        pick = (sel >> (4 * k)) & 7
+        out |= np.take_along_axis(src, pick[..., None], -1)[..., 0] << (8 * k)
+    return out
+
+
+def _lookup4(d, sel):
+    idx = sel & 0x7777
+    lo = _byte_perm(d[0], d[1], idx)
+    hi = _byte_perm(d[2], d[3], idx)
+    return _byte_perm(lo, hi, 0x3210 | ((sel & 0x8888) >> 1))
+
+
+def look_back(agg, window: int, rng):
+    """Each tile's exclusive prefix as ``common.cuh lb_exclusive`` finds
+    it: tile t sees every earlier tile published, each with its aggregate
+    alone or already with its inclusive prefix (drawn at random; tile 0
+    publishes its prefix at once), and walks back ``window`` tiles a round
+    to the nearest inclusive one."""
+    inc = np.cumsum(agg)
+    ex = np.zeros(len(agg), np.int64)
+    for t in range(1, len(agg)):
+        shows_inc = rng.random(t) < 0.3
+        shows_inc[0] = True
+        c, j = 0, t - 1
+        while j >= 0:
+            lo = max(j - window + 1, 0)
+            near = next((q for q in range(j, lo - 1, -1) if shows_inc[q]),
+                        None)
+            for q in range(j, (lo if near is None else near) - 1, -1):
+                c += int(inc[q] if shows_inc[q] else agg[q])
+            if near is not None:
+                break
+            j = lo - 1
+        ex[t] = c
+    return ex
+
+
+def decode_nib_model(packed, n: int, lit_cap: int, tile: int, rounds: int,
+                     base: int, rng):
+    """Kernel N's nibble mode as ``csrc/wire_decode.cu wire_decode_nib``:
+    tiles of ``tile`` packed bytes in ``rounds`` rounds (in round q, thread
+    t takes the tile's vector q * threads + t: the row's vectors in order),
+    the packed tensor at address ``base`` and ``out`` 16-byte aligned:
+    (out, each row's literal reads in order, (16-byte stores, 8-byte
+    stores))."""
+    n_dev, width = packed.shape
+    half, threads = n // 2, tile // (16 * rounds)
+    tiles = -(-half // tile)
+    mem = packed.reshape(-1)
+    out = np.zeros((n_dev, n), np.uint8)
+    reads, stores = [], [0, 0]
+    for s in range(n_dev):
+        nib = base + s * width + 16
+        j0 = 16 * np.arange(tiles * rounds * threads, dtype=np.int64)
+        v = kc.load16_any_model(mem, base, nib + j0, nib, nib + half,
+                                warp=min(32, threads))
+        sw = _swap_nibbles(v.view("<u4").astype(np.int64))  # [m, 4]
+        valid = np.clip(half - j0, 0, 16)
+        mask = sum(_escapes8(sw[:, q]) << (8 * q) for q in range(4))
+        mask = np.where(valid < 16, mask & ((1 << (2 * valid)) - 1), mask)
+        cnt = np.array([bin(int(x)).count("1") for x in mask]).reshape(
+            tiles, rounds, threads)
+        # One block scan of each thread's rounds in 16-bit fields.
+        fields = sum(cnt[:, q, :] << (16 * q) for q in range(rounds))
+        totals = fields.sum(1)
+        ex_fields = np.cumsum(fields, 1) - fields
+        assert np.all(cnt.sum(2) < 1 << 16)
+        tile_total = sum((totals >> (16 * q)) & 0xFFFF for q in range(rounds))
+        ex = look_back(tile_total, threads, rng)
+        first = np.zeros((tiles, rounds, threads), np.int64)
+        for q in range(rounds):
+            below = sum((((totals >> (16 * p)) & 0xFFFF) for p in range(q)),
+                        np.zeros(tiles, np.int64))
+            first[:, q, :] = (ex[:, None] + below[:, None]
+                              + ((ex_fields >> (16 * q)) & 0xFFFF))
+        first = first.reshape(-1)
+        d = packed[s, :16].copy().view("<u4").astype(np.int64)
+        o = np.zeros((j0.size, 8), np.int64)
+        for q in range(4):
+            o[:, 2 * q] = _lookup4(d, sw[:, q])
+            o[:, 2 * q + 1] = _lookup4(d, sw[:, q] >> 16)
+        lits = packed[s, 16 + half:]
+        row_reads = []
+        per_tile = rounds * threads
+        for t in np.flatnonzero(mask):
+            # The tile's literal range, staged by its block.
+            tl = t // per_tile
+            lo = min(int(ex[tl]), lit_cap - 1)
+            stage = lits[lo:min(int(ex[tl] + tile_total[tl]) - 1,
+                                lit_cap - 1) + 1]
+            e = int(first[t])
+            for m in range(32):
+                if (int(mask[t]) >> m) & 1:
+                    k = min(e, lit_cap - 1)
+                    row_reads.append(k)
+                    o[t, m >> 2] &= ~(0xFF << (8 * (m & 3)))
+                    o[t, m >> 2] |= int(stage[k - lo]) << (8 * (m & 3))
+                    e += 1
+        reads.append(row_reads)
+        got = o.astype("<u4").view(np.uint8)  # [m, 32]
+        for t in np.flatnonzero(valid):
+            dst = s * n + 2 * int(j0[t])
+            if valid[t] == 16 and dst % 16 == 0:
+                stores[0] += 2
+            else:
+                assert dst % 8 == 0 and valid[t] % 4 == 0
+                stores[1] += int(valid[t]) // 4
+            out[s, 2 * j0[t]:2 * j0[t] + 2 * valid[t]] = got[t, :2 * valid[t]]
+    return out, reads, stores
+
+
+@pytest.mark.parametrize("n_dev,n,tile,rounds,base", [
+    (1, 256, 32, 1, 0), (2, 200, 16, 1, 0), (3, 1024, 128, 4, 7),
+    (2, 2048, 256, 4, 16), (2, 1024, 64, 2, 3),
+])
+def test_decode_models_match_reference(n_dev, n, tile, rounds, base):
+    rng = np.random.default_rng(n + tile)
+    for name, packed, lit_cap, batch in kc.wire_cases(n_dev, n, tile):
+        want = np.asarray(jwc._decode_impl(packed, n=n))
+        got, reads, stores = decode_nib_model(packed, n, lit_cap, tile,
+                                              rounds, base, rng)
+        assert np.array_equal(got, want), name
+        assert np.array_equal(twc.decode_chunk_plain(
+            torch.from_numpy(packed), n=n, lit_cap=lit_cap,
+            mode="nib").numpy(), want), name
+        if batch is not None:
+            assert np.array_equal(got, batch), name
+        # Literals once each, in order (a clamped escape rereads the last).
+        for row in reads:
+            k = min(len(row), lit_cap - 1)
+            assert row[:k] == list(range(k)) and set(row[k:]) <= {k}, name
+        # Whole 16-byte stores where the rows sit on the 16-byte grid: 8-byte
+        # ones only in a row's last, partial thread.
+        if n % 16 == 0:
+            assert stores[1] <= 3 * n_dev, name
+        else:
+            assert stores[1] >= 4 * (n // 32) * (n_dev // 2), name
+    b7 = rng.integers(0, 128, (n_dev, n), dtype=np.uint8)
+    mode, packed, _ = twc.encode_chunk(b7)
+    assert mode == "b7"
+    want = np.asarray(jwc._decode7_impl(packed, n=n))
+    assert np.array_equal(decode7_model(packed, n), want)
+    assert np.array_equal(want, b7)
+
+
+def test_wire_decode_c_interface():
+    """``chip_smoke.py`` places escapes across N's one tile size, which the
+    kernel reports with no arguments; the scratch size and the launch keep
+    their parameters."""
+    import ctypes
+
+    from dsi_tpu_torch.kernels import build
+
+    p, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    assert build.SIGNATURES["dsi_wire_decode_tile_bytes"] == (i64, [])
+    assert build.SIGNATURES["dsi_wire_decode_scratch_bytes"] == (
+        i64, [c_int, i64])
+    assert build.SIGNATURES["dsi_wire_decode"] == (
+        c_int, [p, c_int, i64, i64, i64, c_int, p, p, p])
