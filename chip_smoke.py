@@ -322,9 +322,13 @@ SCALAR_OPS_PER_S = 67e12
 # (132 SMs x 64 INT32 lanes x 1.98 GHz), the one rate for the integer work
 # of kernels I (bit sets) and O (threefry and the state machine).
 INT32_OPS_PER_S = SCALAR_OPS_PER_S / 4
-# Kernel I's CUDA launches a call: its own two (nfa_prep, nfa_scan) and
-# kernel H's epilogue's four (fill, count, scan, flags).
-NFA_MOST_LAUNCHES = 6
+# Kernel I's CUDA launches a call: its own two (nfa_prep, nfa_scan, which
+# also zeroes the epilogue's look-back state) and kernel H's one-pass line
+# flags over the mask (mask_lines).
+NFA_MOST_LAUNCHES = 3
+# Kernel H a call: a memset of its look-back state and one kernel, one
+# allocation, no Memcpy.
+H_MOST_LAUNCHES, H_MOST_ALLOCS = 2, 1
 
 
 def log(obj) -> None:
@@ -689,14 +693,21 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Idle seconds at each edge of a profiler step: torch.profiler drops the
+# kernels it sees near a window's edges (on the H100, 2-5 windows of 40
+# without it, none of 240 with 5 ms).
+PROFILE_EDGE_S = 0.005
+
+
 def _device_events(fn, reps: int, anchors, tries: int = 4):
     """[(kernel or copy name, count, device us)] of ``reps`` calls of
     ``fn()`` under ``torch.profiler``, after a warm-up call and a warm-up
     step of the profiler, or None.  A window counts only when it is whole:
     a kernel whose name holds one of ``anchors`` (each launched once a
     call) was seen ``reps`` times and every count is a whole number of
-    calls.  The profiler can drop events at the edges of its window, so it
-    is asked again, up to ``tries`` times."""
+    calls.  The profiler can drop events at the edges of its window, so
+    each step's calls sit PROFILE_EDGE_S away from its edges and it is
+    asked again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     anchors = (anchors,) if isinstance(anchors, str) else tuple(anchors)
@@ -707,9 +718,11 @@ def _device_events(fn, reps: int, anchors, tries: int = 4):
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             for _ in range(2):
+                time.sleep(PROFILE_EDGE_S)
                 for _ in range(reps):
                     fn()
                 sync()
+                time.sleep(PROFILE_EDGE_S)
                 prof.step()
         events = []
         for e in prof.key_averages():
@@ -1804,6 +1817,10 @@ def grep_tiers_path(raw0: bytes):
     if out["short_lines the"]["launches"]["grep"] != 2:
         failures.append("grep_tiers: the short-line input did not overflow "
                         "rung 0 and clear at n+1")
+    if out["the|and"]["launches"]["grep"] != 1:  # one rung, both branches
+        failures.append("grep_tiers: 'the|and' took "
+                        f"{out['the|and']['launches']['grep']} H launches, "
+                        "not one a rung")
     return out, launches, failures
 
 
@@ -1943,13 +1960,85 @@ def check_nfa_edges():
     return worst
 
 
-def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
-    """H, I, J and B at the grep paths' shapes, each held against its
-    plain version on the same device tensors and timed beside it.
-    Returns ({kernel: entry with at_shapes}, {kernel: max_abs_err})."""
+def check_hgrep_edges(raw0: bytes):
+    """Kernel H against its plain version (``altk.altgrep_kernel_plain``,
+    per branch, OR-ed) on the shared edge cases
+    (``kernel_cases.hgrep_cases``, the CPU tests' cases) at H's own tile
+    (``dsi_grep_tile_bytes``), each also from a chunk 5 bytes past a
+    16-byte boundary and cut to an odd length; on the bench file padded
+    to 2^21 with literal, class and alternation patterns (one a literal
+    past the word, two of 8 and 24 bytes on the 32-byte warm-up); and its
+    mask entry (``dsi_line_flags_prezeroed``, kernel I's) on
+    ``kernel_cases.line_flag_cases`` against ``line_flags_from_match``.
+    Returns max_abs_err."""
     import numpy as np
     import torch
-    from dsi_tpu_torch.ops import grepk, nfak, regexk
+    from dsi_tpu_torch.kernels.build import library
+    from dsi_tpu_torch.ops import altk, grepk, regexk
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.utils.kernel_cases import (hgrep_cases,
+                                                  line_flag_cases)
+
+    lib = library()
+    tile = lib.dsi_grep_tile_bytes()
+    bench = w._pad_pow2(raw0)
+    cases = hgrep_cases(tile) + [
+        (f"bench {p}", bench, b, len(bench) // 8) for p, b in (
+            ("the", (grepk.literal_branch(b"the"),)),
+            ("[Tt]he|^a|s$", tuple(regexk.parse_class_pattern(q)
+                                   for q in ("[Tt]he", "^a", "s$"))),
+            ("literal of 8", (grepk.literal_branch(raw0[2000:2008]),)),
+            ("literal of 24", (grepk.literal_branch(raw0[3000:3024]),)),
+            ("literal of 36", (grepk.literal_branch(raw0[1000:1036]),)))]
+    worst = 0
+    for name, buf, branches, l_cap in cases:
+        for off, cut in ((0, 0), (5, 0), (5, 3)):
+            n = len(buf) - cut
+            chunk = torch.zeros(n + off, dtype=torch.uint8,
+                                device=DEVICE)[off:]
+            chunk.copy_(torch.from_numpy(np.ascontiguousarray(buf[:n])))
+            d = _worst(zip(altk.altgrep_kernel(chunk, branches, l_cap=l_cap),
+                           altk.altgrep_kernel_plain(chunk, branches,
+                                                     l_cap=l_cap)))
+            sync()
+            worst = _merge_err(worst, d)
+            log({"hgrep_edge_case": name, "n": n, "offset": off,
+                 "tile": tile, "branches": len(branches),
+                 "calls": len(grepk.pack_branches(branches)),
+                 "l_cap": l_cap, "max_abs_err": d})
+    for name, buf, mask, l_cap in line_flag_cases(tile):
+        n = len(buf)
+        chunk = torch.from_numpy(buf).to(DEVICE)
+        mk = torch.from_numpy(mask).to(DEVICE)
+        # dsi_grep's buffer: flags, scalars, then the look-back state
+        # (zeroed here, as nfa_prep zeroes it for kernel I) at its end.
+        size = lib.dsi_grep_bytes(n, l_cap)
+        out = torch.zeros(size, dtype=torch.uint8, device=DEVICE)
+        at = size - lib.dsi_grep_scratch_bytes(n)
+        w._launch("grep", lib.dsi_line_flags_prezeroed(
+            w._ptr(chunk), n, w._ptr(mk), l_cap, w._ptr(out),
+            w._ptr(out) + 4 * l_cap, w._ptr(out) + at, w._stream(chunk)))
+        got = out[:4 * (l_cap + 2)].view(torch.int32)
+        want = grepk.line_flags_from_match(chunk, mk != 0, l_cap)
+        d = _worst(zip((got[:l_cap], got[l_cap], got[l_cap + 1] != 0),
+                       want))
+        sync()
+        worst = _merge_err(worst, d)
+        log({"line_flags_edge_case": name, "n": n, "tile": tile,
+             "l_cap": l_cap, "max_abs_err": d})
+    return worst
+
+
+def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
+    """H, I, J and B at the grep paths' shapes, each held against its
+    plain version on the same device tensors and timed beside it; H's rows
+    (`the`, `[Tt]he`, `the|and`) fail above H_MOST_LAUNCHES CUDA launches
+    or H_MOST_ALLOCS allocations a call, on any Memcpy, or unmeasured.
+    Returns ({kernel: entry with at_shapes}, the top-k row, {kernel:
+    max_abs_err}, failures)."""
+    import numpy as np
+    import torch
+    from dsi_tpu_torch.ops import altk, grepk, nfak, regexk
     from dsi_tpu_torch.ops import wordcount as w
     from dsi_tpu_torch.parallel.grepstream import (grep_step,
                                                    grep_step_plain)
@@ -1975,17 +2064,36 @@ def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
         return e
 
     flags_bytes = n + 4 * l_cap + 8
-    rows = {"grep": entry(
+    failures = []
+
+    def h_entry(fn, plain, shape):
+        e = entry(fn, plain, flags_bytes, shape)
+        e.update(wrapper_profile(fn, "grep_lines"))
+        tag = f"grep {shape}"
+        failures.extend(over_budget(tag, e, H_MOST_LAUNCHES, H_MOST_ALLOCS)
+                        + unmeasured(tag, e, ("launches_per_call",
+                                              "copies_per_call",
+                                              "allocs_per_call")))
+        if e["copies_per_call"]:
+            failures.append(f"{tag}: {e['copies_per_call']} Memcpys a call")
+        return e
+
+    rows = {"grep": h_entry(
         lambda: grepk.grep_kernel(chunk, b"the", l_cap=l_cap),
         lambda: grepk.grep_kernel_plain(chunk, b"the", l_cap=l_cap),
-        flags_bytes, f"literal 'the': n={n} l_cap={l_cap}",
-        anchor="grep_flags")}
+        f"literal 'the': n={n} l_cap={l_cap}")}
     ranges, a_s, a_e = regexk.parse_class_pattern("[Tt]he")
     kw = dict(ranges=ranges, anchor_start=a_s, anchor_end=a_e, l_cap=l_cap)
-    rows["grep"]["at_shapes"] = {"class": entry(
-        lambda: regexk.classgrep_kernel(chunk, **kw),
-        lambda: regexk.classgrep_kernel_plain(chunk, **kw), flags_bytes,
-        f"class '[Tt]he' (K14): n={n} l_cap={l_cap}", anchor="grep_flags")}
+    alt = (grepk.literal_branch(b"the"), grepk.literal_branch(b"and"))
+    rows["grep"]["at_shapes"] = {
+        "class": h_entry(
+            lambda: regexk.classgrep_kernel(chunk, **kw),
+            lambda: regexk.classgrep_kernel_plain(chunk, **kw),
+            f"class '[Tt]he' (K14): n={n} l_cap={l_cap}"),
+        "alternation": h_entry(
+            lambda: altk.altgrep_kernel(chunk, alt, l_cap=l_cap),
+            lambda: altk.altgrep_kernel_plain(chunk, alt, l_cap=l_cap),
+            f"alternation 'the|and' (K13 x 2, OR-ed): n={n} l_cap={l_cap}")}
 
     nfa = {}
     for s, pat in NFA_PATTERNS.items():
@@ -2044,7 +2152,7 @@ def grep_kernel_rows(raw0: bytes, stream_raw: bytes):
     topk.update(b_row_extras(words, topk["library_ms"]))
     errs = {name: _merge_err(rows[name]["max_abs_err"], _worst_err(rows[name]))
             for name in rows}
-    return rows, topk, errs
+    return rows, topk, errs, failures
 
 
 def check_grep_edges():
@@ -4145,9 +4253,12 @@ def main() -> int:
         log({"grep_cli": {**grep["grep_cli"], "gpu": gpu,
                           "stdout": cli_out.splitlines()[:3]}})
         nfa_calibration(gpu)
-        grep_rows, topk_row, grep_err = grep_kernel_rows(raws[0], data)
+        grep_rows, topk_row, grep_err, fails = grep_kernel_rows(raws[0],
+                                                                data)
+        failures += fails
         times.update(grep_rows)
         err.update(grep_err)
+        err["grep"] = _merge_err(err["grep"], check_hgrep_edges(raws[0]))
         err["nfa"] = _merge_err(err["nfa"], check_nfa_edges())
         j_edge_err, emit_edge_err = check_grep_edges()
         err["grep_step"] = _merge_err(err["grep_step"], j_edge_err)

@@ -16,6 +16,29 @@ __device__ __forceinline__ bool is_letter(uint8_t b) {
   return (b >= 65 && b <= 90) || (b >= 97 && b <= 122);
 }
 
+// Bits [0, n) set (kernels H and J), n clamped to [0, 32].
+__device__ __forceinline__ uint32_t low_bits(int64_t n) {
+  return n >= 32 ? 0xFFFFFFFFu : n <= 0 ? 0u : (1u << n) - 1u;
+}
+
+// Bit b set where byte b of w equals the byte replicated in c4: an exact
+// zero-byte test of w ^ c4, the high bit kept out of the additions.
+__device__ __forceinline__ uint32_t eq4(uint32_t w, uint32_t c4) {
+  const uint32_t x = w ^ c4;
+  const uint32_t t = ((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x;
+  const uint32_t z = ~t & 0x80808080u;
+  return ((z >> 7) * 0x10204080u) >> 28;
+}
+
+// The bytes equal to c among a thread's 32 (8 little-endian words).
+__device__ __forceinline__ uint32_t eq32(const uint32_t (&wd)[8], uint8_t c) {
+  const uint32_t c4 = 0x01010101u * c;
+  uint32_t m = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) m |= eq4(wd[q], c4) << (4 * q);
+  return m;
+}
+
 // Exclusive scan of one value per thread across the block, in thread order.
 // blockDim.x must be a multiple of 32 and at most 1024.  Every thread of the
 // block must call it.  Writes the block total to `total`.

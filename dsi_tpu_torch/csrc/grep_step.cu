@@ -172,29 +172,6 @@ __device__ __forceinline__ int64_t clamp_dlen(const int* dlen, int row,
   return d < 0 ? 0 : (d > N ? N : d);
 }
 
-// Bits [0, n) set, n clamped to [0, 32].
-__device__ __forceinline__ uint32_t low_bits(int64_t n) {
-  return n >= 32 ? 0xFFFFFFFFu : n <= 0 ? 0u : (1u << n) - 1u;
-}
-
-// Bit b set where byte b of w equals the byte replicated in c4: an exact
-// zero-byte test of w ^ c4, the high bit kept out of the additions.
-__device__ __forceinline__ uint32_t eq4(uint32_t w, uint32_t c4) {
-  const uint32_t x = w ^ c4;
-  const uint32_t t = ((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x;
-  const uint32_t z = ~t & 0x80808080u;
-  return ((z >> 7) * 0x10204080u) >> 28;
-}
-
-// The bytes equal to c among a thread's 32 (8 little-endian words).
-__device__ __forceinline__ uint32_t eq32(const uint32_t (&wd)[8], uint8_t c) {
-  const uint32_t c4 = 0x01010101u * c;
-  uint32_t m = 0;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) m |= eq4(wd[q], c4) << (4 * q);
-  return m;
-}
-
 // Block-wide sums of a and b and maximum of c, every thread gets all
 // three (one barrier, then one more before the shared words are reused).
 struct Totals {

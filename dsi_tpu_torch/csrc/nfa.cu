@@ -18,11 +18,13 @@
 //
 // Bound: operations, by the bit-set work (about n x S row lookups and ORs
 // in phase 1); the bytes (the chunk, 2 MiB, and the flags) take less.
-// Design, two launches and then kernel H's epilogue (dsi_line_flags in
-// csrc/grep.cu), with no chain of n / 256 dependent steps:
+// Design, two launches and then kernel H's one-pass line flags over the
+// mask (csrc/grep.cu mask_lines, one launch), with no chain of n / 256
+// dependent steps:
 //
 //   nfa_prep   the float table and start vector turned into bit sets (one
-//              ballot a row), and the look-back words and ticket zeroed.
+//              ballot a row), and the look-back words and ticket zeroed,
+//              the epilogue's with them.
 //   nfa_scan   one block a group of kGroup 256-byte blocks, numbered by a
 //              ticket in the order blocks start.  The bit-set table lives in
 //              dynamic shared memory (98 KiB at S = 48, with the opt-in; its
@@ -52,9 +54,10 @@
 
 #include "common.cuh"
 
-extern "C" int dsi_line_flags(const void* chunk, int64_t n, const void* mask,
-                              int64_t l_cap, void* line_match, void* scalars,
-                              void* scratch, void* stream);
+extern "C" int dsi_line_flags_prezeroed(const void* chunk, int64_t n,
+                                        const void* mask, int64_t l_cap,
+                                        void* line_match, void* scalars,
+                                        void* scratch, void* stream);
 extern "C" int64_t dsi_grep_scratch_bytes(int64_t n);
 
 namespace {
@@ -309,9 +312,11 @@ int64_t scan_smem(int S) {
 }
 
 // Scratch: mask [n] u8, bits [256, S] u64, v0bits, status [groups] u64,
-// the ticket, agg [groups, S] u64, then the epilogue's.
+// the ticket, the epilogue's look-back state, agg [groups, S] u64.  The
+// status words, the ticket and the epilogue's state are contiguous, all
+// zeroed by nfa_prep.
 struct Layout {
-  int64_t bits, v0, status, ticket, agg, flags, total;
+  int64_t bits, v0, status, ticket, flags, agg, total;
 };
 
 Layout layout(int64_t n, int S) {
@@ -321,9 +326,9 @@ Layout layout(int64_t n, int S) {
   l.v0 = l.bits + 256 * int64_t(S) * 8;
   l.status = l.v0 + 8;
   l.ticket = l.status + groups * 8;
-  l.agg = l.ticket + 8;
-  l.flags = l.agg + groups * S * 8;
-  l.total = l.flags + dsi_grep_scratch_bytes(n);
+  l.flags = l.ticket + 8;
+  l.agg = l.flags + dsi_grep_scratch_bytes(n);
+  l.total = l.agg + groups * S * 8;
   return l;
 }
 
@@ -363,11 +368,13 @@ int dsi_nfa(const void* chunk, int64_t n, const void* table, int S,
   a.mask = reinterpret_cast<uint8_t*>(base);
   a.phases = phases;
   const int64_t groups = groups_of(n);
-  // The status words and the ticket are contiguous: one zeroing loop.
+  // The status words, the ticket and the epilogue's state are contiguous:
+  // one zeroing loop.
   nfa_prep<<<256, 128, 0, s>>>(
       static_cast<const float*>(table), static_cast<const float*>(v0), S,
       reinterpret_cast<uint64_t*>(base + l.bits),
-      reinterpret_cast<uint64_t*>(base + l.v0), a.status, groups + 1);
+      reinterpret_cast<uint64_t*>(base + l.v0), a.status,
+      (l.agg - l.status) / 8);
   DSI_CHECK_LAUNCH();
   const int64_t smem = scan_smem(S);
   cudaError_t e = cudaFuncSetAttribute(
@@ -376,8 +383,8 @@ int dsi_nfa(const void* chunk, int64_t n, const void* table, int S,
   nfa_scan<<<unsigned(groups), kThreads, size_t(smem), s>>>(a);
   DSI_CHECK_LAUNCH();
   if (phases < 3) return 0;
-  return dsi_line_flags(chunk, n, a.mask, l_cap, line_match, scalars,
-                        base + l.flags, stream);
+  return dsi_line_flags_prezeroed(chunk, n, a.mask, l_cap, line_match,
+                                  scalars, base + l.flags, stream);
 }
 
 }  // extern "C"

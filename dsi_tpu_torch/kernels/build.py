@@ -56,9 +56,10 @@ SIGNATURES = {
                                  _P, _P, _P, _P, _P, _P, _P, _P]),
     "dsi_pack6": (_INT, [_P, _I64, _P, _P, _P]),
     "dsi_grep_scratch_bytes": (_I64, [_I64]),
-    "dsi_grep": (_INT, [_P, _I64, _P, _P, _P, _P, _INT, _INT, _INT, _I64, _P,
-                        _P, _P, _P]),
-    "dsi_line_flags": (_INT, [_P, _I64, _P, _I64, _P, _P, _P, _P]),
+    "dsi_grep_bytes": (_I64, [_I64, _I64]),
+    "dsi_grep_tile_bytes": (_I64, []),
+    "dsi_grep": (_INT, [_P, _I64, _P, _P, _P, _I64, _P, _P]),
+    "dsi_line_flags_prezeroed": (_INT, [_P, _I64, _P, _I64, _P, _P, _P, _P]),
     "dsi_nfa_scratch_bytes": (_I64, [_I64, _INT]),
     "dsi_nfa": (_INT, [_P, _I64, _P, _INT, _P, _I64, _P, _P, _P, _INT, _P]),
     "dsi_nfa_group_bytes": (_I64, []),

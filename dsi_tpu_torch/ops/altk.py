@@ -3,11 +3,14 @@
 Port of ``dsi_tpu/ops/altk.py``.  A pattern that is a top-level
 ``|``-alternation whose every branch is device-eligible — a plain literal
 (``ops/grepk.py``) or a fixed-length class pattern (``ops/regexk.py``) —
-runs as one kernel H launch PER BRANCH with the per-line flags OR-ed by
-``torch.maximum``, as the reference does (``re.search(a|b, line)`` is
-``search(a) or search(b)`` per line; anchors bind per branch).  No kernel
-of its own: K13/K14's flags, OR-ed.  Any ineligible branch declines to
-the host app.
+matches the lines where some branch matches (``re.search(a|b, line)`` is
+``search(a) or search(b)`` per line; anchors bind per branch).  The
+reference runs K13/K14 per branch and ORs the flags with ``jnp.maximum``
+(:func:`altgrep_kernel_plain`); on the card the branches are packed into
+one kernel H call while they fit its word (``grepk.pack_branches``), so
+``the|and`` reads the chunk and writes the flags once, and only the calls
+past the first are OR-ed by ``torch.maximum``.  Any ineligible branch
+declines to the host app.
 """
 
 from __future__ import annotations
@@ -17,13 +20,24 @@ from typing import List, Optional
 import torch
 
 from dsi_tpu_torch.ops.grepk import (
-    grep_kernel,
     is_literal_pattern,
+    launch_grep,
     lines_from_flags,
+    literal_branch,
+    pack_branches,
     retry_line_caps,
 )
-from dsi_tpu_torch.ops.regexk import classgrep_kernel, parse_class_pattern
-from dsi_tpu_torch.ops.wordcount import _pad_pow2, resolve_device, to_device
+from dsi_tpu_torch.ops.regexk import (
+    classgrep_kernel_plain,
+    parse_class_pattern,
+)
+from dsi_tpu_torch.ops.wordcount import (
+    _on_cuda,
+    _pad_pow2,
+    _require,
+    resolve_device,
+    to_device,
+)
 
 
 def split_top_level(pat: str) -> Optional[List[str]]:
@@ -73,22 +87,36 @@ def split_alternation(pat: str) -> Optional[List[str]]:
     return branches
 
 
-def _branch_flags(chunk, n_data: int, n_host_lines: int, branch: str,
-                  l_cap: int):
-    """(line_match, n_lines, overflow) for one branch at one rung —
-    literal branches as ``grep_kernel``, class branches as
-    ``classgrep_kernel`` (both kernel H).  A literal longer than the DATA
-    (not the padded chunk: padding is zeros, unmatchable by printable
-    literals) cannot match; its flags are zero without a launch."""
-    if is_literal_pattern(branch):
-        if len(branch) > n_data:
-            return (torch.zeros(l_cap, dtype=torch.int32,
-                                device=chunk.device),
-                    n_host_lines, n_host_lines > l_cap)
-        return grep_kernel(chunk, branch.encode("ascii"), l_cap=l_cap)
-    ranges, anchor_start, anchor_end = parse_class_pattern(branch)
-    return classgrep_kernel(chunk, ranges=ranges, anchor_start=anchor_start,
-                            anchor_end=anchor_end, l_cap=l_cap)
+def altgrep_kernel_plain(chunk: torch.Tensor, branches, *, l_cap: int):
+    """Plain version of :func:`altgrep_kernel`: each branch's plain flags
+    (``regexk.classgrep_kernel_plain``; a literal is a class of single
+    bytes), OR-ed by ``torch.maximum`` as the reference's ``jnp.maximum``."""
+    total = n_lines = overflow = None
+    for positions, anchor_start, anchor_end in branches:
+        lm, n_lines, overflow = classgrep_kernel_plain(
+            chunk, ranges=positions, anchor_start=anchor_start,
+            anchor_end=anchor_end, l_cap=l_cap)
+        total = lm if total is None else torch.maximum(total, lm)
+    return total, n_lines, overflow
+
+
+def altgrep_kernel(chunk: torch.Tensor, branches, *, l_cap: int):
+    """Kernel H for the alternation of ``branches`` (``grepk.Branch``
+    tuples): one H call for the branches that fit its word together
+    (``grepk.pack_branches``), the flags of any further calls OR-ed on the
+    card.  Returns (line_match [l_cap] int32, n_lines int32, overflow
+    bool); see :func:`altgrep_kernel_plain`."""
+    _require(chunk, torch.uint8, 1, "altgrep chunk")
+    if chunk.shape[0] < 1 or l_cap < 1 or not branches:
+        raise ValueError(f"altgrep: bad shape n={chunk.shape[0]} "
+                         f"l_cap={l_cap} branches={len(branches)}")
+    if not _on_cuda(chunk):
+        return altgrep_kernel_plain(chunk, branches, l_cap=l_cap)
+    total = n_lines = overflow = None
+    for call in pack_branches(branches):
+        lm, n_lines, overflow = launch_grep(chunk, call, l_cap=l_cap)
+        total = lm if total is None else torch.maximum(total, lm)
+    return total, n_lines, overflow
 
 
 def altgrep_host_result(data: bytes, pattern: str,
@@ -102,11 +130,17 @@ def altgrep_host_result(data: bytes, pattern: str,
     if branches is None:
         return None
     any_class = False
+    live = []  # a literal longer than the DATA (not the padded chunk:
+    # padding is zeros, unmatchable by printable literals) cannot match
     for b in branches:
         if is_literal_pattern(b):
+            if len(b) <= len(data):
+                live.append(literal_branch(b.encode("ascii")))
             continue
-        if parse_class_pattern(b) is None:
+        parsed = parse_class_pattern(b)
+        if parsed is None:
             return None  # branch outside both device tiers
+        live.append(parsed)
         any_class = True
     if any_class and b"\x00" in data:
         return None  # NUL inside a line would disagree with host re
@@ -118,13 +152,10 @@ def altgrep_host_result(data: bytes, pattern: str,
     chunk = to_device(_pad_pow2(data), dev)
 
     def run(l_cap: int):
-        total, n_lines, overflow = None, None, None
-        for b in branches:
-            lm, nl, of = _branch_flags(chunk, len(data), n_host_lines, b,
-                                       l_cap)
-            total = lm if total is None else torch.maximum(total, lm)
-            n_lines, overflow = nl, of  # chunk-derived: same every branch
-        return total, n_lines, overflow
+        if not live:  # no branch can match: no launch
+            return (torch.zeros(l_cap, dtype=torch.int32, device=dev),
+                    n_host_lines, n_host_lines > l_cap)
+        return altgrep_kernel(chunk, live, l_cap=l_cap)
 
     line_match, nl = retry_line_caps(chunk.shape[0], run)
     return lines_from_flags(text, line_match, nl)

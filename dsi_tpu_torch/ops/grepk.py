@@ -5,8 +5,11 @@ Port of ``dsi_tpu/ops/grepk.py``.  The map hot loop of the grep app
 (``csrc/grep.cu``): the match mask of every byte position, the line id of
 each position (newlines strictly before it), and the per-line flags as a
 segment max.  ``grep_kernel`` launches H for a literal; the class tier
-(``ops/regexk.py``) launches the same kernel with byte ranges, and the
-NFA tier (``ops/nfak.py``) reuses H's line-flag epilogue.
+(``ops/regexk.py``) launches the same kernel with byte ranges, the
+alternation tier (``ops/altk.py``) with its branches packed into as few
+calls as fit H's word (:func:`pack_branches`), and the NFA tier
+(``ops/nfak.py``) reuses H's line-flag pass.  The pattern travels in the
+launch's arguments (:func:`grep_spec`).
 
 Scope: fixed printable-ASCII literals without regex metacharacters;
 anything else declines (None) so the caller runs the host app, as in the
@@ -18,7 +21,9 @@ cache).  ``retry_line_caps`` keeps its ``ready=`` parameter.
 
 from __future__ import annotations
 
-from typing import List, Optional
+import functools
+import struct
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +32,7 @@ from dsi_tpu_torch.ops.wordcount import (
     _launch,
     _lib,
     _on_cuda,
+    _on_device,
     _pad_pow2,
     _ptr,
     _require,
@@ -38,8 +44,14 @@ from dsi_tpu_torch.ops.wordcount import (
 # A line with no position keeps the identity of jax.ops.segment_max on
 # int32 (the chunk's last line when the chunk ends in a newline).
 _EMPTY_LINE = torch.iinfo(torch.int32).min
-_MAX_POS = 32      # class positions kernel H takes (regexk._MAX_PATTERN)
-_MAX_RANGES = 8    # ranges a position (regexk._MAX_RANGES)
+# Kernel H's Shift-And word (csrc/grep.cu kItems): the positions of the
+# branches of one call; a literal longer than it keeps the rest in its
+# tail, in the launch's arguments up to _TAIL_INLINE bytes (kTailInline).
+WORD_BITS = 32
+_TAIL_INLINE = 2048
+# csrc/grep.cu GrepSpec: table[256], keep, inj, inj_eol, last, last_bol,
+# m_max, tail_len.
+_SPEC = struct.Struct("<256I5I2i")
 
 
 def shift_left(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -108,43 +120,119 @@ def grep_kernel_plain(chunk: torch.Tensor, pattern: bytes, *, l_cap: int):
     return line_flags_from_match(chunk, match, l_cap)
 
 
-def launch_grep(chunk: torch.Tensor, *, pattern: Optional[bytes] = None,
-                ranges=None, anchor_start: bool = False,
-                anchor_end: bool = False, l_cap: int):
-    """Kernel H on a CUDA chunk: a literal ``pattern`` (any length) or
-    class ``ranges`` (<= 32 positions of <= 8 ``(lo, hi)`` pairs).
-    Returns (line_match [l_cap] int32, n_lines int32, overflow bool), all
-    on the card."""
+# A branch of a grep call: (positions, anchor_start, anchor_end), each
+# position a tuple of (lo, hi) byte ranges; a literal is one single-byte
+# range a position and no anchors.
+Branch = Tuple[tuple, bool, bool]
+
+
+@functools.lru_cache(maxsize=256)
+def literal_branch(pattern: bytes) -> Branch:
+    """The literal ``pattern`` as a :data:`Branch`."""
+    return tuple(((b, b),) for b in pattern), False, False
+
+
+def pack_branches(branches) -> List[tuple]:
+    """``branches`` in order, cut into kernel H's calls: consecutive
+    branches while their positions fit the word together, a literal
+    longer than the word alone."""
+    calls, cur, bits = [], [], 0
+    for b in branches:
+        m = len(b[0])
+        if cur and bits + m > WORD_BITS:
+            calls.append(tuple(cur))
+            cur, bits = [], 0
+        cur.append(b)
+        bits += m
+        if bits > WORD_BITS:
+            calls.append(tuple(cur))
+            cur, bits = [], 0
+    if cur:
+        calls.append(tuple(cur))
+    return calls
+
+
+@functools.lru_cache(maxsize=256)
+def grep_spec(branches: tuple) -> Tuple[bytes, bytes]:
+    """Kernel H's launch argument for the branches of one call: the packed
+    ``GrepSpec`` of ``csrc/grep.cu`` and a long literal's bytes past the
+    word (``b""`` otherwise).  Branch k takes bits [o_k, o_k + m_k) of the
+    Shift-And word in reverse order: ``table[byte]`` has bit o_k + j set
+    where the byte is accepted at position m_k - 1 - j, because the word
+    runs backwards over the chunk and sets a branch's last bit where a
+    match starts.  ``inj``/``inj_eol`` are the first bits of the branches
+    without and with ``$``, ``last``/``last_bol`` the last bits of those
+    without and with ``^``.  Raises ValueError for branches that do not fit
+    one call (:func:`pack_branches` cuts them)."""
+    if not branches:
+        raise ValueError("grep: no branch")
+    table = np.zeros(256, np.uint32)
+    keep, inj, inj_eol, last, last_bol = 0xFFFFFFFF, 0, 0, 0, 0
+    at = m_max = 0
+    tail = b""
+    for positions, anchor_start, anchor_end in branches:
+        m = len(positions)
+        if m > WORD_BITS:  # a literal: its first WORD_BITS bytes in the word
+            rest = positions[WORD_BITS:]
+            if (len(branches) > 1 or anchor_start or anchor_end or any(
+                    len(rs) != 1 or rs[0][0] != rs[0][1] for rs in rest)):
+                raise ValueError(f"grep: a branch of {m} positions must be "
+                                 "a literal alone in its call")
+            tail = bytes(rs[0][0] for rs in rest)
+            positions, m = positions[:WORD_BITS], WORD_BITS
+        if m < 1 or at + m > WORD_BITS:
+            raise ValueError(f"grep: {at + m} positions in one call")
+        for j, ranges in enumerate(positions):
+            accept = np.zeros(256, bool)
+            for lo, hi in ranges:
+                if not 0 <= lo <= hi <= 255:
+                    raise ValueError(f"grep: bad byte range ({lo}, {hi})")
+                accept[lo:hi + 1] = True
+            table[accept] |= np.uint32(1 << (at + m - 1 - j))
+        first, lst = 1 << at, 1 << (at + m - 1)
+        keep &= ~first
+        if anchor_end:
+            inj_eol |= first
+        else:
+            inj |= first
+        if anchor_start:
+            last_bol |= lst
+        else:
+            last |= lst
+        m_max = max(m_max, m)
+        at += m
+    return (_SPEC.pack(*table.tolist(), keep, inj, inj_eol, last, last_bol,
+                       m_max, len(tail)), tail)
+
+
+@functools.lru_cache(maxsize=64)
+def _grep_bytes(n: int, l_cap: int) -> int:
+    return _lib().dsi_grep_bytes(n, l_cap)
+
+
+def launch_grep(chunk: torch.Tensor, branches: tuple, *, l_cap: int):
+    """Kernel H on a CUDA chunk for the branches of one call
+    (:func:`grep_spec`): a memset and one kernel, one allocation (the
+    flags, the two scalars and the look-back state), no host-to-device
+    copy (but of a literal's bytes past the word beyond _TAIL_INLINE) and
+    no host sync.  Returns (line_match [l_cap] int32, n_lines int32,
+    overflow bool), views of that allocation."""
+    spec, tail = grep_spec(branches)
     n = chunk.shape[0]
     dev = chunk.device
-    lib = _lib()
-    pat = lo = hi = nr = None
-    if pattern is not None:
-        m = len(pattern)
-        pat = torch.frombuffer(bytearray(pattern), dtype=torch.uint8).to(dev)
-    else:
-        m = len(ranges)
-        if not 1 <= m <= _MAX_POS or any(
-                not 1 <= len(rs) <= _MAX_RANGES for rs in ranges):
-            raise ValueError(f"grep: {m} positions or too many ranges")
-        lo = np.zeros((_MAX_POS, _MAX_RANGES), np.uint8)
-        hi = np.zeros((_MAX_POS, _MAX_RANGES), np.uint8)
-        nr = np.zeros(_MAX_POS, np.uint8)
-        for j, rs in enumerate(ranges):
-            nr[j] = len(rs)
-            for r, (a, b) in enumerate(rs):
-                lo[j, r], hi[j, r] = a, b
-    line_match = torch.empty(l_cap, dtype=torch.int32, device=dev)
-    scalars = torch.empty(2, dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.dsi_grep_scratch_bytes(n), dtype=torch.uint8,
+    tail_dev = None
+    if len(tail) > _TAIL_INLINE:
+        tail_dev = torch.frombuffer(bytearray(tail), dtype=torch.uint8).to(dev)
+    with _on_device(dev):
+        buf = torch.empty(_grep_bytes(n, l_cap), dtype=torch.uint8,
                           device=dev)
-    with torch.cuda.device(dev):
-        _launch("grep", lib.dsi_grep(
-            _ptr(chunk), n, _ptr(pat),
-            *(None if a is None else a.ctypes.data for a in (lo, hi, nr)),
-            m, int(anchor_start), int(anchor_end), l_cap, _ptr(line_match),
-            _ptr(scalars), _ptr(scratch), _stream(chunk)))
-    return line_match, scalars[0], scalars[1] != 0
+        _launch("grep", _lib().dsi_grep(
+            _ptr(chunk), n, spec, tail or None, _ptr(tail_dev), l_cap,
+            _ptr(buf), _stream(chunk)))
+    out = buf.view(torch.int32)
+    # The overflow word is 0 or 1: its low byte, viewed as bool, needs no
+    # launch.
+    return out[:l_cap], out[l_cap], buf[4 * (l_cap + 1)].view(torch.bool)
 
 
 def grep_kernel(chunk: torch.Tensor, pattern: bytes, *, l_cap: int):
@@ -158,7 +246,7 @@ def grep_kernel(chunk: torch.Tensor, pattern: bytes, *, l_cap: int):
                          f"m={len(pattern)}")
     if not _on_cuda(chunk):
         return grep_kernel_plain(chunk, pattern, l_cap=l_cap)
-    return launch_grep(chunk, pattern=pattern, l_cap=l_cap)
+    return launch_grep(chunk, (literal_branch(pattern),), l_cap=l_cap)
 
 
 _REGEX_META = set(".^$*+?{}[]()|\\")

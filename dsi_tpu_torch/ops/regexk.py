@@ -5,7 +5,8 @@ sequence of byte classes — literal characters, ``.``, ``[...]`` /
 ``[^...]`` classes with ranges, ``\\d``/``\\w``/``\\s``, escaped
 literals — optionally anchored with a leading ``^`` or trailing ``$``
 (the reference harness's ``[Tt]he``, ``test-mr.sh:47``) run as kernel H
-(``csrc/grep.cu``) with the ranges and anchors as RUNTIME arguments: one
+(``csrc/grep.cu``) with the pattern as a launch argument
+(``grepk.grep_spec``: a byte table of the positions and the anchors): one
 build serves every pattern.  Variable-length operators and groups decline
 to the host app.
 
@@ -35,9 +36,9 @@ from dsi_tpu_torch.ops.wordcount import (
     to_device,
 )
 
-# Ranges per pattern position beyond which the unrolled compare chain
-# stops being a win (a pathological negated class alternates up to ~128
-# ranges); and an overall pattern-length cap for the shift unroll.
+# The reference's limits (ranges a position, positions a pattern), kept so
+# the tier declines where it does; kernel H's table takes any ranges and
+# up to grepk.WORD_BITS positions.
 _MAX_RANGES = 8
 _MAX_PATTERN = 32
 
@@ -225,8 +226,19 @@ def classgrep_kernel(chunk: torch.Tensor, *, ranges, anchor_start: bool,
         return classgrep_kernel_plain(chunk, ranges=ranges,
                                       anchor_start=anchor_start,
                                       anchor_end=anchor_end, l_cap=l_cap)
-    return launch_grep(chunk, ranges=ranges, anchor_start=anchor_start,
-                       anchor_end=anchor_end, l_cap=l_cap)
+    return launch_grep(chunk, (class_branch(ranges, anchor_start,
+                                            anchor_end),), l_cap=l_cap)
+
+
+def class_branch(ranges, anchor_start: bool, anchor_end: bool):
+    """A class pattern as a ``grepk.Branch`` (hashable, so its launch
+    argument is built once)."""
+    try:
+        hash(ranges)
+    except TypeError:
+        ranges = tuple(tuple((int(lo), int(hi)) for lo, hi in rs)
+                       for rs in ranges)
+    return ranges, bool(anchor_start), bool(anchor_end)
 
 
 def classgrep_host_result(data: bytes, pattern: str,

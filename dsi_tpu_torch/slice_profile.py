@@ -43,16 +43,20 @@ lines:
   2^20] and [8, 2^20] adopting a quarter-full buffer, then packing 8
   appends) and kernel N (``wire_ab``: ``decode_chunk_device`` on the
   bench's text at [1, 2 MiB], 7-bit, and on low-entropy text at [1, 2
-  MiB] and [8, 2 MiB], nibble), each version's outputs checked against
-  this tree's plain version; ``--ab`` names the A/Bs to run (``sort``,
+  MiB] and [8, 2 MiB], nibble) and kernel H (``grep_ab``: ``grep_kernel``
+  for ``the`` and ``function``, ``classgrep_kernel``, the whole ``altgrep_host_result`` call for
+  ``the|and`` and ``nfa_kernel`` at S = 16, on the bench's first file
+  padded to 2^21 bytes), each version's outputs checked against this
+  tree's plain version; ``--ab`` names the A/Bs to run (``sort``,
   ``tokenize``, ``group``, ``crash``, ``nfa``, ``compact``, ``append``,
-  ``relay``, ``wire``; all by default) and skips the profiles without a
-  baseline;
-* with ``--host-profile`` (and nothing else): ``host_profile``, where the
-  host time of the ``relay_ab`` and ``wire_ab`` workloads' calls goes, in
-  this tree and, with ``--baseline-csrc``, in the tree that holds that
-  directory, each a process of its own: every shape's call 1,000 times
-  under ``cProfile`` (a call's wall and its heaviest functions);
+  ``relay``, ``wire``, ``grep``; all by default) and skips the profiles
+  without a baseline;
+* with ``--host-profile``: ``host_profile``, where the host time of the
+  ``relay_ab``, ``wire_ab`` and ``grep_ab`` workloads' calls goes (those
+  ``--ab`` names), in this tree and, with ``--baseline-csrc``, in the
+  tree that holds that directory, each a process of its own: every
+  shape's call 1,000 times under ``cProfile`` (a call's wall and its
+  heaviest functions);
 * with ``--stream``: ``stream_profile``, the bench's stream row (the
   corpus cycled to 64 MB, 2 MiB chunks, u_cap 2^15, depth 2) with the
   device table off and on at one shard, with the table on and the hash
@@ -680,9 +684,50 @@ def _wire_workload(raw0: bytes):
     return out
 
 
+def _grep_workload(raw0: bytes):
+    """Kernel H through the grep tiers' public entry points on ``raw0``
+    padded to a power of two, at the first rung: ``grep_kernel`` (``the``,
+    and ``function``, a literal past H's 4-byte warm-up),
+    ``classgrep_kernel`` (``[Tt]he``), ``altgrep_host_result`` (``the|and``,
+    the whole tier call: upload, rungs and lines; one H call here, two in a
+    tree that runs one a branch) and ``nfa_kernel`` (S = 16, whose line
+    flags are H's pass over I's mask): (at, shape, call, plain)."""
+    from dsi_tpu_torch.ops import altk, grepk, nfak, regexk
+
+    chunk = torch.from_numpy(w._pad_pow2(raw0)).cuda()
+    n = chunk.shape[0]
+    l_cap = grepk.line_cap_rungs(n)[0]
+    ranges, a_s, a_e = regexk.parse_class_pattern("[Tt]he")
+    kw = dict(ranges=ranges, anchor_start=a_s, anchor_end=a_e, l_cap=l_cap)
+    table, v0 = (torch.from_numpy(x).cuda() for x in nfak._build_table(
+        *nfak.parse_nfa_pattern("th[a-z]*e")))
+
+    def lines(device):
+        got = altk.altgrep_host_result(raw0, "the|and", device=device)
+        text = np.frombuffer("\n".join(got).encode(), np.uint8).copy()
+        return [torch.tensor(len(got)), torch.from_numpy(text)]
+
+    return [("grep_kernel the", [n, l_cap],
+             lambda: grepk.grep_kernel(chunk, b"the", l_cap=l_cap),
+             lambda: grepk.grep_kernel_plain(chunk, b"the", l_cap=l_cap)),
+            ("grep_kernel function", [n, l_cap],
+             lambda: grepk.grep_kernel(chunk, b"function", l_cap=l_cap),
+             lambda: grepk.grep_kernel_plain(chunk, b"function",
+                                             l_cap=l_cap)),
+            ("classgrep_kernel [Tt]he", [n, l_cap],
+             lambda: regexk.classgrep_kernel(chunk, **kw),
+             lambda: regexk.classgrep_kernel_plain(chunk, **kw)),
+            ("altgrep_host_result the|and", [len(raw0)],
+             lambda: lines("cuda"), lambda: lines("cpu")),
+            ("nfa_kernel S=16 th[a-z]*e", [n, 16, l_cap],
+             lambda: nfak.nfa_kernel(chunk, table, v0, l_cap=l_cap),
+             lambda: nfak.nfa_kernel_plain(chunk, table, v0, l_cap=l_cap))]
+
+
 _WORKLOADS = {"crash": _crash_workload, "nfa": _nfa_workload,
               "compact": _compact_workload, "append": _append_workload,
-              "relay": _relay_workload, "wire": _wire_workload}
+              "relay": _relay_workload, "wire": _wire_workload,
+              "grep": _grep_workload}
 HOST_CALLS = 1000
 
 
@@ -797,12 +842,13 @@ def main() -> int:
     ap.add_argument("--ab", default=None,
                     help="with --baseline-csrc, the A/Bs to run (comma "
                          "list of sort, tokenize, group, crash, nfa, "
-                         "compact, append, relay, wire; default all), "
+                         "compact, append, relay, wire, grep; default all), "
                          "without the profiles")
     ap.add_argument("--host-profile", action="store_true",
-                    help="cProfile 1,000 calls of the relay and wire "
-                         "workloads (host_profile), in this tree and, with "
-                         "--baseline-csrc, in the tree that holds it")
+                    help="cProfile 1,000 calls of the relay, wire and grep "
+                         "workloads (host_profile; --ab names others), in "
+                         "this tree and, with --baseline-csrc, in the tree "
+                         "that holds it")
     ap.add_argument("--stream", action="store_true",
                     help="also profile the stream row (stream_profile)")
     ap.add_argument("--grep", action="store_true",
@@ -836,8 +882,10 @@ def main() -> int:
         if args.baseline_csrc is not None:
             roots = {"baseline": args.baseline_csrc.resolve().parents[1],
                      **roots}
+        names = (("relay", "wire", "grep") if args.ab is None
+                 else args.ab.split(","))
         for who, root in roots.items():
-            for name in ("relay", "wire"):
+            for name in names:
                 got = _run_tree(root, "_host_turn", name)
                 print(json.dumps({"host_profile": {
                     "tree": who, "workload": name, **got["host_profile"]}}),
@@ -873,7 +921,7 @@ def main() -> int:
             print(json.dumps({"stream_profile": _stream_profile(
                 files, sum(len(r) for r in raws) + len(raws) - 1)}),
                 flush=True)
-    abs_ = set(("sort tokenize group crash nfa compact append relay wire"
+    abs_ = set(("sort tokenize group crash nfa compact append relay wire grep"
                 if args.ab is None
                 else args.ab.replace(",", " ")).split())
     buf, _, _ = _resolve_pieces(raws, None)

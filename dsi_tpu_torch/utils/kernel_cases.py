@@ -1,19 +1,19 @@
-"""Edge cases for kernels A (tokenize), C (group runs), J (the grep
-step) and E (the shuffle) at tile edges, for kernel D (FNV-1a with its
-partition epilogue), kernel O (the crash model checker), kernel I
-(the NFA scan) at its group edges, kernel P (the relay pack) at every
-offset residue mod 16 and past the row, and kernel N (the wire decode)
-with escapes across its tile edges.
+"""Edge cases for kernels A (tokenize), C (group runs), H (grep line
+flags), J (the grep step) and E (the shuffle) at tile edges, for kernel
+D (FNV-1a with its partition epilogue), kernel O (the crash model
+checker), kernel I (the NFA scan) at its group edges, kernel P (the
+relay pack) at every offset residue mod 16 and past the row, and kernel
+N (the wire decode) with escapes across its tile edges.
 
 One set of inputs serves two checks: the CPU tests hold the port's plain
 versions against ``dsi_tpu`` on them at a small tile, and ``chip_smoke.py``
 holds each kernel against its plain version on the card with ``tile`` set
 to the kernel's own (``dsi_tokenize_tile_bytes``, ``dsi_group_tile_rows``,
-``dsi_grep_step_tile_bytes``, ``dsi_grep_step_line_tile`` and
-``dsi_route_tile_rows``).  Every case is made with numpy from a seed; every
-case of one call has the same shape, apart from A's ``odd_length``, J's
-pattern lengths and E's and D's shapes, so a compiled reference serves
-most of them.
+``dsi_grep_tile_bytes``, ``dsi_grep_step_tile_bytes``,
+``dsi_grep_step_line_tile`` and ``dsi_route_tile_rows``).  Every case is
+made with numpy from a seed; every case of one call has the same shape,
+apart from A's ``odd_length``, J's pattern lengths and E's and D's
+shapes, so a compiled reference serves most of them.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
+
+from dsi_tpu_torch.ops.grepk import literal_branch as lit
 
 _LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz"
                          b"ABCDEFGHIJKLMNOPQRSTUVWXYZ", np.uint8)
@@ -36,6 +38,13 @@ GroupCase = Tuple[str, np.ndarray, np.ndarray, int, np.ndarray, np.ndarray]
 #  l_cap); every case has bins GREP_BINS and k GREP_K
 GrepCase = Tuple[str, np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]
 GREP_BINS, GREP_K = 8, 16
+# (name, chunk u8 [n], branches, l_cap): kernel H's call, each branch a
+# (positions, anchor_start, anchor_end) with each position a tuple of
+# (lo, hi) byte ranges (ops/grepk.py Branch); several branches are an
+# alternation, whose flags are the OR of its branches'
+HGrepCase = Tuple[str, np.ndarray, tuple, int]
+# (name, chunk u8 [n], mask u8 [n], l_cap): H's mask entry (kernel I's)
+LineFlagCase = Tuple[str, np.ndarray, np.ndarray, int]
 # (name, rows u32 [n_dev, r, w], dest i32 [n_dev, r], n_dev, k)
 RouteCase = Tuple[str, np.ndarray, np.ndarray, int, int]
 # (name, lanes u32 [u, kk], lens i32 [u], max_word_len, epilogue): the
@@ -389,6 +398,191 @@ def grep_cases(tile: int, line_tile: int, seed: int = 1234) -> List[GrepCase]:
         rows.append(t)
     case("bases_across_2_32", rows,
          bases=(1 << 32) - 5 - np.arange(8, dtype=np.int64) * 7)
+    return cases
+
+
+def cls(positions, anchor_start: bool = False,
+        anchor_end: bool = False) -> tuple:
+    """A class branch of kernel H (``ops/grepk.py Branch``) from a string
+    per position (its bytes, each a one-byte range) or a list of (lo, hi)
+    ranges."""
+    return (tuple(tuple((b, b) for b in p.encode()) if isinstance(p, str)
+                  else tuple(p) for p in positions),
+            anchor_start, anchor_end)
+
+
+def hgrep_cases(tile: int, seed: int = 1234) -> List[HGrepCase]:
+    """Kernel H's edges for tiles of ``tile`` bytes (a thread holds 32 of
+    them), on lines of 20-120 bytes in 6 tiles, ``l_cap`` the first rung
+    (n // 8) unless named: a match across every tile edge and across
+    thread edges, a line over one tile edge and a line over three tiles
+    whose only match is in the middle one, a chunk that ends in '\n'
+    (its last line has no position: INT32_MIN), ^ and $ at tile edges and
+    at n (the zero fill past n ends a line for $), a class position that
+    accepts byte 0 at the chunk's end, literals of 40 bytes (past the
+    word: near misses in the word and in the tail) and of 2,100 bytes
+    (its tail past the launch's 2 KiB), alternations of 2 and 8 branches
+    (8 of 5 positions overflow the 32-bit word into a second call, and a
+    40-byte literal takes its own), every line shorter than 8 bytes
+    (overflow at the first rung, then the n + 1 rung), bytes 0 and '\n'
+    inside patterns, literals of 8 and 24 bytes and a class of 20
+    positions with ^ and $ (the word's 32-byte warm-up, without and with
+    anchors), and a chunk far under one tile with ^ and $ at both its
+    ends."""
+    rng = np.random.default_rng(seed)
+    n = 6 * tile
+    edges = range(tile, n, tile)
+    the = lit(b"the")
+    cases = []
+
+    def text(size=n, alphabet=_LETTERS[:26]):
+        return _line_text(rng, size, 20, 120, alphabet)
+
+    def case(name, buf, branches, l_cap=None):
+        cases.append((name, np.ascontiguousarray(buf, np.uint8),
+                      tuple(branches),
+                      max(len(buf) // 8, 1) if l_cap is None else l_cap))
+
+    t = text(alphabet=_NO_T)
+    for e in edges:
+        _at(t, e - 1, b"the")          # across the tile edge
+        _at(t, e - 34, b"the")         # across a thread edge
+    for q in range(32, n, 32 * 37):    # at thread edges
+        _at(t, q - 2, b"the")
+    case("match_across_edges", t, [the])
+
+    t = text(alphabet=_NO_T)
+    t[tile - 50:tile + 50] = ord("x")  # one line over the first edge
+    _at(t, tile - 3, b"the")
+    t[tile + 100:4 * tile + 100] = ord("y")  # one line over three tiles
+    _at(t, 2 * tile + 777, b" the ")
+    t[5 * tile:5 * tile + 2 * 32] = ord("z")  # a line with no match
+    case("lines_over_tiles", t, [the])
+
+    t = text(alphabet=_NO_T)
+    _at(t, n - 40, b" the ")
+    t[-1] = 10
+    case("ends_in_newline", t, [the])
+    case("ends_in_newline_class", t,
+         [cls(["Tt", "h", "e"]), cls([[(97, 122)]], anchor_end=True)])
+
+    t = text()
+    for e in edges:
+        t[e - 1] = 10                  # a line starts at the edge
+        _at(t, e, b"ab")
+        _at(t, e + 2 * 32 - 3, b"s\n")  # a line ends at a thread edge
+        _at(t, e - 3, b"xs\n")          # ... and at the tile edge
+    t[-2:] = np.frombuffer(b"ss", np.uint8)  # $ at n (no newline)
+    case("anchors_at_edges", t, [cls(["a"], anchor_start=True),
+                                 cls(["s"], anchor_end=True)])
+    case("anchored_both", t, [cls(["a", "b"], True, True),
+                              cls(["x", "s"], True, True)])
+
+    t = text()
+    t[-1] = ord("q")
+    t[n // 2] = 0                      # a zero inside the chunk too
+    t[n // 2 - 1] = ord("q")
+    case("class_accepts_zero_at_n", t,
+         [cls(["q", [(0, 0), (10, 10)]])])
+
+    long = bytes(rng.choice(_LETTERS[:26], 40))
+    t = text(alphabet=_LETTERS[26:])   # upper case: no stray match
+    _at(t, tile - 20, long)            # across an edge, tail past it
+    _at(t, 2 * tile + 5, long[:39] + b"!")   # misses in the tail
+    _at(t, 3 * tile + 5, b"!" + long[1:])    # misses in the word
+    _at(t, n - 30, long)               # runs past n: no match
+    _at(t, 4 * tile - 1, long)
+    case("literal_40", t, [lit(long)])
+
+    huge = bytes(rng.choice(_LETTERS[:26], 2100))
+    # 8,400 bytes, under torch's parallel grain: the plain version's 2,100
+    # shifted compares then run on one thread (on a busy host, each of
+    # them parallel took seconds).
+    t = text(max(n, 4 * len(huge)), alphabet=_LETTERS[26:])[:4 * len(huge)]
+    t[100:100 + 4000] = ord("Q")       # one line, so the match can run
+    _at(t, 200, huge)
+    _at(t, 100 + 2200, huge[:2099] + b"!")   # a miss at its last byte
+    case("literal_2100", t, [lit(huge)])
+
+    t = text()
+    for e in edges:
+        _at(t, e - 2, b" and the ")
+    case("alternation_2", t, [the, lit(b"and")])
+
+    eight = [lit(b"quick"), cls(["Tt", "h", "e", "r", "e"]),
+             cls(["a", "b", "c", "d", "e"], anchor_start=True),
+             cls(["v", "w", "x", "y", "z"], anchor_end=True),
+             cls(["l", "m", "no", "p", [(97, 122)]]), lit(b"jumps"),
+             cls(["o", "v", "e", "r", "s"], True, True), lit(b"lazyd")]
+    t = text()
+    for k, e in enumerate(edges):
+        t[e - 1] = 10
+        _at(t, e, b"abcde" if k % 2 else b"overs\n")
+        _at(t, e + 40 - k, b" quick There vwxyz\n")
+        _at(t, e + 300, b" lmnpq jumps lazyd ")
+    case("alternation_8", t, eight)
+    case("alternation_8_and_literal_40", t, eight[:3] + [lit(long)])
+
+    short = np.frombuffer(b"a\nthe\nb\n" * (n // 8 + 1), np.uint8)[:n].copy()
+    case("overflow_rung0", short, [the])
+    case("overflow_rung0_at_n_plus_1", short, [the], l_cap=n + 1)
+
+    t = text()
+    _at(t, tile - 2, b"x\ny")            # a pattern holding '\n'
+    t[n // 3] = 0
+    case("newline_and_zero_in_pattern", t,
+         [lit(b"x\ny"), cls([[(0, 0)], [(0, 255)]])])
+
+    for m in (8, 24):                    # the word's 32-byte warm-up
+        word = bytes(rng.choice(_LETTERS[:26], m))
+        t = text(alphabet=_LETTERS[26:])
+        for e in edges:
+            _at(t, e - 2, word)      # across the tile edge, from bit 30
+            _at(t, e - 32 - m // 2, word[:-1] + b"!")  # a miss at its end
+            _at(t, e + 100, b"!" + word[1:])          # a miss at its start
+        _at(t, n - m, word)              # ends at n
+        _at(t, n - m // 2, word)         # runs past n: no match
+        case(f"literal_{m}", t, [lit(word)])
+
+    up = [[(97 + k, 98 + k)] for k in range(20)]   # "ab", "bc", ...
+    a20 = bytes(range(97, 117))
+    t = text(alphabet=_LETTERS[26:])
+    for e in edges:
+        _at(t, e - 11, b"\n" + a20 + b"\n")   # a whole line over the edge
+        _at(t, e + 200, b"\n" + a20 + b"X")   # not at a line end
+        _at(t, e + 400, b"X" + a20 + b"\n")   # not at a line start
+    _at(t, n - 21, b"\n" + a20)         # $ at n
+    case("anchored_class_20", t, [cls(up, True, True)])
+
+    size = 3 * tile // 16                # far under one tile
+    t = text(size)
+    t[0], t[-1] = ord("a"), ord("s")
+    _at(t, size // 2, b"s\na")
+    case("short_chunk_anchors", t, [cls(["a"], anchor_start=True),
+                                    cls(["s"], anchor_end=True)])
+    return cases
+
+
+def line_flag_cases(tile: int, seed: int = 1234) -> List[LineFlagCase]:
+    """H's mask entry (kernel I's line flags) at tiles of ``tile`` bytes:
+    sparse and dense masks on lines of 20-120 bytes in 6 tiles, a line
+    over three tiles marked only in the middle one, a chunk that ends in
+    '\n', and every line shorter than 8 bytes (overflow at n // 8)."""
+    rng = np.random.default_rng(seed)
+    n = 6 * tile
+    cases = []
+    t = _line_text(rng, n, 20, 120)
+    cases.append(("sparse", t, (rng.random(n) < 0.01).astype(np.uint8),
+                  n // 8))
+    t = _line_text(rng, n, 20, 120)
+    t[100:3 * tile + 100] = ord("y")
+    mask = np.zeros(n, np.uint8)
+    mask[2 * tile - 1] = 7             # any nonzero byte marks
+    t[-1] = 10
+    cases.append(("line_over_tiles_ends_in_newline", t, mask, n // 8))
+    short = np.frombuffer(b"a\nb\n" * n, np.uint8)[:n].copy()
+    cases.append(("overflow", short, (rng.random(n) < 0.5).astype(
+        np.uint8), n // 8))
     return cases
 
 

@@ -215,3 +215,296 @@ def test_entry_points_default_to_the_card(monkeypatch):
                "the")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cuda_grep.cuda_map("f", b"the\n")
+
+
+# ── kernel H's design as a numpy model ──────────────────────────────────
+#
+# csrc/grep.cu in numpy: the Shift-And word of grepk.grep_spec run
+# backwards over each thread's 32 positions and its warm-up bytes, the
+# thread pairs (newlines, open-line hit) scanned with seg_combine in each
+# tile, a decoupled look-back over tiles under random published states,
+# each line's flag stored once, and the INT_MIN tail shared out over the
+# grid.  The same cases (kernel_cases.hgrep_cases / line_flag_cases) hold
+# kernel H against its plain version on the card in chip_smoke.py.
+
+from dsi_tpu_torch.utils.kernel_cases import (  # noqa: E402
+    hgrep_cases,
+    line_flag_cases,
+)
+
+H_TILE = 256 * 32    # csrc/grep.cu kTile
+SMALL_THREADS = 8    # a 256-byte tile
+_INT_MIN = np.iinfo(np.int32).min
+
+
+def _seg_combine(a: int, b: int) -> int:
+    nb = b >> 1
+    return (((a >> 1) + nb) << 1) | ((b & 1) if nb else ((a | b) & 1))
+
+
+def _warm(m_max: int) -> int:
+    return 4 if m_max <= 5 else 32
+
+
+def _word_hits(chunk, spec: bytes, tail: bytes, p: np.ndarray):
+    """[threads, 32] bools: the word's hits at p + k, as word_hits (and
+    the long literal's check) computes them."""
+    vals = grepk._SPEC.unpack(spec)
+    table = np.array(vals[:256], np.uint64)
+    keep, inj, inj_eol, last, last_bol, m_max, tail_len = vals[256:]
+    n = len(chunk)
+    warm = 32 if tail_len else _warm(m_max)
+    ext = np.zeros(p[-1] + 34 + warm + len(tail) + 1, np.uint8)
+    ext[1:n + 1] = chunk   # ext[q + 1] is byte q, 0 outside [0, n)
+
+    def byte(q):
+        return ext[q + 1]
+
+    d = np.zeros(len(p), np.uint64)
+    nxt = byte(p + 32 + warm)
+    hits = np.zeros((len(p), 32), bool)
+    for k in range(32 + warm - 1, -1, -1):
+        b = byte(p + k)
+        eol = (nxt == 10) | (nxt == 0)
+        d = (((d << np.uint64(1)) & np.uint64(keep))
+             | np.where(eol, np.uint64(inj | inj_eol), np.uint64(inj))
+             ) & table[b]
+        d &= np.uint64(0xFFFFFFFF)
+        if k < 32:
+            bol = (p + k == 0) | (byte(p + k - 1) == 10)
+            lst = np.where(bol, np.uint64(last | last_bol), np.uint64(last))
+            hits[:, k] = (d & lst) != 0
+        nxt = b
+    if tail_len:
+        want = np.frombuffer(tail, np.uint8)
+        for t, k in zip(*np.nonzero(hits)):
+            s = p[t] + k + 32
+            if not np.array_equal(byte(np.arange(s, s + tail_len)), want):
+                hits[t, k] = False
+    return hits
+
+
+def _look_back(values, tile: int, threads: int, state, inclusive):
+    """Tile ``tile``'s exclusive prefix as lines_look_back walks it:
+    windows of ``threads`` predecessors, each stopping at the nearest one
+    in state 2 (its inclusive prefix), combined in tile order."""
+    acc = 0
+    j = tile - 1
+    while j >= 0:
+        window = list(range(j, max(j - threads, -1), -1))
+        stop = next((q for q in window if state[q] == 2), None)
+        win = 0
+        for q in reversed(window if stop is None
+                          else window[:window.index(stop) + 1]):
+            win = _seg_combine(win, inclusive[q] if q == stop
+                               else values[q])
+        acc = _seg_combine(win, acc)
+        if stop is not None:
+            break
+        j -= threads
+    return acc
+
+
+def h_model(chunk, l_cap: int, *, branches=None, mask=None,
+            threads: int = 256, grid=None, seed: int = 0):
+    """Kernel H (or its mask entry) by its design; returns (line_match,
+    n_lines, overflow) and checks that every flag was stored once."""
+    rng = np.random.default_rng(seed)
+    n = len(chunk)
+    tile = 32 * threads
+    tiles = -(-n // tile)
+    p = np.arange(tiles * threads, dtype=np.int64) * 32
+    pos = p[:, None] + np.arange(32)
+    valid = pos < n
+    nl = valid & (np.where(valid, chunk[np.minimum(pos, n - 1)], 0) == 10)
+    if mask is not None:
+        h = valid & (np.where(valid, mask[np.minimum(pos, n - 1)], 0) != 0)
+    else:
+        h = np.zeros_like(valid)
+        for call in grepk.pack_branches(branches):
+            h |= _word_hits(chunk, *grepk.grep_spec(call), p)
+        h &= valid
+    # Thread pairs, then the in-tile scan and the tile aggregates.
+    vals = []
+    for t in range(len(p)):
+        q = np.flatnonzero(nl[t])
+        after = h[t, q[-1] + 1:] if len(q) else h[t]
+        vals.append((len(q) << 1) | int(after.any()))
+    in_tile, agg = [], []
+    for b in range(tiles):
+        run = 0
+        for t in range(b * threads, (b + 1) * threads):
+            in_tile.append(run)
+            run = _seg_combine(run, vals[t])
+        agg.append(run)
+    inclusive, before = [], []
+    for b in range(tiles):
+        state = rng.integers(1, 3, b)  # 1 aggregate, 2 inclusive
+        if b:
+            state[0] = rng.integers(1, 3)
+        ex = _look_back(agg, b, threads, state, inclusive) if b else 0
+        inclusive.append(_seg_combine(ex, agg[b]))
+        before.append(ex)
+    # Each line's flag, stored once.
+    out = np.full(l_cap, 12345, np.int64)
+    stores = np.zeros(l_cap, np.int64)
+
+    def store(i, v):
+        if i < l_cap:
+            out[i] = v
+            stores[i] += 1
+
+    n_lines = None
+    for t in range(len(p)):
+        bf = _seg_combine(before[t // threads], in_tile[t])
+        lid, open_ = bf >> 1, bf & 1
+        prev = -1
+        for q in np.flatnonzero(nl[t]):
+            store(lid, int(open_ or h[t, prev + 1:q + 1].any()))
+            lid, open_, prev = lid + 1, 0, q
+        k = n - 1 - p[t]
+        if 0 <= k < 32:
+            store(lid, _INT_MIN if nl[t, k]
+                  else int(open_ or h[t, prev + 1:].any()))
+            n_lines = lid + 1
+    assert n_lines == (inclusive[-1] >> 1) + 1
+    # The tail, shared out over the grid in 16-byte words.
+    g = grid or tiles
+    lo, hi = n_lines, l_cap
+    if lo < hi:
+        v0, v1 = (lo + 3) & ~3, hi & ~3
+        if v0 > v1:
+            v0 = v1 = hi
+        for tid in range(g * 256):
+            for i in range(v0 // 4 + tid, v1 // 4, g * 256):
+                for j in range(4 * i, 4 * i + 4):
+                    store(j, _INT_MIN)
+            for i in list(range(lo + tid, v0, g * 256)) + list(
+                    range(v1 + tid, hi, g * 256)):
+                store(i, _INT_MIN)
+    assert (stores == 1).all(), "a flag stored twice or never"
+    return out.astype(np.int32), n_lines, n_lines > l_cap
+
+
+def _ref_branch(chunk, branch, l_cap):
+    positions, a_s, a_e = branch
+    if not (a_s or a_e) and all(len(r) == 1 and r[0][0] == r[0][1]
+                                for r in positions):
+        pat = np.array([r[0][0] for r in positions], np.uint8)
+        return _jgrep(l_cap)(jnp.asarray(chunk), jnp.asarray(pat))
+    return jregexk.classgrep_kernel(jnp.asarray(chunk), ranges=positions,
+                                    anchor_start=a_s, anchor_end=a_e,
+                                    l_cap=l_cap)
+
+
+def _reference(chunk, branches, l_cap):
+    """The reference's flags: each branch through K13 or K14, OR-ed by
+    jnp.maximum as dsi_tpu/ops/altk.py does."""
+    total = nl = of = None
+    for b in branches:
+        lm, nl, of = _ref_branch(chunk, b, l_cap)
+        total = lm if total is None else jnp.maximum(total, lm)
+    return np.asarray(total), int(nl), bool(of)
+
+
+def _equal(got, want):
+    assert np.array_equal(np.asarray(got[0]), want[0])
+    assert int(got[1]) == want[1] and bool(got[2]) == want[2]
+
+
+def _cases_at(threads):
+    return [(threads, c) for c in hgrep_cases(32 * threads)]
+
+
+@pytest.mark.parametrize(
+    "threads,case", _cases_at(256) + _cases_at(SMALL_THREADS),
+    ids=lambda x: x if isinstance(x, int) else x[0])
+def test_h_model_matches_reference(threads, case):
+    """The model of the new H, at H's tile and at a 256-byte one, equals
+    the reference's K13 / K14 (OR-ed over an alternation's branches) on
+    the shared edge cases; so do the port's plain versions."""
+    name, buf, branches, l_cap = case
+    chunk = torch.from_numpy(buf)
+    got = altk.altgrep_kernel(chunk, branches, l_cap=l_cap)
+    if max(len(b[0]) for b in branches) > 64:
+        # The reference unrolls a shift a byte (minutes for 2,100 bytes):
+        # the plain version, held to it on literal_40, stands in.
+        want = (got[0].numpy(), int(got[1]), bool(got[2]))
+    else:
+        want = _reference(buf, branches, l_cap)
+        _equal(got, want)
+    grid = max(1, -(-len(buf) // (32 * threads)) // 3)
+    _equal(h_model(buf, l_cap, branches=branches, threads=threads,
+                   grid=grid, seed=len(name)), want)
+    if len(branches) == 1:
+        positions, a_s, a_e = branches[0]
+        _equal(regexk.classgrep_kernel(chunk, ranges=positions,
+                                       anchor_start=a_s, anchor_end=a_e,
+                                       l_cap=l_cap), want)
+
+
+@pytest.mark.parametrize("threads", [256, SMALL_THREADS])
+def test_h_mask_entry_model_matches_reference(threads):
+    """I's mask entry (mask_lines) by the model equals the reference's
+    line_flags_from_match."""
+    for name, buf, mask, l_cap in line_flag_cases(32 * threads):
+        want = jgrepk.line_flags_from_match(
+            jnp.asarray(buf), jnp.asarray(mask != 0), l_cap)
+        want = (np.asarray(want[0]), int(want[1]), bool(want[2]))
+        _equal(h_model(buf, l_cap, mask=mask, threads=threads), want)
+        _equal(grepk.line_flags_from_match(
+            torch.from_numpy(buf), torch.from_numpy(mask != 0), l_cap), want)
+
+
+def test_seg_combine_is_associative():
+    """The look-back and the block scan regroup seg_combine freely."""
+    rng = np.random.default_rng(7)
+    vals = [0, 1, 2, 3] + [int(v) for v in rng.integers(0, 1 << 12, 60)]
+    for a in vals[:16]:
+        assert _seg_combine(0, a) == a == _seg_combine(a, 0)
+        for b in vals[:16]:
+            for c in vals[::7]:
+                assert (_seg_combine(_seg_combine(a, b), c)
+                        == _seg_combine(a, _seg_combine(b, c)))
+
+
+def test_grep_spec_packs_branches():
+    """One call holds branches while their positions fit the 32-bit word;
+    a literal longer than it goes alone, its bytes past the word in the
+    tail; the table is the reversed positions."""
+    the, andb = grepk.literal_branch(b"the"), grepk.literal_branch(b"and")
+    assert grepk.pack_branches([the, andb]) == [(the, andb)]
+    five = grepk.literal_branch(b"abcde")
+    assert [len(c) for c in grepk.pack_branches([five] * 8)] == [6, 2]
+    long = grepk.literal_branch(b"q" * 40)
+    assert grepk.pack_branches([the, long, andb]) == [(the,), (long,),
+                                                      (andb,)]
+    spec, tail = grepk.grep_spec((the, andb))
+    vals = grepk._SPEC.unpack(spec)
+    assert len(spec) == 1052 and tail == b""
+    assert vals[ord("t")] == 1 << 2 and vals[ord("e")] == 1 << 0
+    assert vals[ord("a")] == 1 << 5 and vals[ord("d")] == 1 << 3
+    assert vals[256:] == (0xFFFFFFFF & ~0b1001, 0b1001, 0, 0b100100, 0, 3,
+                          0)
+    assert grepk.grep_spec((long,))[1] == b"q" * 8
+    with pytest.raises(ValueError):
+        grepk.grep_spec((five,) * 7)
+
+
+def test_grep_c_interface():
+    """H's C entry points as kernels/build.py declares them: the pattern a
+    host GrepSpec and a long literal's tail (host, or card past 2 KiB),
+    one buffer for the flags, scalars and look-back state."""
+    import ctypes
+
+    from dsi_tpu_torch.kernels import build
+
+    p, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    assert build.SIGNATURES["dsi_grep"] == (c_int, [p, i64, p, p, p, i64, p,
+                                                    p])
+    assert build.SIGNATURES["dsi_grep_bytes"] == (i64, [i64, i64])
+    assert build.SIGNATURES["dsi_grep_scratch_bytes"] == (i64, [i64])
+    assert build.SIGNATURES["dsi_grep_tile_bytes"] == (i64, [])
+    assert build.SIGNATURES["dsi_line_flags_prezeroed"] == (
+        c_int, [p, i64, p, i64, p, p, p, p])
+    assert "dsi_line_flags" not in build.SIGNATURES
