@@ -250,6 +250,8 @@ PATH_KERNELS = {
     "split": ("tokenize", "radix_sort", "group", "fnv"),
     "sharded": WC, "sharded_n8": WC,
     "stream": WC, "stream_acc": WC, "stream_cli": WC,
+    # Crash-resume: the crashed run and its resume, the table on.
+    "stream_ckpt": WC, "stream_ckpt_async": WC, "stream_ckpt_cli": WC,
     "corpus_hash": HASH,
     "corpus_pack6": ("tokenize", "radix_sort", "group", "pack6"),
     "corpus_pack6_hash": HASH + ("pack6",),
@@ -1717,11 +1719,11 @@ def stream_path(files, cycles: int, want: dict, device_accumulate: bool,
 
 
 def stream_cli_path(files, cycles: int, want: dict, workdir: str,
-                    extra=()):
+                    extra=(), outdir=None):
     """The stream row with the device table on, through the ``wcstream``
     CLI in-process (argument parsing, reading, the stream and writing
-    ``mr-out-*``), with the ``extra`` arguments; (parity, seconds, stats,
-    launches)."""
+    ``mr-out-*`` into ``outdir``, default ``workdir/stream-cli``), with
+    the ``extra`` arguments; (parity, seconds, stats, launches)."""
     import ast
     import contextlib
     import io
@@ -1730,7 +1732,7 @@ def stream_cli_path(files, cycles: int, want: dict, workdir: str,
     from dsi_tpu_torch.mr.sequential import ihash
     from dsi_tpu_torch.ops import wordcount as w
 
-    outdir = os.path.join(workdir, "stream-cli")
+    outdir = outdir or os.path.join(workdir, "stream-cli")
     err = io.StringIO()
     w.reset_launches()
     t0 = time.perf_counter()
@@ -1758,6 +1760,280 @@ def stream_cli_path(files, cycles: int, want: dict, workdir: str,
                     parts_ok = parts_ok and ihash(word) % N_REDUCE == r
     return (stream_parity(counts, want, cycles) and parts_ok, seconds,
             stats, launches, None)
+
+
+# ── phase 5b: crash-resume checkpoints of the stream ────────────────────
+
+CKPT_EVERY = 4
+CKPT_STATS = ("ckpt_saves", "ckpt_deltas", "ckpt_s", "ckpt_capture_s",
+              "ckpt_commit_s", "ckpt_barrier_s", "ckpt_full_bytes",
+              "ckpt_delta_bytes", "ckpt_every", "ckpt_async", "ckpt_delta",
+              "steps", "folds", "sync_pulls", "widens", "table_cap",
+              "resume_gap_s", "resume_cursor", "resharded_resume")
+FAULT_ENV = ("DSI_FAULT_MODE", "DSI_FAULT_POINT", "DSI_FAULT_STEP")
+
+
+@contextlib.contextmanager
+def armed_fault(point: str, step: int):
+    """``DSI_FAULT_POINT`` armed in this process in raise mode
+    (``ckpt/fault.py``), and disarmed after."""
+    from dsi_tpu_torch.ckpt import reset_faults
+
+    reset_faults()
+    os.environ.update({"DSI_FAULT_MODE": "raise", "DSI_FAULT_POINT": point,
+                       "DSI_FAULT_STEP": str(step)})
+    try:
+        yield
+    finally:
+        for k in FAULT_ENV:
+            os.environ.pop(k, None)
+        reset_faults()
+
+
+def ckpt_stream(files, cycles: int, ckdir: str, stats=None, *,
+                device_accumulate: bool, **kw):
+    """One call of the stream row with ``checkpoint_dir``, its
+    ``pipeline_stats`` into ``stats``; (result, seconds, stats)."""
+    from dsi_tpu_torch.parallel.streaming import (cycle_files,
+                                                  wordcount_streaming)
+
+    stats = {} if stats is None else stats
+    t0 = time.perf_counter()
+    try:
+        res = wordcount_streaming(
+            cycle_files(files, cycles), n_dev=1, n_reduce=N_REDUCE,
+            chunk_bytes=STREAM_CHUNK, u_cap=STREAM_U_CAP,
+            device_accumulate=device_accumulate, checkpoint_dir=ckdir,
+            pipeline_stats=stats, device=DEVICE, **kw)
+    finally:
+        sync()
+    return res, time.perf_counter() - t0, stats
+
+
+def ckpt_rows(files, cycles: int, want: dict, nbytes: int, work: str, gpu,
+              failures):
+    """The stream row with checkpoints every ``CKPT_EVERY`` steps, table
+    off and on, sync full and async delta, each call alone and right
+    after the same stream without checkpoints: MB/s beside MB/s, the
+    checkpoint's phase seconds and payload bytes."""
+    rows = {}
+    for dacc in (False, True):
+        parity, plain_s, _, _, _ = stream_path(files, cycles, want, dacc)
+        if not parity:
+            failures.append(f"ckpt_plain dacc={dacc}: counts differ from "
+                            "the oracle's")
+        for mode, kw in (("sync_full", {}),
+                         ("async_delta", {"checkpoint_async": True,
+                                          "checkpoint_delta": True})):
+            tag = f"ckpt_{'acc' if dacc else 'host'}_{mode}"
+            res, secs, st = ckpt_stream(
+                files, cycles, os.path.join(work, f"ck-{tag}"),
+                device_accumulate=dacc, checkpoint_every=CKPT_EVERY, **kw)
+            ok = res is not None and stream_parity(
+                {k: c for k, (c, _) in res.items()}, want, cycles)
+            rows[tag] = {"parity": ok, "seconds": secs,
+                         "mb_per_s": nbytes / secs / 1e6,
+                         "plain_seconds": plain_s,
+                         "plain_mb_per_s": nbytes / plain_s / 1e6,
+                         **{k: st[k] for k in CKPT_STATS if k in st}}
+            log({tag: {**rows[tag], "gpu": gpu, "input_bytes": nbytes}})
+            if not ok:
+                failures.append(f"{tag}: counts differ from the oracle's")
+            if st.get("ckpt_saves", 0) < 1:
+                failures.append(f"{tag}: no checkpoint was saved")
+            if kw and st.get("ckpt_deltas", 0) < 1:
+                failures.append(f"{tag}: no delta checkpoint was saved")
+    return rows
+
+
+def ckpt_resume_path(tag, files, cycles: int, want: dict, work: str, *,
+                     point: str, step: int, **kw):
+    """The stream row with the table on, killed at ``point`` (raised, in
+    process) on its ``step``-th occurrence, then resumed: launch counts
+    zeroed before the crashed run and read after the resume; (entry,
+    launches, failures)."""
+    from dsi_tpu_torch.ckpt import FaultInjected
+    from dsi_tpu_torch.mr.sequential import ihash
+    from dsi_tpu_torch.ops import wordcount as w
+
+    ckdir = os.path.join(work, f"ck-{tag}")
+    fails = []
+    w.reset_launches()
+    crashed: dict = {}
+    with armed_fault(point, step):
+        try:
+            ckpt_stream(files, cycles, ckdir, crashed,
+                        device_accumulate=True, checkpoint_every=CKPT_EVERY,
+                        **kw)
+            fails.append(f"{tag}: the fault at {point} #{step} never fired")
+        except FaultInjected:
+            pass
+    res, secs, st = ckpt_stream(files, cycles, ckdir, device_accumulate=True,
+                                checkpoint_every=CKPT_EVERY, resume=True,
+                                **kw)
+    launches = w.launch_counts()
+    parity = res is not None and stream_parity(
+        {k: c for k, (c, _) in res.items()}, want, cycles) and all(
+        p == ihash(k) % N_REDUCE for k, (_, p) in res.items())
+    if not parity:
+        fails.append(f"{tag}: resumed counts differ from the oracle's times "
+                     f"{cycles}")
+    if not st.get("resume_cursor"):
+        fails.append(f"{tag}: the resume restored no checkpoint")
+    entry = {"parity": parity, "seconds": secs, "fault": f"{point}#{step}",
+             "crashed_steps": crashed.get("steps"),
+             "crashed_ckpt_saves": crashed.get("ckpt_saves"),
+             "crashed_ckpt_deltas": crashed.get("ckpt_deltas"),
+             "launches": launches,
+             **{k: st[k] for k in CKPT_STATS if k in st}}
+    return entry, launches, fails
+
+
+def ckpt_cli_path(files, cycles: int, want: dict, work: str):
+    """``python -m dsi_tpu_torch.cli.wcstream`` with the table on and a
+    checkpoint every ``CKPT_EVERY`` steps, killed for real at
+    ``post-ckpt`` (``os._exit(87)``, its second commit) in a subprocess,
+    then ``--resume`` through ``wcstream.main`` in this process; (entry,
+    launches, failures)."""
+    from dsi_tpu_torch.ckpt import FAULT_EXIT
+    from dsi_tpu_torch.ops import wordcount as w
+
+    ckdir = os.path.join(work, "ck-cli")
+    outdir = os.path.join(work, "stream-ckpt-cli")
+    ck_args = ["--checkpoint-dir", ckdir, "--checkpoint-every",
+               str(CKPT_EVERY)]
+    args = ["--device-accumulate", "--chunk-bytes", str(STREAM_CHUNK),
+            "--u-cap", str(STREAM_U_CAP), "--nreduce", str(N_REDUCE),
+            "--workdir", outdir, "--device", DEVICE, *ck_args]
+    env = {k: v for k, v in os.environ.items() if k not in FAULT_ENV}
+    env.update({"PYTHONPATH": REPO, "DSI_FAULT_POINT": "post-ckpt",
+                "DSI_FAULT_STEP": "2"})
+    fails = []
+    w.reset_launches()
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "dsi_tpu_torch.cli.wcstream",
+                        *args, *(list(files) * cycles)], env=env,
+                       capture_output=True, text=True, timeout=600)
+    crash_s = time.perf_counter() - t0
+    if p.returncode != FAULT_EXIT:
+        fails.append(f"stream_ckpt_cli: the crashed run exited "
+                     f"{p.returncode}, not {FAULT_EXIT}: "
+                     f"{p.stderr[-1500:]}")
+    parity, secs, st, _, _ = stream_cli_path(
+        files, cycles, want, work, extra=ck_args + ["--resume"],
+        outdir=outdir)
+    launches = w.launch_counts()
+    if not parity:
+        fails.append("stream_ckpt_cli: mr-out-* differ from the oracle's "
+                     f"times {cycles}")
+    if not st.get("resume_cursor"):
+        fails.append("stream_ckpt_cli: --resume restored no checkpoint")
+    entry = {"parity": parity, "seconds": secs, "crash_seconds": crash_s,
+             "crash_rc": p.returncode, "launches": launches,
+             **{k: st[k] for k in CKPT_STATS if k in st}}
+    return entry, launches, fails
+
+
+def capture_copies(tab, reps: int = 3, tries: int = 4) -> list:
+    """[(copy name, count)] of ``reps`` calls of ``tab.checkpoint_capture()``
+    under ``torch.profiler``, windowed as :func:`_device_events` windows
+    (a warm-up step, ``PROFILE_EDGE_S`` of idle at each edge), asked
+    again until the window holds two copies a call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    tab.checkpoint_capture()
+    sync()
+    copies = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                time.sleep(PROFILE_EDGE_S)
+                for _ in range(reps):
+                    tab.checkpoint_capture()
+                sync()
+                time.sleep(PROFILE_EDGE_S)
+                prof.step()
+        copies = [(e.key, e.count // reps) for e in prof.key_averages()
+                  if e.key.startswith("Memcpy")]
+        if sum(c for k, c in copies if "Device -> Pinned" in k) == 2:
+            break
+    return copies
+
+
+def ckpt_capture_check(raws):
+    """The table's image captured on the card: two folds of the stream's
+    steps, ``checkpoint_capture`` under ``torch.profiler`` (two copies a
+    call, each ``Memcpy DtoH (Device -> Pinned)``), then one capture and
+    a host copy of the live table at that instant, then a sync (which
+    zeroes the live table in place), a fold and a sync before the image
+    materializes: it must equal the host copy.  Returns (entry,
+    failures)."""
+    import numpy as np
+    import torch
+
+    from dsi_tpu_torch.device.table import DeviceTable
+    from dsi_tpu_torch.parallel.merge import PackedCounts
+    from dsi_tpu_torch.parallel.shuffle import _slice_pack, mapreduce_step
+
+    steps = []
+    for raw in raws[:3]:
+        buf = np.zeros(STREAM_CHUNK, np.uint8)
+        buf[:len(raw)] = np.frombuffer(raw, np.uint8)
+        out = mapreduce_step(torch.from_numpy(buf).to(DEVICE)[None],
+                             n_dev=1, n_reduce=N_REDUCE, max_word_len=MWL,
+                             u_cap=STREAM_U_CAP)
+        scal_np = out[4].cpu().numpy()
+        if (scal_np[:, 3:].any() or int(scal_np[:, 1].max()) > STREAM_U_CAP
+                or int(scal_np[:, 2].max()) > MWL):
+            raise RuntimeError("a capture-check step did not clear rung 0")
+        steps.append((_slice_pack(*out[:4], mp=out[0].shape[1]), out[4],
+                      scal_np))
+    tab = DeviceTable(1, kk=MWL // 4, cap=4 * int(steps[0][0].shape[1]),
+                      acc=PackedCounts(), device=DEVICE, lag=1)
+    tab.fold(*steps[0])
+    tab.fold(*steps[1])
+    copies = capture_copies(tab)
+    t0 = time.perf_counter()
+    deferred = tab.checkpoint_capture()
+    capture_s = time.perf_counter() - t0
+    # The table at the capture: a copy to the host (``.cpu()`` would
+    # alias a CPU tensor, which the sync below zeroes in place).
+    live = [x.to("cpu", copy=True) for x in tab._state]
+    tab.sync()
+    tab.fold(*steps[2])
+    tab.sync()
+    sync()
+    t0 = time.perf_counter()
+    img = deferred.materialize()
+    materialize_s = time.perf_counter() - t0
+    nrows = img["nrows"]
+    n = int(nrows[0])
+    keys, lens, cnts, parts, tn = (x.numpy() for x in live)
+    equal = (n > 0 and int(tn[0]) == n
+             and np.array_equal(img["keys"][0, :n], keys[0, :n].view(
+                 np.uint32))
+             and np.array_equal(img["lens"][0, :n], lens[0, :n])
+             and np.array_equal(img["cnts"][0, :n], cnts[0, :n].view(
+                 np.uint64))
+             and np.array_equal(img["parts"][0, :n], parts[0, :n])
+             and bool((img["keys"][0, n:] == 0xFFFFFFFF).all())
+             and not img["cnts"][0, n:].any())
+    cleared = int(tab.stats["sync_pulls"]) >= 2
+    fails = []
+    if not equal:
+        fails.append("ckpt_capture: the image differs from the table at "
+                     "the capture")
+    if copies != [("Memcpy DtoH (Device -> Pinned)", 2)]:
+        fails.append(f"ckpt_capture: a capture's copies a call are not two "
+                     f"pinned D2H: {copies}")
+    entry = {"image_equal": equal, "rows": n, "cap": tab.cap,
+             "syncs_after_capture": cleared, "copies": copies,
+             "capture_s": capture_s, "materialize_s": materialize_s,
+             "image_bytes": sum(int(v.nbytes) for v in img.values())}
+    tab.close()
+    return entry, fails
 
 
 GREP_PHASES = ("batch_s", "batch_wait_s", "upload_s", "dispatch_s",
@@ -4055,6 +4331,30 @@ def main() -> int:
         shapes["fold"] = fold_shape_times(
             raws, stream["stream_acc"]["pipeline_stats"]["table_cap"])
 
+        # Phase 5b: crash-resume checkpoints of the stream.
+        nbytes_stream = len(data) * cycles
+        ckpt = {"rows": ckpt_rows(files, cycles, want_counts, nbytes_stream,
+                                  work, gpu, failures)}
+        ckpt["capture"], fails = ckpt_capture_check(raws)
+        failures += fails
+        log({"ckpt_capture": {**ckpt["capture"], "gpu": gpu}})
+        ckpt_paths = {}
+        for tag, point, step, kw in (
+                ("stream_ckpt", "mid-fold", 9, {}),
+                ("stream_ckpt_async", "mid-commit", 3,
+                 {"checkpoint_async": True, "checkpoint_delta": True})):
+            entry, _, fails = ckpt_resume_path(
+                tag, files, cycles, want_counts, work, point=point,
+                step=step, **kw)
+            ckpt_paths[tag] = entry
+            failures += fails
+            log({tag: {**entry, "gpu": gpu, "input_bytes": nbytes_stream}})
+        entry, _, fails = ckpt_cli_path(files, cycles, want_counts, work)
+        ckpt_paths["stream_ckpt_cli"] = entry
+        failures += fails
+        log({"stream_ckpt_cli": {**entry, "gpu": gpu,
+                                 "input_bytes": nbytes_stream}})
+
         # Phase 6: F and G against their plain versions, and D / E / B / C
         # at the mesh-sharded fold's shapes.
         err["hash_group"], fails = check_hash_group(
@@ -4436,6 +4736,9 @@ def main() -> int:
                                for k, v in corpus_runs.items()}},
         "corpus_runs": corpus_runs,
         "stream_mb_per_s": {k: v["mb_per_s"] for k, v in stream.items()},
+        "ckpt_stream_mb_per_s": {k: {"ckpt": v["mb_per_s"],
+                                     "plain": v["plain_mb_per_s"]}
+                                 for k, v in ckpt["rows"].items()},
         "grep_mb_per_s": {k: v["mb_per_s"] for k, v in grep.items()},
         "grep_oracle_mb_per_s": grep_bytes / grep_oracle_s / 1e6,
         "tfidf_mb_per_s": {k: v["mb_per_s"] for k, v in tfidf.items()},
@@ -4453,6 +4756,7 @@ def main() -> int:
                "split": launch_split, "sharded": sharded[1]["launches"],
                "sharded_n8": sharded[8]["launches"],
                **{k: v["launches"] for k, v in stream.items()},
+               **{k: v["launches"] for k, v in ckpt_paths.items()},
                **{k: v["launches"] for k, v in corpus_runs.items()},
                "split_hash": launch_split_hash,
                "sharded_hash": launch_sharded_hash,

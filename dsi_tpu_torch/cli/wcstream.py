@@ -8,14 +8,19 @@ map / shuffle / reduce step over ``--devices`` virtual shards
 NReduce`` partitioning).  When the stream needs the host path (non-ASCII
 bytes, words over 64 letters) the host word count produces the same
 files.  ``--device cpu`` runs the plain PyTorch versions; the default is
-the card.
+the card.  ``--checkpoint-dir`` makes the run crash-resumable
+(``ckpt/``): a run killed mid-stream (``DSI_FAULT_POINT`` makes it exit
+with 87) finishes with ``--resume``, bit-identical to an uninterrupted
+run.
 
 Usage:
     python -m dsi_tpu_torch.cli.wcstream [--nreduce N] [--chunk-bytes B]
         [--devices D] [--workdir DIR] [--check] [--u-cap U]
         [--pipeline-depth D] [--device-accumulate] [--sync-every K]
-        [--mesh-shards N] [--grouper sort|hash] [--ingest-readers N]
-        [--wire-upload] [--stats] [--device cuda|cpu] inputfiles...
+        [--mesh-shards N] [--checkpoint-dir DIR] [--checkpoint-every K]
+        [--resume] [--ckpt-async] [--ckpt-delta] [--grouper sort|hash]
+        [--ingest-readers N] [--wire-upload] [--stats]
+        [--device cuda|cpu] inputfiles...
 """
 
 from __future__ import annotations
@@ -68,6 +73,28 @@ def main(argv=None) -> int:
                         "--device-accumulate; default: "
                         "DSI_STREAM_MESH_SHARDS or 0 = off; results are "
                         "the same either way)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="enable crash-resume checkpoints: durable snapshots "
+                        "of the accumulator, the device table and the "
+                        "input cursor land here; see --resume")
+    p.add_argument("--checkpoint-every", type=_positive_int, default=None,
+                   help="confirmed steps between checkpoints (default: "
+                        "DSI_STREAM_CKPT_EVERY or 32)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest valid checkpoint in "
+                        "--checkpoint-dir (restores the state, seeks the "
+                        "input to the confirmed cursor; the output is "
+                        "bit-identical to an uninterrupted run)")
+    p.add_argument("--ckpt-async", action="store_true", default=None,
+                   dest="ckpt_async",
+                   help="commit checkpoints in a background writer while "
+                        "the stream goes on (env DSI_STREAM_CKPT_ASYNC)")
+    p.add_argument("--ckpt-delta", action="store_true", default=None,
+                   dest="ckpt_delta",
+                   help="incremental checkpoints: only the step payloads "
+                        "since the previous save, a full re-base every "
+                        "DSI_STREAM_CKPT_REBASE saves (env "
+                        "DSI_STREAM_CKPT_DELTA)")
     p.add_argument("--grouper", choices=("sort", "hash"), default=None,
                    help="pin the token-grouping strategy (sets "
                         "DSI_WC_GROUPER; default: hash on the CPU, sort on "
@@ -91,23 +118,42 @@ def main(argv=None) -> int:
                    help="where the step runs (default: cuda; cpu runs "
                         "the plain PyTorch versions)")
     args = p.parse_args(argv)
+    if args.resume and not args.checkpoint_dir:
+        p.error("--resume requires --checkpoint-dir")
     if args.grouper:
         os.environ["DSI_WC_GROUPER"] = args.grouper
 
+    from dsi_tpu_torch.ckpt import CheckpointMismatch
     from dsi_tpu_torch.parallel.shuffle import write_partitioned_output
     from dsi_tpu_torch.parallel.streaming import wordcount_streaming
     from dsi_tpu_torch.utils.ioread import open_blocks
 
     pstats: dict = {}
-    acc = wordcount_streaming(
-        open_blocks(args.files, readers=args.ingest_readers),
-        n_dev=args.devices, n_reduce=args.nreduce,
-        chunk_bytes=args.chunk_bytes, u_cap=args.u_cap,
-        depth=args.pipeline_depth,
-        device_accumulate=args.device_accumulate,
-        sync_every=args.sync_every, mesh_shards=args.mesh_shards,
-        pipeline_stats=pstats, wire_upload=args.wire_upload,
-        device=args.device)
+    try:
+        acc = wordcount_streaming(
+            open_blocks(args.files, readers=args.ingest_readers),
+            n_dev=args.devices, n_reduce=args.nreduce,
+            chunk_bytes=args.chunk_bytes, u_cap=args.u_cap,
+            depth=args.pipeline_depth,
+            device_accumulate=args.device_accumulate,
+            sync_every=args.sync_every, mesh_shards=args.mesh_shards,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_async=args.ckpt_async,
+            checkpoint_delta=args.ckpt_delta, resume=args.resume,
+            pipeline_stats=pstats, wire_upload=args.wire_upload,
+            device=args.device)
+    except CheckpointMismatch as e:
+        # A valid checkpoint of another job: resuming would corrupt it and
+        # starting afresh would overwrite it.
+        print(f"wcstream: {e}", file=sys.stderr)
+        return 1
+    if args.resume and not pstats.get("resume_cursor"):
+        # Right when the crash came before the first checkpoint, but a
+        # mistyped --checkpoint-dir looks the same: say so.
+        print("wcstream: --resume found no usable checkpoint in "
+              f"{args.checkpoint_dir}; started from scratch",
+              file=sys.stderr)
     if args.stats:
         print(f"wcstream: pipeline_stats={pstats}", file=sys.stderr)
     if acc is None:

@@ -1,8 +1,9 @@
 """Sync cadence and mesh-sharding degree for the device-resident
 accumulator.
 
-Copy of ``dsi_tpu/device/policy.py`` (``SyncPolicy``,
-``sync_every_default`` and ``mesh_shards_default``).  The device table
+Copy of ``dsi_tpu/device/policy.py`` (``SyncPolicy`` with its checkpoint
+``snapshot``/``restore``, ``sync_every_default`` and
+``mesh_shards_default``).  The device table
 (``device/table.py``) keeps confirmed step outputs on the card; the host
 pulls the merged table only at sync points, every ``sync_every``
 confirmed folds, plus at stream end.
@@ -68,3 +69,12 @@ class SyncPolicy:
 
     def reset(self) -> None:
         self._since = 0
+
+    # Checkpoint image of the cadence position (``ckpt/``): a resumed
+    # stream must sync at the same step the uninterrupted one would, so
+    # the folds-since-last-pull counter rides the manifest.
+    def snapshot(self) -> int:
+        return self._since
+
+    def restore(self, since: int) -> None:
+        self._since = max(0, int(since))

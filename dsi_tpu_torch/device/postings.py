@@ -226,7 +226,7 @@ def mesh_postings_append(buf, n, dirty, rows, scal, *, kk: int,
 def _not_ported(what: str) -> NotImplementedError:
     from dsi_tpu_torch.parallel.streaming import _not_ported as nie
 
-    return nie(what, "checkpoints")
+    return nie(what, "#4b, checkpoints")
 
 
 class DevicePostings:

@@ -1,8 +1,8 @@
 """Device-resident merge table: the streaming word count's cross-step
 accumulator.
 
-Port of ``dsi_tpu/device/table.py`` (``DeviceTable`` without
-checkpoints).  The merged table stays on the card: keys as big-endian u32
+Port of ``dsi_tpu/device/table.py`` (``DeviceTable`` with its checkpoint
+images).  The merged table stays on the card: keys as big-endian u32
 lanes (int32 bits), u64 counts (int64 bits), occupancy per virtual shard.
 
 * ``fold`` (K10, ``fold_step``): every shard holds only words of the
@@ -34,6 +34,19 @@ lanes (int32 bits), u64 counts (int64 bits), occupancy per virtual shard.
   ``non_blocking`` copy into pinned memory with a CUDA event, and a fold
   is confirmed (the event waited on) only ``lag`` folds later, so the
   confirmation never waits out kernels queued behind it.
+* checkpoint images (``ckpt/``): ``checkpoint_capture`` flushes the lag,
+  packs the occupied prefix (``pack_prefix``) and enqueues its
+  ``non_blocking`` copy into pinned host memory with an event; the
+  image the store writes is the reference's, bit for bit (keys uint32
+  with pad ``0xFFFFFFFF``, counts uint64, ``lens``/``parts``/``tn``
+  int32, ``nrows`` int64).  ``pack_prefix``'s count prefix is a view of
+  the live table, which ``clear_table`` zeroes in place at the next sync:
+  the copy is enqueued before that on the same stream (on the CPU it is
+  made at once), so the image is the table of the capture instant.
+  ``enable_delta``/``take_delta`` retain each confirmed step's packed
+  payload (a fresh ``torch.cat`` that nothing writes again) for
+  incremental saves; ``restore_state`` re-uploads an image and
+  ``drain_image`` merges one into a host accumulator.
 
 Results are the same with and without ``mesh_shards``: routing changes
 which shard holds a key, never its count, and every drain ends in the
@@ -53,8 +66,11 @@ from typing import Deque, Optional, Tuple
 import numpy as np
 import torch
 
+from dsi_tpu_torch.ckpt.delta import Deferred
+from dsi_tpu_torch.interop import to_tensor
 from dsi_tpu_torch.ops.meshroute import exchange_rows, route_dest
 from dsi_tpu_torch.ops.wordcount import (
+    _PAD_KEY,
     _PAD_KEY32,
     _PAD_KEY64,
     HostCopy,
@@ -223,6 +239,15 @@ def pack_prefix(tkeys, tlens, tparts, tcnts, *, mp: int):
     return packed, tcnts[:, :mp]
 
 
+def _rows_prefix(rows: torch.Tensor, *, mp: int) -> HostCopy:
+    """K12 glue (reference ``_rows_prefix`` :355, a fresh-buffer prefix
+    slice whose D2H starts at once): the first ``mp`` rows of a ``[n_dev,
+    rows, w]`` int32 tensor, copied to the host now and read as u32
+    bits.  On the card the copy is enqueued into pinned memory before any
+    later work on the stream; on the CPU it is made at once."""
+    return HostCopy(rows[:, :mp], view=np.uint32)
+
+
 def _pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
@@ -273,6 +298,12 @@ class DeviceTable:
         # tensors stay referenced until their fold is proven clean, so an
         # overflowed (no-op) fold can be replayed after a widen.
         self._pending: Deque[Tuple] = collections.deque()
+        # Delta-checkpoint log (enable_delta): (packed step, nus) of every
+        # confirmed fold since the last capture, the rows an incremental
+        # save ships instead of the whole image.
+        self._delta_log: list = []
+        self._delta_max = 0
+        self._delta_invalid = False
         self.stats["table_cap"] = self.cap
 
     def _alloc(self, cap: int, kk: int):
@@ -297,6 +328,18 @@ class DeviceTable:
             # The word window widened mid-stream: re-key via the widen
             # protocol (drain, reallocate at the new width, resume).
             self._rekey(step_kk, int(packed_dev.shape[1]))
+        if self._delta_max:
+            # Once per confirmed step (recovery re-folds go through
+            # _dispatch_fold and never come here).  A log past its cap
+            # invalidates this window only: the next save is full.
+            if self._delta_invalid:
+                pass
+            elif len(self._delta_log) >= self._delta_max:
+                self._delta_invalid = True
+                self._delta_log.clear()
+            else:
+                self._delta_log.append(
+                    (packed_dev, scal_np[:, 0].astype(np.int64).copy()))
         with timed(self.stats, "fold_s"):
             flags = self._dispatch_fold(packed_dev, scal_dev)
             self._pending.append((flags, packed_dev, scal_dev))
@@ -434,6 +477,110 @@ class DeviceTable:
             if orphans:
                 self._recover(orphans)
             self._widen(_pow2(max(self.cap, rows)), new_kk)
+
+    # ── checkpoint images (ckpt/) ──
+
+    def checkpoint_capture(self) -> Deferred:
+        """Capture half of a drain-free image: flush the lagged flags (a
+        late overflow's recovery may widen, and that drain lands in
+        ``acc``, so callers capture the table before the accumulator),
+        pack the occupied prefix and enqueue its copy to pinned host
+        memory.  ``materialize()`` (in the commit writer, or inline)
+        waits on the copies' events and builds the reference's
+        five-array image; rows past each shard's occupancy are pad."""
+        orphans = self._flush_pending()
+        if orphans:
+            self._recover(orphans)
+        n_dev, cap, kk = self.n_dev, self.cap, self.kk
+        nrows = self._nrows.copy()
+        m = int(nrows.max())
+        copies = None
+        if m:
+            tkeys, tlens, tcnts, tparts, _ = self._state
+            packed_dev, cnts_dev = pack_prefix(
+                tkeys, tlens, tparts, tcnts, mp=occupied_prefix(m, cap))
+            copies = (HostCopy(packed_dev, view=np.uint32),
+                      HostCopy(cnts_dev, view=np.uint64))
+
+        def _image() -> dict:
+            keys = np.full((n_dev, cap, kk), _PAD_KEY, np.uint32)
+            lens = np.zeros((n_dev, cap), np.int32)
+            cnts = np.zeros((n_dev, cap), np.uint64)
+            parts = np.zeros((n_dev, cap), np.int32)
+            if copies is not None:
+                p, c = copies[0].wait(), copies[1].wait()
+                for d in range(n_dev):
+                    n = int(nrows[d])
+                    if n:
+                        keys[d, :n] = p[d, :n, :kk]
+                        lens[d, :n] = p[d, :n, kk]
+                        parts[d, :n] = p[d, :n, kk + 1]
+                        cnts[d, :n] = c[d, :n]
+            return {"keys": keys, "lens": lens, "cnts": cnts,
+                    "parts": parts, "tn": nrows.astype(np.int32),
+                    "nrows": nrows.copy()}
+
+        return Deferred(_image)
+
+    def checkpoint_state(self) -> dict:
+        """Capture and materialize at once: the synchronous image."""
+        return self.checkpoint_capture().materialize()
+
+    def enable_delta(self, max_steps: int = 64) -> None:
+        """Arm the delta log: every confirmed fold retains its step
+        payload until the next ``take_delta``; a window past
+        ``max_steps`` falls back to a full save."""
+        self._delta_max = max(1, int(max_steps))
+        self._delta_log.clear()
+        self._delta_invalid = False
+
+    def take_delta(self):
+        """The rows appended since the last capture, as ordered
+        ``(rows, nus)`` entries whose copies to the host are enqueued
+        (``rows.wait()`` gives u32 rows) — or None when the window
+        overflowed (the engine then writes a full image).  Always
+        re-arms the log."""
+        if self._delta_invalid:
+            self._delta_invalid = False
+            self._delta_log.clear()
+            return None
+        entries = [(_rows_prefix(packed_dev, mp=occupied_prefix(
+                        int(nus.max()), int(packed_dev.shape[1]))), nus)
+                   for packed_dev, nus in self._delta_log]
+        self._delta_log.clear()
+        return entries
+
+    def restore_state(self, img: dict) -> None:
+        """Upload a :meth:`checkpoint_state` image, re-entering the table
+        mid-stream on resume.  Capacity and key width follow the image,
+        so a widen before the crash sticks."""
+        keys = np.asarray(img["keys"], dtype=np.uint32)
+        self.cap, self.kk = int(keys.shape[1]), int(keys.shape[2])
+        self._state = tuple(
+            to_tensor(np.asarray(a, dtype=dt)).to(self.device)
+            for a, dt in ((keys, np.uint32), (img["lens"], np.int32),
+                          (img["cnts"], np.uint64),
+                          (img["parts"], np.int32), (img["tn"], np.int32)))
+        self._nrows = np.asarray(img["nrows"], dtype=np.int64).copy()
+        self._pending.clear()
+        self.stats["table_cap"] = self.cap
+
+    @staticmethod
+    def drain_image(acc, img: dict) -> None:
+        """Merge a :meth:`checkpoint_state` image into a host accumulator
+        without uploading it: the resume path across a change of
+        ``mesh_shards`` (or onto a delta chain), where the table starts
+        empty and the next folds rebuild it."""
+        keys = np.asarray(img["keys"], dtype=np.uint32)
+        lens = np.asarray(img["lens"])
+        cnts = np.asarray(img["cnts"])
+        parts = np.asarray(img["parts"])
+        nrows = np.asarray(img["nrows"], dtype=np.int64)
+        for d in range(keys.shape[0]):
+            n = int(nrows[d])
+            if n:
+                acc.add(keys[d, :n], lens[d, :n],
+                        cnts[d, :n].astype(np.int64), parts[d, :n])
 
     def _pull_merge(self, only: Optional[np.ndarray] = None) -> bool:
         """Pull the occupied table prefix and merge it into the host

@@ -146,9 +146,13 @@ def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
 class HostCopy:
     """A device-to-host copy in flight: on the card, a ``non_blocking``
     copy into pinned memory plus a CUDA event recorded behind it, so the
-    caller decides when to wait; on the CPU, a copy made at once."""
+    caller decides when to wait; on the CPU, a copy made at once.  The
+    copy holds the values ``t`` had when it was made, whatever later
+    work on the same stream writes into ``t``.  ``view`` (e.g.
+    ``np.uint32``) reinterprets the host bits on :meth:`wait`."""
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, t: torch.Tensor, view=None):
+        self._view = view
         if t.device.type == "cuda":
             self._host = torch.empty(t.shape, dtype=t.dtype,
                                      pin_memory=True)
@@ -163,7 +167,8 @@ class HostCopy:
         """Block until the copy has landed; the host values as numpy."""
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        a = self._host.numpy()
+        return a if self._view is None else a.view(self._view)
 
 
 # ── bit helpers (u32/u64 carried in int32/int64) ─────────────────────────

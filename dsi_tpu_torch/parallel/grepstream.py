@@ -428,7 +428,7 @@ class GrepStep(EngineStep):
             raise _not_ported("aot", "the kernel build/warm cache")
         if (checkpoint_dir or checkpoint_every or checkpoint_async
                 or checkpoint_delta or resume):
-            raise _not_ported("checkpointing", "checkpoints")
+            raise _not_ported("checkpointing", "#4b, checkpoints")
         if input_range is not None:
             raise _not_ported("input_range", "the plan and serving layers")
         _grep_setup(self, blocks, pattern, n_dev, chunk_bytes, depth,
@@ -746,7 +746,7 @@ class IndexerStep(WaveWalkStep):
         super().__init__()
         if (checkpoint_dir or checkpoint_every or checkpoint_async
                 or checkpoint_delta or resume):
-            raise _not_ported("checkpointing", "checkpoints")
+            raise _not_ported("checkpointing", "#4b, checkpoints")
         if input_range is not None:
             raise _not_ported("input_range", "the plan and serving layers")
         self.exported: Optional[dict] = None

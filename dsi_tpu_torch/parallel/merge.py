@@ -1,11 +1,11 @@
 """Vectorized host-side merge table for the SPMD paths' per-step outputs.
 
-Copy of ``dsi_tpu/parallel/merge.py`` (``PackedCounts`` and its helpers,
-``PostingsTable`` and ``PackedPostings``, without the checkpoint
-``restore``s and ``PostingsTable.snapshot``; ``PackedCounts.snapshot``
-is here for the plan layer's df top-k).  Per-step tables of
-packed word keys (big-endian u32 lanes) plus length / count / partition
-columns accumulate as raw numpy arrays; merging is one ``np.lexsort``
+Copy of ``dsi_tpu/parallel/merge.py`` (``PackedCounts`` with its
+checkpoint ``snapshot``/``restore`` and its helpers, ``PostingsTable``
+and ``PackedPostings``, without ``PostingsTable``'s ``snapshot`` and
+``restore``, which the streaming indexer's checkpoints will need).
+Per-step tables of packed word keys (big-endian u32 lanes) plus length /
+count / partition columns accumulate as raw numpy arrays; merging is one ``np.lexsort``
 over the key lanes, run-boundary detection and ``np.add.reduceat`` per
 compaction window; spellings are decoded once, from the final merged
 table.
@@ -135,6 +135,20 @@ class PackedCounts:
             return {}
         keys, lens, cnts, parts = self._bufs[0]
         return {"keys": keys, "lens": lens, "cnts": cnts, "parts": parts}
+
+    def restore(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Load a :meth:`snapshot` image, replacing any current state.
+        Final results do not depend on how the same (word, count)
+        contributions were buffered, so a restored accumulator finalizes
+        bit-identically to the uninterrupted one."""
+        if not arrays or "keys" not in arrays or len(arrays["keys"]) == 0:
+            self._bufs, self._pending = [], 0
+            return
+        self._bufs = [(np.array(arrays["keys"], dtype=np.uint32),
+                       np.array(arrays["lens"], dtype=np.int32),
+                       np.array(arrays["cnts"], dtype=np.int64),
+                       np.array(arrays["parts"], dtype=np.int32))]
+        self._pending = len(self._bufs[0][0])
 
 
 class PostingsTable:

@@ -1,10 +1,11 @@
 """Dispatch/finish pipeline core for the streaming engine.
 
 Copy of ``dsi_tpu/parallel/pipeline.py`` (``pipeline_depth``,
-``BufferPool``, ``StepPipeline``, ``fold_source_stats``) without the
-tracing spans, histograms and stall watchdog of ``dsi_tpu/obs``, which
-the port has not copied yet; the phase seconds they fed still land in
-the ``stats`` dict under the same keys.
+``BufferPool``, ``StepPipeline``, ``fold_source_stats``, and
+``CommitWorker``, the single background commit the checkpoint writer
+uses) without the pipeline's own tracing spans, histograms and stall
+watchdog: the phase seconds they fed land in the ``stats`` dict under
+the same keys through :func:`timed`.
 
 Four mechanics: a background producer thread feeding a bounded queue, a
 ``depth``-deep in-flight window (dispatch step k+1 before step k is
@@ -98,6 +99,96 @@ class BufferPool:
         with self._lock:
             if len(self._free) < self._retain:
                 self._free.append(buf)
+
+
+class CommitWorker:
+    """Single background worker draining submitted thunks FIFO — the
+    consumer-side twin of :class:`StepPipeline`'s producer thread, used by the
+    async checkpoint writer (``ckpt/writer.py``).
+
+    The discipline mirrors the pipeline's: bounded in-flight work
+    (``submit`` blocks while ``max_pending`` submissions are
+    outstanding — the "barrier only when the NEXT save would overrun
+    the one still draining" rule; the wait is returned so the caller
+    can attribute it), strict submission order (one worker), and
+    errors that cannot be lost — a thunk's exception is re-raised at
+    the next ``submit``/``drain`` in the submitting thread, never
+    swallowed while the pipeline keeps stepping.
+    """
+
+    def __init__(self, name: str = "dsi-commit-worker",
+                 max_pending: int = 1):
+        self._q: "queue.Queue" = queue.Queue()
+        # The in-flight bound must count the thunk the worker is
+        # RUNNING, not just queued ones (a bounded queue alone would
+        # admit one running + one queued = max_pending + 1): a slot is
+        # taken at submit and released only when the thunk finishes.
+        self._slots = threading.BoundedSemaphore(max(1, max_pending))
+        self._name = name
+        self._thread: Optional[threading.Thread] = None
+        self._err: Optional[BaseException] = None
+        self._done = threading.Event()
+
+    def _loop(self) -> None:
+        while True:
+            thunk = self._q.get()
+            try:
+                if thunk is None:
+                    return
+                if self._err is None:  # after an error: drain, don't run
+                    thunk()
+            except BaseException as e:
+                self._err = e
+            finally:
+                self._q.task_done()
+                if thunk is not None:
+                    self._slots.release()
+
+    def _ensure_thread(self) -> None:
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._loop,
+                                            daemon=True, name=self._name)
+            self._thread.start()
+
+    def _raise_pending(self) -> None:
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def submit(self, thunk: Callable[[], None]) -> float:
+        """Enqueue one thunk; returns the seconds spent blocked waiting
+        for an in-flight slot (0.0 when one was free).  Re-raises a
+        prior thunk's error instead of enqueueing more work on a dead
+        run."""
+        self._raise_pending()
+        self._ensure_thread()
+        t0 = time.perf_counter()
+        self._slots.acquire()
+        self._q.put(thunk)
+        waited = time.perf_counter() - t0
+        return waited if waited > 1e-4 else 0.0
+
+    def drain(self) -> float:
+        """Wait until every submitted thunk finished; re-raise the first
+        error.  Returns the seconds spent waiting."""
+        if self._thread is None:
+            self._raise_pending()
+            return 0.0
+        t0 = time.perf_counter()
+        self._q.join()
+        self._raise_pending()
+        return time.perf_counter() - t0
+
+    def shutdown(self) -> None:
+        """Stop the worker after the queue drains, silently (for
+        ``finally`` blocks already unwinding another exception — a
+        pending commit error stays stored and surfaces if ``drain`` is
+        called first on the success path)."""
+        if self._thread is None:
+            return
+        self._q.put(None)
+        self._thread.join(timeout=60.0)
+        self._thread = None
 
 
 class StepPipeline:

@@ -12,17 +12,27 @@ uses.  The lifecycle:
 * ``confirm()`` — retire every in-flight record, leaving the engine at a
   confirmed boundary; returns the confirmed-step count.
 * ``abort()``   — tear down without driving the remaining input.
+* ``checkpoint()`` — ``confirm()``, then one durable snapshot through the
+  engine's own save path, drained so the manifest is on disk; False
+  when the engine was built without a checkpoint dir.
+* ``restore()`` — what the constructor-time restore did (``resume=True``
+  restores before the first dispatch).
+* ``suspend()`` — ``checkpoint()`` then release: a fresh ``resume=True``
+  construction continues bit-identically.
 * ``close()``   — finish the run, release every resource and return the
   result (None on the host path).
 
-Checkpoints (``checkpoint``/``restore``/``suspend`` in the reference) are
-not ported yet.  Subclass contract (attributes set by ``__init__``):
-``_pipe`` (a begun :class:`~dsi_tpu_torch.parallel.pipeline.StepPipeline`),
-``_host_excs`` (exception types meaning "this input needs the host
-path"), ``_rung_excs`` (exception types that :meth:`EngineStep._next_rung`
+Subclass contract (attributes set by ``__init__``): ``_pipe`` (a begun
+:class:`~dsi_tpu_torch.parallel.pipeline.StepPipeline`), ``_host_excs``
+(exception types meaning "this input needs the host path"),
+``_rung_excs`` (exception types that :meth:`EngineStep._next_rung`
 consumes: tear the rung down and begin the next one), ``_on_complete``
-(run once after the window drains at end of input) and ``_release``
-(idempotent teardown).
+(run once after the window drains at end of input), ``_release``
+(idempotent teardown), ``_save`` (commits one snapshot at the current
+confirmed boundary; None = checkpointing off), ``_writer`` (the engine's
+``CheckpointWriter``, so ``checkpoint()`` can drain it) and
+``_cursor_ref`` (the live confirmed-cursor dict of an engine with a byte
+cursor).
 """
 
 from __future__ import annotations
@@ -30,8 +40,8 @@ from __future__ import annotations
 
 class EngineStep:
     """Base step object.  Phases: ``running`` → ``done`` | ``hostpath`` |
-    ``failed`` | ``cancelled``; ``close()`` maps each to a result (or
-    None)."""
+    ``failed`` | ``cancelled`` | ``suspended``; ``close()`` maps each to
+    a result (or None)."""
 
     #: Exception types that route the stream to the host path.
     _host_excs: tuple = ()
@@ -44,6 +54,10 @@ class EngineStep:
         self._pipe = None
         self._on_complete = lambda: None
         self._release = lambda: None
+        self._save = None
+        self._writer = None
+        self._restore_info: dict = {}
+        self._cursor_ref = None
 
     def _next_rung(self) -> bool:
         """Consume a rung-restart exception: tear the old rung down and
@@ -60,6 +74,13 @@ class EngineStep:
     def confirmed(self) -> int:
         """Steps retired through their deferred checks so far."""
         return self._pipe.finished if self._pipe is not None else 0
+
+    @property
+    def cursor(self) -> int:
+        """The confirmed input-byte cursor: the offset just past the last
+        confirmed step's batch (0 for engines without a byte cursor)."""
+        ref = self._cursor_ref
+        return int(ref.get("offset", 0)) if ref else 0
 
     def advance(self) -> bool:
         """One turn of the crank; False when there is nothing left to do
@@ -118,6 +139,34 @@ class EngineStep:
                 self._fail()
                 raise
         return self.confirmed
+
+    def checkpoint(self) -> bool:
+        """Force one durable snapshot at a confirmed boundary.  False when
+        checkpointing is off or the engine left the running phase."""
+        self.confirm()
+        if self._phase != "running" or self._save is None:
+            return False
+        self._save()
+        if self._writer is not None:
+            self._writer.drain()
+        return True
+
+    def restore(self) -> dict:
+        """What the constructor-time restore did (``resume_cursor``,
+        ``resume_gap_s``); empty when the engine started fresh."""
+        return dict(self._restore_info)
+
+    def suspend(self) -> bool:
+        """Checkpoint (when enabled) and release everything; returns
+        whether a snapshot was committed."""
+        if self._phase != "running":
+            return False
+        saved = self.checkpoint()
+        if self._phase == "running":
+            self._pipe.end()
+            self._release()
+            self._phase = "suspended"
+        return saved
 
     def close(self):
         """Finish the run (driving any remaining input) and return the

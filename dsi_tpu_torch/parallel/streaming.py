@@ -35,20 +35,41 @@ ready ``[n_dev, chunk_bytes]`` batches instead of a block stream: device
 tensors (an upstream relay's buffers) are consumed in place, host arrays
 (spilled or restored buffers) are uploaded.
 
+With ``checkpoint_dir`` the stream is crash-resumable (``ckpt/``): every
+``checkpoint_every`` confirmed steps it saves the host accumulator, an
+image of the device table (captured on the card into pinned host
+memory), the sticky rung and the byte cursor of the last confirmed step;
+``resume`` restores the newest valid chain and seeks the input to the
+cursor.  The chains are the reference's, file for file.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``aot``, checkpoints and ``input_range``.
+item): ``aot`` and ``input_range``.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from dsi_tpu_torch.ckpt import (
+    CheckpointPolicy,
+    CheckpointStore,
+    CheckpointWriter,
+    DeltaSteps,
+    HostDeltaLog,
+    checkpoint_async_default,
+    checkpoint_delta_default,
+    drain_packed_steps,
+    fault_point,
+    skip_stream,
+)
 from dsi_tpu_torch.device.policy import SyncPolicy, mesh_shards_default
 from dsi_tpu_torch.device.table import DeviceTable
+from dsi_tpu_torch.obs import span as _span
 from dsi_tpu_torch.ops.wirecodec import (
     decode_chunk_device,
     encode_chunk,
@@ -111,15 +132,23 @@ def _cut_at_boundary(buf, size: int) -> int:
 
 
 def batch_stream(blocks: Iterable[bytes], n_dev: int, chunk_bytes: int,
-                 pool: Optional[BufferPool] = None) -> Iterator[np.ndarray]:
+                 pool: Optional[BufferPool] = None,
+                 offsets: Optional[list] = None) -> Iterator[np.ndarray]:
     """Slice a byte-block stream into zero-padded [n_dev, chunk_bytes]
     batches, cutting rows only at non-letter boundaries.
 
     With ``pool`` batches come from a small rotating buffer set; the
     consumer hands each yielded batch back via ``pool.give`` once nothing
     reads it.  Rows are always written in full — data then zero tail — so
-    a recycled buffer never leaks stale bytes."""
+    a recycled buffer never leaks stale bytes.
+
+    With ``offsets`` (the checkpoint cursor hook) the stream offset just
+    past each batch's content is appended before the batch is yielded.
+    Batching is a pure function of the byte stream, so resuming from
+    ``skip_stream(blocks, offsets[i])`` reproduces batches ``i+1, ...``
+    exactly."""
     carry = bytearray()
+    consumed = 0
 
     def new_batch() -> np.ndarray:
         if pool is not None:
@@ -130,7 +159,7 @@ def batch_stream(blocks: Iterable[bytes], n_dev: int, chunk_bytes: int,
     row = 0
 
     def fill_rows(final: bool):
-        nonlocal row, carry, batch
+        nonlocal row, carry, batch, consumed
         while carry and (len(carry) >= chunk_bytes + 1 or final):
             cut = _cut_at_boundary(carry, chunk_bytes)
             if cut == 0:
@@ -141,9 +170,12 @@ def batch_stream(blocks: Iterable[bytes], n_dev: int, chunk_bytes: int,
             batch[row, :cut] = view
             del view           # release the bytearray export before the
             del carry[:cut]    # resize (a live view blocks it)
+            consumed += cut
             batch[row, cut:] = 0
             row += 1
             if row == n_dev:
+                if offsets is not None:
+                    offsets.append(consumed)
                 yield batch
                 batch = new_batch()
                 row = 0
@@ -154,6 +186,8 @@ def batch_stream(blocks: Iterable[bytes], n_dev: int, chunk_bytes: int,
     yield from fill_rows(final=True)
     if row:
         batch[row:] = 0  # recycled buffer: stale tail rows must not count
+        if offsets is not None:
+            offsets.append(consumed)
         yield batch      # tail batch; remaining rows are empty chunks
     elif pool is not None:
         pool.give(batch)  # taken but never filled: straight back
@@ -231,15 +265,14 @@ class WordcountStep(EngineStep):
                              "cursors")
         if aot:
             raise _not_ported("aot", "the kernel build/warm cache")
-        if (checkpoint_dir or checkpoint_every or checkpoint_async
-                or checkpoint_delta or resume):
-            raise _not_ported("checkpointing", "checkpoints")
         if input_range is not None:
             raise _not_ported("input_range", "the plan and serving layers")
         _wordcount_setup(self, blocks, n_dev, n_reduce, chunk_bytes,
                          max_word_len, u_cap, on_attempt, depth,
                          pipeline_stats, device_accumulate, sync_every,
-                         mesh_shards, wire_upload, resolve_device(device),
+                         mesh_shards, checkpoint_dir, checkpoint_every,
+                         checkpoint_async, checkpoint_delta, resume,
+                         wire_upload, resolve_device(device),
                          device_batches)
 
 
@@ -305,9 +338,28 @@ def wordcount_streaming(
     encode and the decode launch) and, beyond the reference's keys,
     ``wire_modes`` (packed steps by mode and literal rung).
 
+    ``checkpoint_dir`` enables crash-resume (``ckpt/``): every
+    ``checkpoint_every`` confirmed steps (default
+    ``DSI_STREAM_CKPT_EVERY``, 32) the engine commits the host
+    accumulator, an image of the device table (if live), the sticky rung
+    and the byte cursor of the last confirmed step; steps still in the
+    window are left out, and resume re-reads them.  ``resume=True``
+    restores the newest valid chain, seeks the block stream to the cursor
+    and continues; the result is bit-identical to an uninterrupted run.
+    ``checkpoint_async`` (default ``DSI_STREAM_CKPT_ASYNC``, off) commits
+    in a background writer while steps keep flowing;
+    ``checkpoint_delta`` (default ``DSI_STREAM_CKPT_DELTA``, off) makes
+    saves incremental, with a full re-base every
+    ``DSI_STREAM_CKPT_REBASE`` saves.  ``pipeline_stats`` gains
+    ``ckpt_saves``, ``ckpt_deltas``, ``ckpt_s``, ``ckpt_capture_s``,
+    ``ckpt_commit_s``, ``ckpt_barrier_s``, ``ckpt_full_bytes``,
+    ``ckpt_delta_bytes`` and, on resume, ``resume_gap_s`` and
+    ``resume_cursor`` (``resharded_resume`` when the chain's
+    ``mesh_shards`` differs).
+
     ``on_attempt(max_word_len, u_cap)`` is called before every step
-    attempt.  The remaining parameters keep the reference's signature and
-    raise ``NotImplementedError`` when set.
+    attempt.  ``aot`` and ``input_range`` keep the reference's signature
+    and raise ``NotImplementedError`` when set.
     """
     return WordcountStep(
         blocks, n_dev=n_dev, n_reduce=n_reduce, chunk_bytes=chunk_bytes,
@@ -325,9 +377,12 @@ def wordcount_streaming(
 def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
                      max_word_len, u_cap, on_attempt, depth, pipeline_stats,
                      device_accumulate, sync_every, mesh_shards,
-                     wire_upload, dev: torch.device, device_batches=None):
-    """The engine body behind :class:`WordcountStep`: setup ending with
-    the pipeline armed and the lifecycle hooks attached to ``step``."""
+                     checkpoint_dir, checkpoint_every, checkpoint_async,
+                     checkpoint_delta, resume, wire_upload,
+                     dev: torch.device, device_batches=None):
+    """The engine body behind :class:`WordcountStep`: setup (a
+    ``resume=True`` chain restore included) ending with the pipeline
+    armed and the lifecycle hooks attached to ``step``."""
     depth = pipeline_depth(depth)
     acc = PackedCounts()
     groupers = grouper_ladder(dev)
@@ -369,6 +424,83 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
         stats["mesh_shards"] = mesh_shards
     on_card = dev.type == "cuda"
 
+    # ── checkpoint/restore (ckpt/) ──
+    ck_store: Optional[CheckpointStore] = None
+    ck_policy: Optional[CheckpointPolicy] = None
+    ck_writer: Optional[CheckpointWriter] = None
+    ck_cursor = {"offset": 0, "steps": 0}  # last CONFIRMED step's end
+    offsets: Optional[list] = None
+    dispatch_idx = 0
+    start_offset = 0
+    ck_async = checkpoint_async_default(checkpoint_async)
+    ck_delta = checkpoint_delta_default(checkpoint_delta)
+    # The host-merge path's delta log: trimmed copies of the pulled steps.
+    host_delta = HostDeltaLog()
+    if checkpoint_dir:
+        ck_store = CheckpointStore(
+            checkpoint_dir, "wordcount",
+            {"n_dev": n_dev, "n_reduce": n_reduce,
+             "chunk_bytes": chunk_bytes,
+             "device_accumulate": bool(device_accumulate)})
+        ck_policy = CheckpointPolicy(checkpoint_every)
+        offsets = []
+        stats.update({"ckpt_saves": 0, "ckpt_s": 0.0,
+                      "ckpt_every": ck_policy.every, "ckpt_capture_s": 0.0,
+                      "ckpt_async": ck_async, "ckpt_delta": ck_delta})
+        ck_writer = CheckpointWriter(ck_store, stats, async_=ck_async,
+                                     delta=ck_delta)
+        if resume:
+            t_res = time.perf_counter()
+            loaded = ck_store.load_latest_chain()
+            if loaded is not None:
+                meta, arrays, deltas = loaded
+                # Cursor and rung are newest-wins: the last delta's meta
+                # is the restore point; the base meta names the image.
+                eff = deltas[-1][0] if deltas else meta
+                start_offset = int(eff["cursor"])
+                ck_cursor.update(offset=start_offset,
+                                 steps=int(eff["steps"]))
+                state.update({"cap": int(eff["cap"]),
+                              "mwl": int(eff["mwl"]),
+                              "grouper": eff["grouper"],
+                              "frac": int(eff["frac"])})
+                acc.restore({k[4:]: v for k, v in arrays.items()
+                             if k.startswith("acc_")})
+                if device_accumulate and meta.get("table_cap"):
+                    img = {k[6:]: v for k, v in arrays.items()
+                           if k.startswith("table_")}
+                    same_degree = (int(meta.get("mesh_shards", 0))
+                                   == mesh_shards)
+                    if deltas or not same_degree:
+                        # A chain (or a change of sharding degree)
+                        # re-enters through the drain: the image's rows go
+                        # to the host accumulator, the table starts empty
+                        # and the resumed folds rebuild it.
+                        DeviceTable.drain_image(acc, img)
+                        if not same_degree:
+                            stats["resharded_resume"] = int(
+                                meta.get("mesh_shards", 0))
+                    else:
+                        # Re-enter mid-table: the image's capacity and
+                        # width win, so a widen before the crash sticks.
+                        table_svc = DeviceTable(
+                            n_dev, kk=int(meta["table_kk"]),
+                            cap=int(meta["table_cap"]), acc=acc,
+                            device=dev, lag=max(0, depth - 1), stats=stats,
+                            mesh_shards=mesh_shards)
+                        table_svc.restore_state(img)
+                        if ck_delta:
+                            table_svc.enable_delta()
+                    policy.restore(eff.get("sync_since", 0))
+                for _, darr in deltas:
+                    # Each delta's steps re-enter the host accumulator in
+                    # save order, the drain-path argument again.
+                    drain_packed_steps(acc, darr)
+            stats["resume_gap_s"] = time.perf_counter() - t_res
+            stats["resume_cursor"] = start_offset
+        else:
+            ck_store.reset()  # a fresh lineage: no stale chain may resume
+
     def fold_confirmed(packed_dev, scal_dev, scal_np) -> None:
         nonlocal table_svc
         if int(scal_np[:, 0].max()) == 0:
@@ -386,11 +518,68 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
                 cap=cap if cap > 0 else int(packed_dev.shape[1]),
                 acc=acc, device=dev, lag=max(0, depth - 1), stats=stats,
                 mesh_shards=mesh_shards)
+            if ck_delta and ck_store is not None:
+                table_svc.enable_delta()
         table_svc.fold(packed_dev, scal_dev, scal_np)
         policy.note_fold()
         if policy.due():
+            fault_point("pre-sync")
             table_svc.sync()
             policy.reset()
+
+    def save_ckpt() -> None:
+        """One consistent snapshot at a confirmed-step boundary: capture
+        here, commit inline or in the background writer.  The device
+        table is captured first: flushing its lagged flags can widen,
+        and that drain lands in the host accumulator, which the snapshot
+        must hold too.  Steps in the window are left out; resume re-reads
+        them from the cursor.  A delta save ships only the step payloads
+        retained since the previous save (the table's log with the table
+        on, the pulled host payloads otherwise); every
+        ``DSI_STREAM_CKPT_REBASE``-th save, and any save after a window
+        that overflowed its log, is full."""
+        with _span("ckpt", stats=stats, key="ckpt_s",
+                   step=ck_cursor["steps"]):
+            meta = {"cursor": ck_cursor["offset"],
+                    "steps": ck_cursor["steps"],
+                    "cap": state["cap"], "mwl": state["mwl"],
+                    "grouper": state["grouper"], "frac": state["frac"]}
+            kind = "full"
+            parts = None
+            with _span("ckpt_capture", lane="ckpt", stats=stats,
+                       key="ckpt_capture_s"):
+                if ck_writer.want_delta():
+                    if device_accumulate:
+                        entries = (table_svc.take_delta()
+                                   if table_svc is not None else [])
+                    else:
+                        entries = host_delta.take()
+                    if entries is not None:
+                        parts = [("", DeltaSteps(entries))]
+                        kind = "delta"
+                        if device_accumulate:
+                            meta["mesh_shards"] = mesh_shards
+                            meta["sync_since"] = policy.snapshot()
+                if parts is None:
+                    # A full image, and a fresh delta window: payloads
+                    # recorded before this base are inside it.
+                    parts = []
+                    if table_svc is not None:
+                        parts.append(("table_",
+                                      table_svc.checkpoint_capture()))
+                        meta["table_cap"] = table_svc.cap
+                        meta["table_kk"] = table_svc.kk
+                        # The image's sharding degree, so a resume at
+                        # another degree drains instead of misreading
+                        # shard ownership.
+                        meta["mesh_shards"] = table_svc.mesh_shards
+                        meta["sync_since"] = policy.snapshot()
+                        if ck_delta:
+                            table_svc.take_delta()
+                    host_delta.reset()
+                    parts.append(("acc_", acc.snapshot()))
+            fault_point("mid-capture")
+            ck_writer.commit(parts, meta, kind=kind)
 
     # Live host buffers = out queue (≤ depth+1) + in-flight window
     # (≤ depth) + one being filled + one being finished.
@@ -508,6 +697,7 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
         """Optimistically launch one step at the sticky rung — upload and
         kernel launches, no waiting.  With device accumulation the pack
         runs here too (its full-capacity shape needs no flags)."""
+        nonlocal dispatch_idx
         mwl, cap = state["mwl"], state["cap"]
         if on_attempt is not None:
             on_attempt(mwl, cap)
@@ -530,12 +720,19 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
                            (keys, lens, cnts, parts))
             scal_host = HostCopy(scal)
         stats["steps"] += 1
-        return (buf, uploaded, scal_host, mwl, cap, handles)
+        rec_offset = 0
+        if offsets is not None:
+            # This step's cursor: the absolute stream offset just past
+            # its batch (appended before the batch was queued).
+            rec_offset = start_offset + offsets[dispatch_idx]
+            dispatch_idx += 1
+        fault_point("post-dispatch")
+        return (buf, uploaded, scal_host, mwl, cap, rec_offset, handles)
 
     def finish_one(record) -> None:
         """Retire the oldest in-flight step: deferred exactness check,
         then merge (clean) or replay at a wider shape (overflow)."""
-        buf, uploaded, scal_host, mwl, cap, handles = record
+        buf, uploaded, scal_host, mwl, cap, rec_offset, handles = record
         scal, packed_dev, kk, tables = handles
         with timed(stats, "kernel_s"):
             scal_np = scal_host.wait()  # blocks until the step lands
@@ -558,6 +755,8 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
                 with timed(stats, "merge_s"):
                     if packed is not None:
                         acc.add_packed_step(packed, nus, kk)
+                        if ck_delta and ck_store is not None:
+                            host_delta.append(packed, nus)
         else:
             # Late-detected overflow: replay just this step through the
             # ladder.  Exactly once by construction — the optimistic
@@ -576,6 +775,19 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
                     if packed is not None:
                         stats["step_pulls"] += 1
                         acc.add_packed_step(packed, nus, kk)
+                        if ck_delta and ck_store is not None:
+                            host_delta.append(packed, nus)
+        # The step is confirmed: merged or folded, and nothing after it.
+        # The fault point sits before the cursor moves, the torn-update
+        # instant.
+        fault_point("mid-fold")
+        if ck_store is not None:
+            ck_cursor["offset"] = rec_offset
+            ck_cursor["steps"] += 1
+            ck_policy.note_step()
+            if ck_policy.due():
+                save_ckpt()
+                ck_policy.reset()
         give_back(buf, uploaded)
 
     pipe = StepPipeline(depth=depth, dispatch=dispatch, finish=finish_one,
@@ -584,16 +796,27 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
                         inflight_key="max_inflight_chunks",
                         thread_name="dsi-stream-batcher")
     step._pipe = pipe
+    step._cursor_ref = ck_cursor
     if device_batches is not None:
         pipe.begin(lambda: iter(device_batches))
     else:
-        pipe.begin(lambda: batch_stream(blocks, n_dev, chunk_bytes,
-                                        pool=pool))
+        feed = skip_stream(blocks, start_offset) if start_offset else blocks
+        pipe.begin(lambda: batch_stream(feed, n_dev, chunk_bytes, pool=pool,
+                                        offsets=offsets))
     step._host_excs = (_TokenTooLong, _NeedsHostPath)
+    step._save = save_ckpt if ck_store is not None else None
+    step._writer = ck_writer
+    if resume:
+        step._restore_info = {
+            "resume_cursor": stats.get("resume_cursor", 0),
+            "resume_gap_s": stats.get("resume_gap_s", 0.0)}
 
     def on_complete():
         if table_svc is not None:
+            fault_point("pre-sync")
             table_svc.close()  # the "or at stream end" pull
+        if ck_writer is not None:
+            ck_writer.drain()  # commit errors surface; counters settle
         with timed(stats, "finalize_s"):
             step.result = acc.finalize()
 
@@ -603,6 +826,8 @@ def _wordcount_setup(step, blocks, n_dev, n_reduce, chunk_bytes,
         if released:  # idempotent: close() after a failure re-runs it
             return
         released.append(True)
+        if ck_writer is not None:
+            ck_writer.shutdown()
         fold_source_stats(stats, blocks)
         if pipeline_stats is not None:
             stats["batch_allocs"] = pool.allocs

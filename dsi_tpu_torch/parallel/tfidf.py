@@ -274,7 +274,7 @@ class TfidfStep(WaveWalkStep):
         super().__init__()
         if (checkpoint_dir or checkpoint_every or checkpoint_async
                 or checkpoint_delta or resume):
-            raise _not_ported("checkpointing", "checkpoints")
+            raise _not_ported("checkpointing", "#4b, checkpoints")
         if input_range is not None:
             raise _not_ported("input_range", "the plan and serving layers")
         _tfidf_setup(self, docs, n_dev, n_reduce, max_word_len, u_cap,
