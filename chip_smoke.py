@@ -268,6 +268,9 @@ PATH_KERNELS = {
     "grep_stream_mesh": ("grep_step", "radix_sort", "group", "fnv",
                          "route"),
     "grep_cli": ("grep_step", "radix_sort", "group"),
+    # Crash-resume: the crashed run and its resume, the services on.
+    "grep_ckpt": ("grep_step", "radix_sort", "group"),
+    "grep_ckpt_cli": ("grep_step", "radix_sort", "group"),
     # The TF-IDF wave: A-E, then L; with the device postings buffer, M.
     "tfidf": WC + ("compact",), "tfidf_n8": WC + ("compact",),
     "tfidf_acc": WC + ("compact", "postings_append"),
@@ -276,6 +279,8 @@ PATH_KERNELS = {
     # entry (compact_received fused in); L runs in the wave step.
     "indexer": WC + ("compact",), "indexer_n8": WC + ("compact",),
     "indexer_acc": WC + ("compact", "postings_append"),
+    "indexer_ckpt": WC + ("compact", "postings_append"),
+    "tfidf_ckpt": WC + ("compact", "postings_append"),
     "indexer_mesh": WC + ("compact", "postings_append"),
     "tfidf_mesh": WC + ("compact", "postings_append"),
     # The wire streams decode every packed batch with N before the step.
@@ -1771,6 +1776,8 @@ CKPT_STATS = ("ckpt_saves", "ckpt_deltas", "ckpt_s", "ckpt_capture_s",
               "steps", "folds", "sync_pulls", "widens", "table_cap",
               "resume_gap_s", "resume_cursor", "resharded_resume")
 FAULT_ENV = ("DSI_FAULT_MODE", "DSI_FAULT_POINT", "DSI_FAULT_STEP")
+# The wave walks' checkpoint counters (the cursor a wave ordinal).
+WAVE_CKPT = CKPT_STATS + ("resume_wave",)
 
 
 @contextlib.contextmanager
@@ -1934,11 +1941,12 @@ def ckpt_cli_path(files, cycles: int, want: dict, work: str):
     return entry, launches, fails
 
 
-def capture_copies(tab, reps: int = 3, tries: int = 4) -> list:
+def capture_copies(tab, reps: int = 3, tries: int = 4,
+                   want: int = 2) -> list:
     """[(copy name, count)] of ``reps`` calls of ``tab.checkpoint_capture()``
     under ``torch.profiler``, windowed as :func:`_device_events` windows
     (a warm-up step, ``PROFILE_EDGE_S`` of idle at each edge), asked
-    again until the window holds two copies a call."""
+    again until the window holds ``want`` copies a call."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     tab.checkpoint_capture()
@@ -1957,7 +1965,7 @@ def capture_copies(tab, reps: int = 3, tries: int = 4) -> list:
                 prof.step()
         copies = [(e.key, e.count // reps) for e in prof.key_averages()
                   if e.key.startswith("Memcpy")]
-        if sum(c for k, c in copies if "Device -> Pinned" in k) == 2:
+        if sum(c for k, c in copies if "Device -> Pinned" in k) == want:
             break
     return copies
 
@@ -2121,9 +2129,10 @@ def grep_stream_path(files, cycles: int, want, *, device_accumulate: bool,
     return res, seconds, stats, w.launch_counts(), res == want
 
 
-def grep_cli_path(files, cycles: int):
+def grep_cli_path(files, cycles: int, extra=()):
     """``python -m dsi_tpu_torch.cli.grepstream --check`` in-process over
-    the same input, table on; (seconds, stats, launches)."""
+    the same input, table on, with the ``extra`` arguments; (seconds,
+    stats, launches, stdout)."""
     import ast
     import io
 
@@ -2137,7 +2146,7 @@ def grep_cli_path(files, cycles: int):
         rc = grepstream.main(
             ["--pattern", GREP_PATTERN, "--chunk-bytes", str(GREP_CHUNK),
              "--device-accumulate", "--check", "--stats", "--device",
-             DEVICE] + list(files) * cycles)
+             DEVICE, *extra] + list(files) * cycles)
     sync()
     seconds = time.perf_counter() - t0
     text = err.getvalue()
@@ -2146,6 +2155,15 @@ def grep_cli_path(files, cycles: int):
     stats = ast.literal_eval(
         text.split("pipeline_stats=", 1)[1].splitlines()[0])
     return seconds, stats, w.launch_counts(), out.getvalue()
+
+
+def grep_cli_text(res) -> str:
+    """What ``grepstream`` prints on stdout for the result ``res``: the
+    text a CLI run's output is held against."""
+    return "".join([f"lines={res.lines} matched={res.matched} "
+                    f"occurrences={res.occurrences}\n",
+                    "hist=" + ",".join(str(h) for h in res.hist) + "\n",
+                    *(f"top line={ln} occ={occ}\n" for ln, occ in res.topk)])
 
 
 def nfa_calibration(gpu: str):
@@ -2567,7 +2585,8 @@ def tfidf_path(files, workdir, tag, oracle, tokens, **kw):
              "postings": res.n_postings, "seconds": seconds,
              "write_s": write_s, "input_bytes": nbytes,
              "mb_per_s": nbytes / seconds / 1e6, "launches": launches,
-             "wave_stats": {k: stats[k] for k in TFIDF_PHASES if k in stats}}
+             "wave_stats": {k: stats[k] for k in TFIDF_PHASES + WAVE_CKPT
+                            if k in stats}}
     failures = []
     if lines != oracle:
         failures.append(f"{tag}: mr-out-* differ from the TF-IDF oracle")
@@ -2960,7 +2979,7 @@ def indexer_path(files, workdir, tag, oracle, oracle_top, **kw):
              "top3": [list(t) for t in top[:3]], "seconds": seconds,
              "write_s": write_s, "input_bytes": nbytes,
              "mb_per_s": nbytes / seconds / 1e6, "launches": launches,
-             "wave_stats": {k: stats[k] for k in INDEXER_PHASES
+             "wave_stats": {k: stats[k] for k in INDEXER_PHASES + WAVE_CKPT
                             if k in stats}}
     failures = []
     if lines != oracle:
@@ -3091,6 +3110,284 @@ def mesh_append_kernel_rows(raws, failures):
                  f" {nr} rows kept (L + M fused; overflow and dirty exact)",
         **m_prof}
     return out, errs
+
+
+# ── phase 10b: crash-resume checkpoints of grep, the indexer, TF-IDF ────
+
+#: Confirmed waves between checkpoints on the wave walks (8 waves a call).
+WAVE_CKPT_EVERY = 2
+CKPT_MODES = (("sync_full", {}),
+              ("async_delta", {"checkpoint_async": True,
+                               "checkpoint_delta": True}))
+
+
+def grep_ckpt_call(files, cycles: int, ckdir: str, stats: dict, **kw):
+    """The bench's grep row, services on, through ``grep_streaming`` with
+    ``checkpoint_dir`` (every ``CKPT_EVERY`` steps); (result, seconds)."""
+    from dsi_tpu_torch.parallel.grepstream import grep_streaming
+    from dsi_tpu_torch.parallel.streaming import cycle_files
+
+    t0 = time.perf_counter()
+    try:
+        res = grep_streaming(cycle_files(files, cycles), GREP_PATTERN,
+                             chunk_bytes=GREP_CHUNK, device_accumulate=True,
+                             checkpoint_dir=ckdir,
+                             checkpoint_every=CKPT_EVERY,
+                             pipeline_stats=stats, device=DEVICE, **kw)
+    finally:
+        sync()
+    return res, time.perf_counter() - t0
+
+
+def grep_ckpt_rows(files, cycles: int, want, nbytes: int, work: str, gpu,
+                   failures):
+    """The grep row with the services on and a checkpoint every
+    ``CKPT_EVERY`` steps, sync full and async delta, each call right after
+    the same call without checkpoints: MB/s beside MB/s, the save's phase
+    seconds and payload bytes."""
+    rows = {}
+    for mode, kw in CKPT_MODES:
+        tag = f"grep_ckpt_{mode}"
+        _, plain_s, _, _, plain_ok = grep_stream_path(
+            files, cycles, want, device_accumulate=True)
+        st: dict = {}
+        res, secs = grep_ckpt_call(files, cycles,
+                                   os.path.join(work, f"ck-{tag}"), st, **kw)
+        ok = plain_ok and res == want
+        rows[tag] = {"parity": ok, "seconds": secs,
+                     "mb_per_s": nbytes / secs / 1e6,
+                     "plain_seconds": plain_s,
+                     "plain_mb_per_s": nbytes / plain_s / 1e6,
+                     **{k: st[k] for k in CKPT_STATS if k in st}}
+        log({tag: {**rows[tag], "gpu": gpu, "input_bytes": nbytes}})
+        if not ok:
+            failures.append(f"{tag}: the result differs from "
+                            "grep_host_oracle")
+        if st.get("ckpt_saves", 0) < 1 or (kw and st.get("ckpt_deltas",
+                                                         0) < 1):
+            failures.append(f"{tag}: no checkpoint (or no delta) was saved")
+    return rows
+
+
+def grep_ckpt_path(files, cycles: int, want, work: str, full_launches):
+    """``grep_ckpt``: the grep row, services on, killed at ``mid-fold`` (raised
+    in process) on its sixth step, after the save at step 4, then resumed.
+    The launch counts are zeroed before the crashed run and again before
+    the resume, so ``launches`` (the counts the path's kernels are gated
+    on) are the resume's own, and ``crashed_launches`` the crashed run's;
+    the resume's J launches must be fewer than the whole stream's;
+    (entry, failures)."""
+    from dsi_tpu_torch.ckpt import FaultInjected
+    from dsi_tpu_torch.ops import wordcount as w
+
+    ckdir = os.path.join(work, "ck-grep_ckpt")
+    fails = []
+    w.reset_launches()
+    crashed: dict = {}
+    with armed_fault("mid-fold", 6):
+        try:
+            grep_ckpt_call(files, cycles, ckdir, crashed)
+            fails.append("grep_ckpt: the fault at mid-fold #6 never fired")
+        except FaultInjected:
+            pass
+    crashed_launches = w.launch_counts()
+    w.reset_launches()
+    st: dict = {}
+    res, secs = grep_ckpt_call(files, cycles, ckdir, st, resume=True)
+    launches = w.launch_counts()
+    if res != want:
+        fails.append("grep_ckpt: the resumed result differs from "
+                     "grep_host_oracle")
+    if not st.get("resume_cursor"):
+        fails.append("grep_ckpt: the resume restored no checkpoint")
+    entry = {"parity": res == want, "seconds": secs, "fault": "mid-fold#6",
+             "crashed_steps": crashed.get("steps"),
+             "crashed_ckpt_saves": crashed.get("ckpt_saves"),
+             "full_stream_grep_steps": full_launches["grep_step"],
+             "launches": launches, "crashed_launches": crashed_launches,
+             **{k: st[k] for k in CKPT_STATS if k in st}}
+    if launches["grep_step"] >= full_launches["grep_step"]:
+        fails.append("grep_ckpt: the resume launched J for the whole "
+                     "stream")
+    return entry, fails
+
+
+def grep_ckpt_cli_path(files, cycles: int, want, work: str, full_launches):
+    """``grep_ckpt_cli``: ``python -m dsi_tpu_torch.cli.grepstream`` with the
+    services on and a checkpoint every ``CKPT_EVERY`` steps, killed for
+    real at ``post-ckpt`` (``os._exit(87)`` after its first commit) in a
+    subprocess, then ``--resume --check`` through ``grepstream.main`` in
+    this process, its stdout held against ``want``'s; (entry, failures)."""
+    from dsi_tpu_torch.ckpt import FAULT_EXIT
+    from dsi_tpu_torch.ops import wordcount as w
+
+    ck_args = ["--checkpoint-dir", os.path.join(work, "ck-grep-cli"),
+               "--checkpoint-every", str(CKPT_EVERY)]
+    env = {k: v for k, v in os.environ.items() if k not in FAULT_ENV}
+    env.update({"PYTHONPATH": REPO, "DSI_FAULT_POINT": "post-ckpt",
+                "DSI_FAULT_STEP": "1"})
+    fails = []
+    w.reset_launches()
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "dsi_tpu_torch.cli.grepstream", "--pattern",
+         GREP_PATTERN, "--chunk-bytes", str(GREP_CHUNK),
+         "--device-accumulate", "--device", DEVICE, *ck_args,
+         *(list(files) * cycles)], env=env, capture_output=True, text=True,
+        timeout=600)
+    crash_s = time.perf_counter() - t0
+    if p.returncode != FAULT_EXIT or p.stdout:
+        fails.append(f"grep_ckpt_cli: the crashed run exited {p.returncode}"
+                     f", not {FAULT_EXIT}, or printed a result: "
+                     f"{p.stderr[-1500:]}")
+    secs, st, launches, out = grep_cli_path(files, cycles,
+                                            extra=ck_args + ["--resume"])
+    parity = out == grep_cli_text(want)
+    if not parity:
+        fails.append("grep_ckpt_cli: the resumed output differs from "
+                     "grep_host_oracle's")
+    if not st.get("resume_cursor"):
+        fails.append("grep_ckpt_cli: --resume restored no checkpoint")
+    if launches["grep_step"] >= full_launches["grep_step"]:
+        fails.append("grep_ckpt_cli: the resume launched J for the whole "
+                     "stream")
+    entry = {"parity": parity, "seconds": secs, "crash_seconds": crash_s,
+             "crash_rc": p.returncode, "launches": launches,
+             "stdout": out.splitlines()[:3],
+             **{k: st[k] for k in CKPT_STATS if k in st}}
+    return entry, fails
+
+
+def wave_ckpt_rows(run, tag: str, work: str, gpu, failures):
+    """A wave walk's row (``run``: :func:`tfidf_path` or
+    :func:`indexer_path` with its oracles bound) with the postings buffer
+    on and a checkpoint every ``WAVE_CKPT_EVERY`` waves, sync full and
+    async delta, each call right after the same call without checkpoints:
+    wall seconds beside wall seconds, the save's phase seconds and payload
+    bytes."""
+    rows = {}
+    for mode, kw in CKPT_MODES:
+        name = f"{tag}_{mode}"
+        plain, _, fails, _ = run(f"{name}_plain", device_accumulate=True)
+        entry, _, more, _ = run(
+            name, device_accumulate=True,
+            checkpoint_dir=os.path.join(work, f"ck-{name}"),
+            checkpoint_every=WAVE_CKPT_EVERY, **kw)
+        st = entry["wave_stats"]
+        rows[name] = {"parity": entry["parity"] and plain["parity"],
+                      "seconds": entry["seconds"],
+                      "plain_seconds": plain["seconds"],
+                      "mb_per_s": entry["mb_per_s"],
+                      "plain_mb_per_s": plain["mb_per_s"],
+                      **{k: st[k] for k in WAVE_CKPT if k in st},
+                      "append_overflows": st.get("append_overflows")}
+        log({name: {**rows[name], "gpu": gpu,
+                    "input_bytes": entry["input_bytes"]}})
+        failures.extend(fails + more)
+        if st.get("ckpt_saves", 0) < 1 or (kw and st.get("ckpt_deltas",
+                                                         0) < 1):
+            failures.append(f"{name}: no checkpoint (or no delta) was "
+                            "saved")
+    return rows
+
+
+def wave_ckpt_path(run, tag: str, work: str, full_launches, *, point: str,
+                   step: int, **kw):
+    """A wave walk with the postings buffer on and a checkpoint every
+    ``WAVE_CKPT_EVERY`` waves, killed at ``point`` (raised in process) on
+    its ``step``-th occurrence, then resumed through ``run``; the resume
+    must match the oracles, restore a cursor and launch L (once a wave)
+    fewer times than the whole walk did.  Returns (entry, launches of the
+    resume, failures)."""
+    from dsi_tpu_torch.ckpt import FaultInjected
+
+    ck = dict(device_accumulate=True,
+              checkpoint_dir=os.path.join(work, f"ck-{tag}"),
+              checkpoint_every=WAVE_CKPT_EVERY, **kw)
+    fails = []
+    with armed_fault(point, step):
+        try:
+            run(f"{tag}_crashed", **ck)
+            fails.append(f"{tag}: the fault at {point} #{step} never fired")
+        except FaultInjected:
+            pass
+    entry, launches, more, _ = run(tag, resume=True, **ck)
+    fails += more
+    st = entry["wave_stats"]
+    if not st.get("resume_wave"):
+        fails.append(f"{tag}: the resume restored no checkpoint")
+    if launches["compact"] >= full_launches["compact"]:
+        fails.append(f"{tag}: the resume launched L for every wave")
+    entry = {**entry, "fault": f"{point}#{step}",
+             "full_walk_compact_launches": full_launches["compact"]}
+    return entry, launches, fails
+
+
+def postings_capture_check(raws):
+    """The postings buffer's image captured on the card: two TF-IDF waves
+    (one 2 MiB document each) appended, ``checkpoint_capture`` under
+    ``torch.profiler`` (one ``Memcpy DtoH (Device -> Pinned)`` a call, the
+    committed prefix), then one capture and a host copy of the buffer at
+    that instant, then a sync (the next append writes from row 0) and two
+    more waves before the image materializes: it must equal the host
+    copy.  Returns (entry, failures)."""
+    import numpy as np
+    import torch
+
+    from dsi_tpu_torch.device.postings import DevicePostings
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.parallel.tfidf import _wave_chunk, tfidf_wave_step
+
+    size = 1 << max(8, max(len(r) for r in raws).bit_length())
+    cap = w.rung0_cap(size, TFIDF_U_CAP)
+    waves = []
+    for i in range(4):
+        chunks = torch.from_numpy(_wave_chunk(raws, [i], 1, size)).to(DEVICE)
+        ids = torch.tensor([i], dtype=torch.int32, device=DEVICE)
+        rows, scal = tfidf_wave_step(chunks, ids, n_dev=1, n_reduce=N_REDUCE,
+                                     max_word_len=MWL, u_cap=cap)
+        scal_np = scal.cpu().numpy()
+        if scal_np[:, 3:].any() or int(scal_np[:, 1].max()) > cap:
+            raise RuntimeError("a capture-check wave did not clear rung 0")
+        waves.append((rows, scal, scal_np[:, 0].astype(np.int64)))
+    buf = DevicePostings(1, width=MWL // 4 + 4, cap=4 * cap,
+                         sink=lambda r: None, device=DEVICE, lag=1)
+    for rows, scal, nv in waves[:2]:
+        buf.append(rows, scal, nvalid=nv)
+    copies = capture_copies(buf, tries=8, want=1)
+    t0 = time.perf_counter()
+    deferred = buf.checkpoint_capture()
+    capture_s = time.perf_counter() - t0
+    n = int(buf._nrows[0])
+    live = buf._buf[0, :n].to("cpu", copy=True).numpy().view(np.uint32)
+    buf.sync()
+    for rows, scal, nv in waves[2:]:
+        buf.append(rows, scal, nvalid=nv)
+    sync()
+    t0 = time.perf_counter()
+    img = deferred.materialize()
+    materialize_s = time.perf_counter() - t0
+    overwritten = not np.array_equal(
+        buf._buf[0, :n].cpu().numpy().view(np.uint32), live)
+    equal = (n > 0 and int(img["nrows"][0]) == n
+             and np.array_equal(img["buf"][0, :n], live)
+             and img["buf"].dtype == np.uint32)
+    fails = []
+    if not equal:
+        fails.append("postings_capture: the image differs from the buffer "
+                     "at the capture")
+    if not overwritten:
+        fails.append("postings_capture: the later appends did not write "
+                     "over the captured rows, so the check proves nothing")
+    if copies != [("Memcpy DtoH (Device -> Pinned)", 1)]:
+        fails.append(f"postings_capture: a capture's copies a call are not "
+                     f"one pinned D2H: {copies}")
+    entry = {"image_equal": equal, "rows": n, "cap": buf.cap,
+             "overwritten_after_capture": overwritten, "copies": copies,
+             "capture_s": capture_s, "materialize_s": materialize_s,
+             "image_bytes": sum(int(v.nbytes) for v in img.values())}
+    buf.close()
+    return entry, fails
 
 
 # ── phase 11: the compressed chunk upload (kernel N) ─────────────────────
@@ -4338,6 +4635,11 @@ def main() -> int:
         ckpt["capture"], fails = ckpt_capture_check(raws)
         failures += fails
         log({"ckpt_capture": {**ckpt["capture"], "gpu": gpu}})
+        # The postings buffer's capture (phase 10b's services) here, early
+        # in the process, where the profiler's windows are whole.
+        ckpt["postings_capture"], fails = postings_capture_check(raws)
+        failures += fails
+        log({"postings_capture": {**ckpt["postings_capture"], "gpu": gpu}})
         ckpt_paths = {}
         for tag, point, step, kw in (
                 ("stream_ckpt", "mid-fold", 9, {}),
@@ -4545,7 +4847,11 @@ def main() -> int:
             failures.append("grep_stream_mesh: the services were not "
                             "mesh-sharded")
         secs, st, launches, cli_out = grep_cli_path(files, grep_cycles)
-        grep["grep_cli"] = {"parity": True, "seconds": secs,
+        cli_parity = cli_out == grep_cli_text(grep_want)
+        if not cli_parity:
+            failures.append("grep_cli: the output differs from "
+                            "grep_host_oracle's")
+        grep["grep_cli"] = {"parity": cli_parity, "seconds": secs,
                             "mb_per_s": grep_bytes / secs / 1e6,
                             "launches": launches,
                             "pipeline_stats": {k: st[k] for k in GREP_PHASES
@@ -4676,6 +4982,40 @@ def main() -> int:
                                     f"{name} {extra} times for "
                                     f"{st.get('appends')} appends")
 
+        # Phase 10b: crash-resume checkpoints of grep, the indexer, TF-IDF.
+        def tf_run(tag, **kw):
+            return tfidf_path(files, work, tag, tf_oracle, tokens, **kw)
+
+        def idx_run(tag, **kw):
+            return indexer_path(files, work, tag, idx_oracle, idx_top, **kw)
+
+        eng_ckpt = {"grep": grep_ckpt_rows(files, grep_cycles, grep_want,
+                                           grep_bytes, work, gpu, failures),
+                    "indexer": wave_ckpt_rows(idx_run, "indexer_ckpt", work,
+                                              gpu, failures),
+                    "tfidf": wave_ckpt_rows(tf_run, "tfidf_ckpt", work, gpu,
+                                            failures)}
+        eng_paths = {}
+        eng_paths["grep_ckpt"], fails = grep_ckpt_path(
+            files, grep_cycles, grep_want, work,
+            grep["grep_stream_acc"]["launches"])
+        failures += fails
+        eng_paths["grep_ckpt_cli"], fails = grep_ckpt_cli_path(
+            files, grep_cycles, grep_want, work,
+            grep["grep_stream_acc"]["launches"])
+        failures += fails
+        eng_paths["indexer_ckpt"], _, fails = wave_ckpt_path(
+            idx_run, "indexer_ckpt", work, indexer["indexer_acc"]["launches"],
+            point="mid-commit", step=3, checkpoint_async=True,
+            checkpoint_delta=True)
+        failures += fails
+        eng_paths["tfidf_ckpt"], _, fails = wave_ckpt_path(
+            tf_run, "tfidf_ckpt", work, tfidf["tfidf_acc"]["launches"],
+            point="mid-capture", step=2)
+        failures += fails
+        for tag, entry in eng_paths.items():
+            log({tag: {**entry, "gpu": gpu}})
+
         # Phase 11: the compressed chunk upload.
         times["wire_decode"], err["wire_decode"] = wire_kernel_rows(
             files, failures)
@@ -4739,6 +5079,13 @@ def main() -> int:
         "ckpt_stream_mb_per_s": {k: {"ckpt": v["mb_per_s"],
                                      "plain": v["plain_mb_per_s"]}
                                  for k, v in ckpt["rows"].items()},
+        "ckpt_grep_mb_per_s": {k: {"ckpt": v["mb_per_s"],
+                                   "plain": v["plain_mb_per_s"]}
+                               for k, v in eng_ckpt["grep"].items()},
+        "ckpt_wave_seconds": {k: {"ckpt": v["seconds"],
+                                  "plain": v["plain_seconds"]}
+                              for e in ("indexer", "tfidf")
+                              for k, v in eng_ckpt[e].items()},
         "grep_mb_per_s": {k: v["mb_per_s"] for k, v in grep.items()},
         "grep_oracle_mb_per_s": grep_bytes / grep_oracle_s / 1e6,
         "tfidf_mb_per_s": {k: v["mb_per_s"] for k, v in tfidf.items()},
@@ -4757,6 +5104,7 @@ def main() -> int:
                "sharded_n8": sharded[8]["launches"],
                **{k: v["launches"] for k, v in stream.items()},
                **{k: v["launches"] for k, v in ckpt_paths.items()},
+               **{k: v["launches"] for k, v in eng_paths.items()},
                **{k: v["launches"] for k, v in corpus_runs.items()},
                "split_hash": launch_split_hash,
                "sharded_hash": launch_sharded_hash,

@@ -2,9 +2,8 @@
 
 Copy of ``dsi_tpu/ckpt/``: the same environment names, on-disk layout,
 ``CKPT_VERSION`` and manifest format, so the two packages read each
-other's chains.  So far only the streaming word count
-(``parallel/streaming.py``) checkpoints; the port's other engines
-refuse ``checkpoint_dir``.
+other's chains.  The streaming word count, grep, the indexer and TF-IDF
+checkpoint; the plan layer's stage commits refuse ``checkpoint_dir``.
 
 The reference system's whole fault-tolerance story is re-execution: a
 task that dies is re-run from its input files (10 s presumed-dead
@@ -33,7 +32,8 @@ full replay.  This package closes that gap:
   manifests onto their base, restore = base + ordered deltas).
 
 The consistency contract, owned here and honored by every engine that
-checkpoints (``parallel/streaming.py`` so far): a checkpoint is taken
+checkpoints (``parallel/streaming.py``, ``parallel/grepstream.py``,
+``parallel/tfidf.py``): a checkpoint is taken
 only at a CONFIRMED-step boundary and contains (a) the host accumulators, (b) drain-free images
 of every live device service (flushed of lagged flags, pulled but NOT
 cleared), (c) the sticky dispatch-rung state, and (d) the input cursor
@@ -60,6 +60,7 @@ from dsi_tpu_torch.ckpt.delta import (
     DeltaSteps,
     HostDeltaLog,
     drain_packed_steps,
+    drain_posting_steps,
     iter_delta_steps,
 )
 from dsi_tpu_torch.ckpt.policy import (
@@ -98,6 +99,7 @@ __all__ = [
     "checkpoint_rebase_default",
     "checkpoint_secs_default",
     "drain_packed_steps",
+    "drain_posting_steps",
     "fault_point",
     "iter_delta_steps",
     "reset_faults",

@@ -1,7 +1,6 @@
 """Capture-side deferreds and the delta payload format.
 
-Copy of ``dsi_tpu/ckpt/delta.py`` without ``drain_posting_steps``, which
-the indexer's and TF-IDF's checkpoints will need.
+Copy of ``dsi_tpu/ckpt/delta.py``.
 
 The async capture/commit split (``ckpt/writer.py``) needs snapshot
 pieces that are CHEAP to take at the confirmed-step boundary and
@@ -157,5 +156,22 @@ def drain_packed_steps(acc, arrays: Dict[str, np.ndarray],
                 r = rows[d, :nu]
                 acc.add(r[:, :kk], r[:, kk],
                         r[:, kk + 1].astype(np.int64), r[:, kk + 2])
+        n += 1
+    return n
+
+
+def drain_posting_steps(sink, arrays: Dict[str, np.ndarray],
+                        prefix: str = "") -> int:
+    """Re-ingest a delta's posting-row steps through the engine's sink
+    (one ``[n, width]`` block per device, device order within a step,
+    steps oldest-first) — per-word posting order is preserved because a
+    word's rows within one wave come from exactly one source device,
+    the invariant ``DevicePostings.drain_image`` documents."""
+    n = 0
+    for rows, nus in iter_delta_steps(arrays, prefix):
+        for d in range(rows.shape[0]):
+            nu = int(nus[d])
+            if nu:
+                sink(rows[d, :nu])
         n += 1
     return n

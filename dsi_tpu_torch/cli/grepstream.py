@@ -10,6 +10,10 @@ count.  ``--device-accumulate`` keeps the histogram and the top-k
 candidate table on the card (``device/topk.py``), pulling every
 ``--sync-every`` folds instead of every step.
 
+``--checkpoint-dir`` makes the run crash-resumable (``ckpt/``): a run
+killed mid-stream (``DSI_FAULT_POINT`` makes it exit with 87) finishes
+with ``--resume``, bit-identical to an uninterrupted run.
+
 When the engine declines (a non-literal pattern, or a line wider than
 ``--chunk-bytes``) the host oracle scan produces the result.
 ``--device cpu`` runs the plain PyTorch versions; the default is the card.
@@ -17,8 +21,10 @@ When the engine declines (a non-literal pattern, or a line wider than
 Usage:
     python -m dsi_tpu_torch.cli.grepstream --pattern PAT [--chunk-bytes B]
         [--devices D] [--pipeline-depth D] [--device-accumulate]
-        [--sync-every K] [--mesh-shards N] [--topk K] [--ingest-readers N]
-        [--stats] [--check] [--device cuda|cpu] inputfiles...
+        [--sync-every K] [--mesh-shards N] [--checkpoint-dir DIR]
+        [--checkpoint-every K] [--resume] [--ckpt-async] [--ckpt-delta]
+        [--topk K] [--ingest-readers N] [--stats] [--check]
+        [--device cuda|cpu] inputfiles...
 """
 
 from __future__ import annotations
@@ -63,6 +69,28 @@ def main(argv=None) -> int:
                         "per-shard widens, pre-merged histogram pulls; "
                         "implies --device-accumulate; default: "
                         "DSI_STREAM_MESH_SHARDS or 0 = off)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="enable crash-resume checkpoints: durable snapshots "
+                        "of the accumulators (or the services' images), "
+                        "the line counter and the input cursor land here; "
+                        "see --resume")
+    p.add_argument("--checkpoint-every", type=_positive_int, default=None,
+                   help="confirmed steps between checkpoints (default: "
+                        "DSI_STREAM_CKPT_EVERY or 32)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest valid checkpoint in "
+                        "--checkpoint-dir; results are bit-identical to "
+                        "an uninterrupted run")
+    p.add_argument("--ckpt-async", action="store_true", default=None,
+                   dest="ckpt_async",
+                   help="commit checkpoints in a background writer while "
+                        "the stream goes on (env DSI_STREAM_CKPT_ASYNC)")
+    p.add_argument("--ckpt-delta", action="store_true", default=None,
+                   dest="ckpt_delta",
+                   help="incremental checkpoints: only the candidate rows "
+                        "since the previous save and the histogram, a full "
+                        "re-base every DSI_STREAM_CKPT_REBASE saves (env "
+                        "DSI_STREAM_CKPT_DELTA)")
     p.add_argument("--topk", type=_positive_int, default=16,
                    help="top-k lines by occurrence count to report")
     p.add_argument("--ingest-readers", type=int, default=None,
@@ -79,6 +107,8 @@ def main(argv=None) -> int:
                    help="where the step runs (default: cuda; cpu runs the "
                         "plain PyTorch versions)")
     args = p.parse_args(argv)
+    if args.resume and not args.checkpoint_dir:
+        p.error("--resume requires --checkpoint-dir")
 
     pattern = args.pattern or os.environ.get("DSI_GREP_PATTERN")
     if not pattern:
@@ -86,18 +116,36 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
+    from dsi_tpu_torch.ckpt import CheckpointMismatch
     from dsi_tpu_torch.parallel.grepstream import (grep_host_oracle,
                                                    grep_streaming)
     from dsi_tpu_torch.parallel.streaming import stream_files
     from dsi_tpu_torch.utils.ioread import open_blocks
 
     pstats: dict = {}
-    res = grep_streaming(
-        open_blocks(args.files, readers=args.ingest_readers), pattern,
-        n_dev=args.devices, chunk_bytes=args.chunk_bytes,
-        depth=args.pipeline_depth, device_accumulate=args.device_accumulate,
-        sync_every=args.sync_every, mesh_shards=args.mesh_shards,
-        topk=args.topk, pipeline_stats=pstats, device=args.device)
+    try:
+        res = grep_streaming(
+            open_blocks(args.files, readers=args.ingest_readers), pattern,
+            n_dev=args.devices, chunk_bytes=args.chunk_bytes,
+            depth=args.pipeline_depth,
+            device_accumulate=args.device_accumulate,
+            sync_every=args.sync_every, mesh_shards=args.mesh_shards,
+            topk=args.topk, checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_async=args.ckpt_async,
+            checkpoint_delta=args.ckpt_delta, resume=args.resume,
+            pipeline_stats=pstats, device=args.device)
+    except CheckpointMismatch as e:
+        # A valid checkpoint of another job (another pattern or shape):
+        # resuming would corrupt it and starting afresh would overwrite it.
+        print(f"grepstream: {e}", file=sys.stderr)
+        return 1
+    if args.resume and not pstats.get("resume_cursor"):
+        # Right when the crash came before the first checkpoint, but a
+        # mistyped --checkpoint-dir looks the same: say so.
+        print("grepstream: --resume found no usable checkpoint in "
+              f"{args.checkpoint_dir}; started from scratch",
+              file=sys.stderr)
     if args.stats:
         print(f"grepstream: pipeline_stats={pstats}", file=sys.stderr)
     host_path = res is None

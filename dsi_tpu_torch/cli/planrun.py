@@ -45,7 +45,7 @@ _NOT_PORTED = {
     "hosts": "--hosts (net-served relays) is not ported yet (ROADMAP "
              "Queue 1, #5, the control plane)",
     "checkpoint_dir": "--checkpoint-dir/--resume (stage commits) are not "
-                      "ported yet (ROADMAP Queue 1, #4b, checkpoints)",
+                      "ported yet (ROADMAP Queue 1, #4c, checkpoints)",
     "trace_dir": "--trace-dir is not ported yet (ROADMAP Queue 1, #5, "
                  "obs/)",
     "aot": "--aot is not ported yet (ROADMAP Queue 1, #7, the kernel "

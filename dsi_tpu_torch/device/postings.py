@@ -34,9 +34,18 @@ when it fills.
   an empty buffer that one wave does not fit.  Overflow is an early sync
   or a widen, never a loss, and wave order in the sink is kept.
 
-The checkpoint image is not ported yet.  ``stats`` receives ``appends``,
-``append_overflows``, ``sync_pulls``, ``postings_widens``,
-``pull_bytes``, ``append_s`` and ``drain_s``.
+Checkpoint images (``ckpt/``) are the reference's: ``buf`` uint32
+``[n_dev, mp, width]`` (the committed prefix, ``mp`` the occupied
+prefix), ``nrows`` int64, ``cap`` an int64 scalar.  Kernel M writes the
+live buffer in place, and after a drain the next append overwrites it
+from row 0, so a capture copies the prefix now: on the card into pinned
+host memory behind an event, enqueued before any later append (the
+commit writer waits on that event alone); on the CPU at once.  The delta
+log keeps each appended wave's rows tensor (a fresh output of the wave
+step, never written again) until ``take_delta``.
+
+``stats`` receives ``appends``, ``append_overflows``, ``sync_pulls``,
+``postings_widens``, ``pull_bytes``, ``append_s`` and ``drain_s``.
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ from typing import Callable, Deque, Optional, Tuple
 import numpy as np
 import torch
 
+from dsi_tpu_torch.ckpt.delta import Deferred
+from dsi_tpu_torch.interop import to_tensor
 from dsi_tpu_torch.ops.meshroute import (compact_rows_plain, exchange_rows,
                                          route_dest)
 from dsi_tpu_torch.ops.wordcount import (
@@ -60,7 +71,7 @@ from dsi_tpu_torch.ops.wordcount import (
     _ptr,
     _require,
 )
-from dsi_tpu_torch.device.table import _pow2
+from dsi_tpu_torch.device.table import _pow2, _rows_prefix
 from dsi_tpu_torch.parallel.pipeline import timed
 from dsi_tpu_torch.parallel.shuffle import occupied_prefix
 
@@ -223,12 +234,6 @@ def mesh_postings_append(buf, n, dirty, rows, scal, *, kk: int,
     return postings_append_received(buf, n, dirty, recv, totals)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    from dsi_tpu_torch.parallel.streaming import _not_ported as nie
-
-    return nie(what, "#4b, checkpoints")
-
-
 class DevicePostings:
     """Persistent ``[n_dev, cap, width]`` append buffer on ``device``.
     ``append`` dispatches one wave's append (no waiting); its flags are
@@ -271,6 +276,12 @@ class DevicePostings:
         # tensors stay referenced until the append is proven committed,
         # so a no-op'd append can be replayed after the drain.
         self._pending: Deque[Tuple] = collections.deque()
+        # Delta-checkpoint log (enable_delta): (rows, nvalid) of every wave
+        # appended since the last capture.  A wave's rows tensor is the
+        # wave step's own output and nothing writes it again.
+        self._delta_log: list = []
+        self._delta_max = 0
+        self._delta_invalid = False
 
     def _alloc(self, cap: int) -> None:
         """A fresh empty buffer, made on the card (no upload)."""
@@ -291,11 +302,21 @@ class DevicePostings:
                 self._buf, self._n, self._dirty, rows_dev, scal_dev)
         return HostCopy(flags)
 
-    def append(self, rows_dev, scal_dev) -> None:
+    def append(self, rows_dev, scal_dev, nvalid=None) -> None:
         """Append one wave's valid rows and confirm appends older than
         ``lag``.  ``rows_dev`` is the wave's compacted received rows
         ``[n_dev, r, width]``, ``scal_dev`` its scalar block, column 0
-        the valid row count (already checked exact by the caller)."""
+        the valid row count (already checked exact by the caller).
+        ``nvalid`` is that column as host ints, needed only when the delta
+        log is armed (it trims the wave's rows in an incremental save)."""
+        if self._delta_max and not self._delta_invalid:
+            # A window already invalid keeps nothing: take_delta drops it.
+            if nvalid is None or len(self._delta_log) >= self._delta_max:
+                self._delta_invalid = True
+                self._delta_log.clear()
+            else:
+                self._delta_log.append(
+                    (rows_dev, np.asarray(nvalid, np.int64).copy()))
         with timed(self.stats, "append_s"):
             flags = self._dispatch(rows_dev, scal_dev)
             self._pending.append((flags, rows_dev, scal_dev))
@@ -359,22 +380,95 @@ class DevicePostings:
             self._nrows = flags_np[:, 1].astype(np.int64)
             self.stats["appends"] += 1
 
-    # ── checkpoint image (not ported) ──
+    @property
+    def pending_rows(self) -> int:
+        return int(self._nrows.sum())
 
-    def checkpoint_capture(self):
-        raise _not_ported("DevicePostings.checkpoint_capture")
+    # ── checkpoint images (ckpt/) ──
 
-    def checkpoint_state(self):
-        raise _not_ported("DevicePostings.checkpoint_state")
+    def checkpoint_capture(self) -> Deferred:
+        """Capture half of a drain-free image: flush the lagged flags (an
+        overflow's recovery drains into the sink, so callers capture the
+        buffer before the host table), then copy the committed prefix to
+        the host (``table._rows_prefix``), before any later append or drain
+        touches the buffer.  After the flush ``dirty`` is clear, so the
+        image is the rows and the counts."""
+        orphans = self._flush_pending()
+        if orphans:
+            self._recover(orphans)
+        n_dev, width, cap = self.n_dev, self.width, self.cap
+        nrows = self._nrows.copy()
+        m = int(nrows.max())
+        copy = (_rows_prefix(self._buf, mp=occupied_prefix(m, cap)) if m
+                else None)
 
-    def restore_state(self, img):
-        raise _not_ported("DevicePostings.restore_state")
+        def _image() -> dict:
+            buf = (copy.wait() if copy is not None
+                   else np.zeros((n_dev, 0, width), dtype=np.uint32))
+            return {"buf": buf, "nrows": nrows.copy(),
+                    "cap": np.array(cap, dtype=np.int64)}
 
-    def enable_delta(self, max_steps: int = 64):
-        raise _not_ported("DevicePostings.enable_delta")
+        return Deferred(_image)
+
+    def checkpoint_state(self) -> dict:
+        """Capture and materialize at once: the synchronous image."""
+        return self.checkpoint_capture().materialize()
+
+    def enable_delta(self, max_steps: int = 64) -> None:
+        """Arm the delta log: every appended wave keeps its rows until the
+        next ``take_delta``; a window past ``max_steps`` falls back to a
+        full save."""
+        self._delta_max = max(1, int(max_steps))
+        self._delta_log.clear()
+        self._delta_invalid = False
 
     def take_delta(self):
-        raise _not_ported("DevicePostings.take_delta")
+        """The waves appended since the last capture, as ordered ``(rows,
+        nvalid)`` entries whose copies to the host are enqueued
+        (``rows.wait()`` gives u32 rows), or None when the window cannot
+        be a delta (the log overflowed, or an append came without
+        ``nvalid``).  Always re-arms the log."""
+        if self._delta_invalid:
+            self._delta_invalid = False
+            self._delta_log.clear()
+            return None
+        entries = [(_rows_prefix(rows_dev, mp=occupied_prefix(
+                        max(1, int(nus.max())), int(rows_dev.shape[1]))),
+                    nus)
+                   for rows_dev, nus in self._delta_log]
+        self._delta_log.clear()
+        return entries
+
+    @staticmethod
+    def drain_image(sink, img: dict) -> None:
+        """Feed a :meth:`checkpoint_state` image's committed rows to
+        ``sink`` (one ``[n, width]`` block per shard, shard order) without
+        uploading it: the resume path onto a delta chain or across a
+        change of ``mesh_shards``, where the buffer starts empty.  Shard
+        order is per-word order for rows older than every resumed wave."""
+        buf = np.asarray(img["buf"])
+        nrows = np.asarray(img["nrows"])
+        for d in range(buf.shape[0]):
+            n = int(nrows[d])
+            if n:
+                sink(buf[d, :n])
+
+    def restore_state(self, img: dict) -> None:
+        """Upload a :meth:`checkpoint_state` image (resume): the image's
+        capacity wins (a widen before the crash sticks), the committed
+        prefix goes back in, ``dirty`` is clear."""
+        self.cap = int(img["cap"])
+        buf = np.asarray(img["buf"], dtype=np.uint32)
+        full = np.zeros((self.n_dev, self.cap, self.width), dtype=np.uint32)
+        if buf.shape[1]:
+            full[:, :buf.shape[1]] = buf
+        nrows = np.asarray(img["nrows"], dtype=np.int64)
+        self._buf = to_tensor(full).to(self.device)
+        self._n = torch.as_tensor(nrows.astype(np.int32), device=self.device)
+        self._dirty = torch.zeros(self.n_dev, dtype=torch.int32,
+                                  device=self.device)
+        self._nrows = nrows.copy()
+        self._pending.clear()
 
     # ── drains ──
 

@@ -1,8 +1,7 @@
 """On-device top-k and histogram services for the streaming grep.
 
 Port of ``dsi_tpu/device/topk.py`` (``KeyCounts``, ``DeviceTopK``,
-``DeviceHistogram``) without checkpoint images (ROADMAP Queue 1,
-checkpoints).
+``DeviceHistogram``, with their checkpoint images).
 
 * :class:`DeviceTopK` — the persistent (key, count) table of
   :class:`~dsi_tpu_torch.device.table.DeviceTable` (folds lag the
@@ -21,6 +20,13 @@ checkpoints).
 * :class:`KeyCounts` — the host accumulator for drains whose kk=2 key
   lanes are one opaque u64 identity (grep's global line numbers).
 
+Checkpoint images (``ckpt/``) are the reference's arrays: the top-k
+table's come from :class:`DeviceTable` (its fold keeps the delta log;
+``sync`` only flushes and snapshots, so the log stays right), the
+histogram's is its ``[n_dev, slots]`` uint64 vector, copied behind an
+event at the capture because the next fold adds into it in place, and
+``KeyCounts``' are (uint64 keys, int64 counts).
+
 Snapshots are observability only; they are never an input to a result.
 """
 
@@ -31,8 +37,15 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from dsi_tpu_torch.ckpt.delta import Deferred
 from dsi_tpu_torch.device.table import DeviceTable
-from dsi_tpu_torch.ops.wordcount import _u32_value, pack_key_lanes, radix_sort
+from dsi_tpu_torch.interop import to_tensor
+from dsi_tpu_torch.ops.wordcount import (
+    HostCopy,
+    _u32_value,
+    pack_key_lanes,
+    radix_sort,
+)
 from dsi_tpu_torch.parallel.pipeline import timed
 
 
@@ -53,6 +66,25 @@ class KeyCounts:
 
     def finalize(self) -> Dict[int, int]:
         return dict(self._counts)
+
+    # ── checkpoint image (ckpt/) ──
+
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        if not self._counts:
+            return {}
+        n = len(self._counts)
+        return {"keys": np.fromiter(self._counts.keys(), dtype=np.uint64,
+                                    count=n),
+                "cnts": np.fromiter(self._counts.values(), dtype=np.int64,
+                                    count=n)}
+
+    def restore(self, arrays: Dict[str, np.ndarray]) -> None:
+        self._counts = {}
+        if not arrays or "keys" not in arrays:
+            return
+        for k, c in zip(np.asarray(arrays["keys"], np.uint64).tolist(),
+                        np.asarray(arrays["cnts"], np.int64).tolist()):
+            self._counts[int(k)] = int(c)
 
 
 def topk_rows(tkeys: torch.Tensor, tlens: torch.Tensor, tcnts: torch.Tensor,
@@ -158,8 +190,9 @@ class DeviceHistogram:
         self.stats.setdefault("hist_s", 0.0)
         if self.mesh_shards:
             self.stats.setdefault("mesh_shards", self.mesh_shards)
+        self.device = torch.device(device)
         self._state = torch.zeros((self.n_dev, self.slots), dtype=torch.int64,
-                                  device=torch.device(device))
+                                  device=self.device)
 
     def fold(self, step: torch.Tensor) -> None:
         """Add one confirmed step's ``[n_dev, slots]`` u32 (int32 bits)
@@ -187,3 +220,24 @@ class DeviceHistogram:
         out = self.pull()
         self._state = None
         return out
+
+    # ── checkpoint image (ckpt/) ──
+
+    def checkpoint_capture(self) -> Deferred:
+        """Capture half of the image: a fold is an add with no flags, so
+        the last one dispatched is confirmed once it lands.  The vector
+        (KBs) is copied to pinned host memory behind an event now, before
+        the next fold adds into it in place; ``materialize()`` waits on
+        that event alone."""
+        copy = HostCopy(self._state, view=np.uint64)
+        return Deferred(lambda: {"hist": copy.wait()})
+
+    def checkpoint_state(self) -> dict:
+        """Capture and materialize at once: the synchronous image."""
+        return self.checkpoint_capture().materialize()
+
+    def restore_state(self, img: dict) -> None:
+        """Upload a :meth:`checkpoint_state` image (the u64 totals as
+        int64 bits)."""
+        self._state = to_tensor(np.asarray(img["hist"], np.uint64)).to(
+            self.device)

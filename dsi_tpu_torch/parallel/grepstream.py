@@ -43,22 +43,43 @@ confirmed step's matching lines into a relay (kernel J's emit epilogue,
 K16e), and ``IndexerStep(keep_services=True)`` ends its walk with the
 device services live in ``step.exported``.
 
+With ``checkpoint_dir`` both engines are crash-resumable (``ckpt/``),
+bit-identical to an uninterrupted run: grep saves its accumulators (or
+the services' images), the line counter, the sticky ``l_cap`` rung and
+the byte cursor; the indexer saves, per word-window rung, the postings
+table, the postings buffer's and the df top-k's images and the
+confirmed-wave cursor.  Chains are the reference's, so either package
+resumes the other's.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``aot``, checkpoints and ``resume``, and ``input_range``.
+item: ``aot`` and ``input_range``.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import time
 from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from dsi_tpu_torch.ckpt import (
+    CheckpointPolicy,
+    CheckpointStore,
+    CheckpointWriter,
+    DeltaSteps,
+    checkpoint_async_default,
+    checkpoint_delta_default,
+    drain_packed_steps,
+    fault_point,
+    skip_stream,
+)
 from dsi_tpu_torch.device.policy import SyncPolicy, mesh_shards_default
-from dsi_tpu_torch.device.table import _pow2
+from dsi_tpu_torch.device.table import DeviceTable, _pow2
 from dsi_tpu_torch.device.topk import DeviceHistogram, DeviceTopK, KeyCounts
+from dsi_tpu_torch.obs import span as _span
 from dsi_tpu_torch.ops.grepk import is_literal_pattern, line_cap_rungs
 from dsi_tpu_torch.ops.meshroute import compact_rows
 from dsi_tpu_torch.ops.wordcount import (
@@ -88,7 +109,9 @@ from dsi_tpu_torch.parallel.stepobj import EngineStep
 from dsi_tpu_torch.parallel.streaming import _not_ported
 from dsi_tpu_torch.parallel.tfidf import (
     WaveWalkStep,
+    _WaveCkpt,
     _check_rung,
+    _lens_crc,
     _postings_buffer,
     _replay_ladder,
     _wave_items,
@@ -133,15 +156,21 @@ def _default_topk_cap(n_dev: int, k: int) -> int:
 
 
 def batch_lines(blocks: Iterable[bytes], n_dev: int, chunk_bytes: int,
-                pool: Optional[BufferPool] = None):
+                pool: Optional[BufferPool] = None,
+                offsets: Optional[list] = None):
     """Slice a byte-block stream into zero-padded ``[n_dev, chunk_bytes]``
     batches, cutting rows only at newline boundaries so no line straddles
     a row.  Yields ``(batch, lens, row_lines)`` — per-row valid byte
     counts and per-row line counts (newlines plus an unterminated tail
     line).  With ``pool`` batches come from the engine's rotating buffer
     set.  A line wider than ``chunk_bytes`` raises :class:`_LineTooLong`.
+
+    With ``offsets`` (the checkpoint cursor hook, as ``batch_stream``'s)
+    the stream offset just past each batch's content is appended before
+    the batch is yielded.
     """
     carry = bytearray()
+    consumed = 0
 
     def new_batch() -> np.ndarray:
         if pool is not None:
@@ -154,7 +183,7 @@ def batch_lines(blocks: Iterable[bytes], n_dev: int, chunk_bytes: int,
     row = 0
 
     def fill_rows(final: bool):
-        nonlocal batch, lens, row_lines, row
+        nonlocal batch, lens, row_lines, row, consumed
         while carry and (len(carry) > chunk_bytes or final):
             if len(carry) <= chunk_bytes:
                 cut = len(carry)  # final tail: whole remainder fits
@@ -171,11 +200,14 @@ def batch_lines(blocks: Iterable[bytes], n_dev: int, chunk_bytes: int,
             n_nl = int(np.count_nonzero(view == 10))
             del view
             del carry[:cut]
+            consumed += cut
             batch[row, cut:] = 0
             lens[row] = cut
             row_lines[row] = n_nl + (1 if batch[row, cut - 1] != 10 else 0)
             row += 1
             if row == n_dev:
+                if offsets is not None:
+                    offsets.append(consumed)
                 yield batch, lens, row_lines
                 batch = new_batch()
                 lens = np.zeros(n_dev, dtype=np.int32)
@@ -188,6 +220,8 @@ def batch_lines(blocks: Iterable[bytes], n_dev: int, chunk_bytes: int,
     yield from fill_rows(final=True)
     if row:
         batch[row:] = 0  # recycled buffer: stale tail rows must not count
+        if offsets is not None:
+            offsets.append(consumed)
         yield batch, lens, row_lines
     elif pool is not None:
         pool.give(batch)
@@ -426,14 +460,13 @@ class GrepStep(EngineStep):
                              "chained stages commit at stage boundaries")
         if aot:
             raise _not_ported("aot", "the kernel build/warm cache")
-        if (checkpoint_dir or checkpoint_every or checkpoint_async
-                or checkpoint_delta or resume):
-            raise _not_ported("checkpointing", "#4b, checkpoints")
         if input_range is not None:
             raise _not_ported("input_range", "the plan and serving layers")
         _grep_setup(self, blocks, pattern, n_dev, chunk_bytes, depth,
                     device_accumulate, sync_every, mesh_shards, topk, bins,
-                    pipeline_stats, resolve_device(device), line_sink)
+                    pipeline_stats, checkpoint_dir, checkpoint_every,
+                    checkpoint_async, checkpoint_delta, resume,
+                    resolve_device(device), line_sink)
 
 
 def grep_streaming(
@@ -471,8 +504,21 @@ def grep_streaming(
     ``batch_wait_s``, ``upload_s``, ``kernel_s``, ``pull_s``, ``merge_s``,
     ``replay_s``, ``steps``, ``replays``, ``step_pulls``, ``sync_pulls``,
     ``l_cap`` and the services' counters) plus ``dispatch_s``, the
-    seconds launching the steps.  The remaining parameters keep the
-    reference's signature and raise ``NotImplementedError`` when set.
+    seconds launching the steps.
+
+    ``checkpoint_dir`` enables crash-resume (``ckpt/``): every
+    ``checkpoint_every`` confirmed steps (default
+    ``DSI_STREAM_CKPT_EVERY``, 32) a snapshot of the host accumulators
+    (or the services' images), the line counter, the sticky ``l_cap``
+    rung and the byte cursor; ``resume=True`` restores the newest chain
+    and seeks past the cursor, bit-identical to an uninterrupted run.
+    ``checkpoint_async`` (``DSI_STREAM_CKPT_ASYNC``) commits in the
+    background writer; ``checkpoint_delta`` (``DSI_STREAM_CKPT_DELTA``)
+    saves only the candidate rows since the previous save plus the
+    cumulative histogram.  ``pipeline_stats`` then also receives the
+    ``ckpt_*`` counters and, on resume, ``resume_gap_s`` and
+    ``resume_cursor``.  ``aot`` keeps the reference's signature and
+    raises ``NotImplementedError``.
     """
     return GrepStep(
         blocks, pattern, n_dev=n_dev, chunk_bytes=chunk_bytes, depth=depth,
@@ -486,11 +532,14 @@ def grep_streaming(
 
 def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
                 device_accumulate, sync_every, mesh_shards, topk, bins,
-                pipeline_stats, dev: torch.device, line_sink=None):
-    """The engine body behind :class:`GrepStep`: setup ending with the
-    pipeline armed and the lifecycle hooks attached to ``step``.  With
-    ``line_sink`` every step also runs J's emit epilogue, and each
-    confirmed step's matching-line bytes go to ``line_sink.append``."""
+                pipeline_stats, checkpoint_dir, checkpoint_every,
+                checkpoint_async, checkpoint_delta, resume,
+                dev: torch.device, line_sink=None):
+    """The engine body behind :class:`GrepStep`: setup (the resume's
+    restore included) ending with the pipeline armed and the lifecycle
+    hooks attached to ``step``.  With ``line_sink`` every step also runs
+    J's emit epilogue, and each confirmed step's matching-line bytes go to
+    ``line_sink.append``."""
     emit = line_sink is not None
     if not is_literal_pattern(pattern):
         step._phase = "hostpath"  # terminal before any device work
@@ -532,6 +581,162 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
                               k=topk, acc=acc, device=dev,
                               lag=max(0, depth - 1), stats=stats,
                               mesh_shards=mesh_shards)
+
+    # ── checkpoint/restore (ckpt/) ──
+    ck_store: Optional[CheckpointStore] = None
+    ck_policy: Optional[CheckpointPolicy] = None
+    ck_writer: Optional[CheckpointWriter] = None
+    ck_cursor = {"offset": 0, "lines": 0}  # last CONFIRMED step's end
+    offsets: Optional[list] = None
+    dispatch_idx = [0]
+    start_offset = 0
+    ck_async = checkpoint_async_default(checkpoint_async)
+    ck_delta = checkpoint_delta_default(checkpoint_delta)
+    cand_mark = [0]  # the host path's delta watermark into cand_h
+    if checkpoint_dir:
+        ck_store = CheckpointStore(
+            checkpoint_dir, "grep",
+            {"n_dev": n_dev, "chunk_bytes": chunk_bytes, "pattern": pattern,
+             "bins": bins, "topk": topk,
+             "device_accumulate": bool(device_accumulate)})
+        ck_policy = CheckpointPolicy(checkpoint_every)
+        offsets = []
+        stats.update({"ckpt_saves": 0, "ckpt_s": 0.0,
+                      "ckpt_every": ck_policy.every, "ckpt_capture_s": 0.0,
+                      "ckpt_async": ck_async, "ckpt_delta": ck_delta})
+        ck_writer = CheckpointWriter(ck_store, stats, async_=ck_async,
+                                     delta=ck_delta)
+        if ck_delta and topk_svc is not None:
+            topk_svc.enable_delta()
+        if resume:
+            t_res = time.perf_counter()
+            loaded = ck_store.load_latest_chain()
+            if loaded is not None:
+                meta, arrays, deltas = loaded
+                # Cursor and rung are newest-wins: the last delta's meta
+                # is the restore point; the base meta names the images.
+                eff = deltas[-1][0] if deltas else meta
+                start_offset = int(eff["cursor"])
+                ck_cursor.update(offset=start_offset,
+                                 lines=int(eff["lines"]))
+                next_line[0] = int(eff["lines"])
+                state["l_cap"] = int(eff["l_cap"])
+                stats["l_cap"] = state["l_cap"]
+                if device_accumulate:
+                    acc.restore({k[3:]: v for k, v in arrays.items()
+                                 if k.startswith("kc_")})
+                    # The histogram is cumulative and rides every delta
+                    # whole: the newest copy wins.
+                    hist_img = arrays.get("hist")
+                    for _, darr in deltas:
+                        if "hist" in darr:
+                            hist_img = darr["hist"]
+                    if hist_img is not None:
+                        hist_svc.restore_state({"hist": hist_img})
+                    if meta.get("table_cap"):
+                        img = {k[6:]: v for k, v in arrays.items()
+                               if k.startswith("table_")}
+                        same_degree = (int(meta.get("mesh_shards", 0))
+                                       == mesh_shards)
+                        if deltas or not same_degree:
+                            # A chain (or a change of sharding degree)
+                            # re-enters through the drain: the image's
+                            # rows go to the KeyCounts, the table starts
+                            # empty and the resumed folds rebuild it.
+                            DeviceTable.drain_image(acc, img)
+                            if not same_degree:
+                                stats["resharded_resume"] = int(
+                                    meta.get("mesh_shards", 0))
+                        else:
+                            topk_svc.restore_state(img)
+                            if ck_delta:
+                                topk_svc.enable_delta()
+                    policy.restore(eff.get("sync_since", 0))
+                    for _, darr in deltas:
+                        # Each delta's candidate steps re-enter the
+                        # accumulator in save order, the drain argument.
+                        drain_packed_steps(acc, darr)
+                else:
+                    if "gs_hist" in arrays:
+                        hist_h[:] = arrays["gs_hist"]
+                        totals[:] = arrays["gs_totals"]
+                    if "gs_cands" in arrays:
+                        cand_h.extend((int(a), int(b)) for a, b
+                                      in arrays["gs_cands"].tolist())
+                    for _, darr in deltas:
+                        # Cumulative counters newest-wins; candidate rows
+                        # are the append-only log's increments.
+                        hist_h[:] = darr["gs_hist"]
+                        totals[:] = darr["gs_totals"]
+                        if "gs_cands" in darr:
+                            cand_h.extend((int(a), int(b)) for a, b
+                                          in darr["gs_cands"].tolist())
+                    cand_mark[0] = len(cand_h)
+            stats["resume_gap_s"] = time.perf_counter() - t_res
+            stats["resume_cursor"] = start_offset
+        else:
+            ck_store.reset()  # a fresh lineage: no stale chain may resume
+
+    def save_ckpt() -> None:
+        """One consistent snapshot at a confirmed-step boundary: capture
+        here, commit inline or in the background writer.  The device
+        images first (flushing the top-k's lag can widen, and that drain
+        lands in the KeyCounts), the host residue second.  A delta save
+        ships the candidate rows appended since the previous save and the
+        cumulative histogram (KBs, newest wins on restore); every
+        ``DSI_STREAM_CKPT_REBASE``-th save, and any save after a window
+        that overflowed its log, is full."""
+        with _span("ckpt", stats=stats, key="ckpt_s",
+                   lines=ck_cursor["lines"]):
+            meta = {"cursor": ck_cursor["offset"],
+                    "lines": ck_cursor["lines"], "l_cap": state["l_cap"]}
+            kind = "full"
+            parts = None
+            with _span("ckpt_capture", lane="ckpt", stats=stats,
+                       key="ckpt_capture_s"):
+                if ck_writer.want_delta():
+                    if device_accumulate:
+                        entries = topk_svc.take_delta()
+                        if entries is not None:
+                            parts = [("", DeltaSteps(entries)),
+                                     ("", hist_svc.checkpoint_capture())]
+                            meta["sync_since"] = policy.snapshot()
+                            kind = "delta"
+                    else:
+                        new_cands = cand_h[cand_mark[0]:]
+                        cand_mark[0] = len(cand_h)
+                        d_arrays = {"gs_hist": hist_h.copy(),
+                                    "gs_totals": totals.copy()}
+                        if new_cands:
+                            d_arrays["gs_cands"] = np.array(new_cands,
+                                                            dtype=np.int64)
+                        parts = [("", d_arrays)]
+                        kind = "delta"
+                if parts is None:
+                    # A full image, and a fresh delta window: payloads
+                    # recorded before this base are inside it.
+                    parts = []
+                    if device_accumulate:
+                        parts.append(("table_",
+                                      topk_svc.checkpoint_capture()))
+                        meta["table_cap"] = topk_svc.cap
+                        meta["table_kk"] = topk_svc.kk
+                        meta["mesh_shards"] = topk_svc.mesh_shards
+                        parts.append(("", hist_svc.checkpoint_capture()))
+                        parts.append(("kc_", acc.snapshot()))
+                        meta["sync_since"] = policy.snapshot()
+                        if ck_delta:
+                            topk_svc.take_delta()
+                    else:
+                        arrays = {"gs_hist": hist_h.copy(),
+                                  "gs_totals": totals.copy()}
+                        if cand_h:
+                            arrays["gs_cands"] = np.array(cand_h,
+                                                          dtype=np.int64)
+                        parts.append(("", arrays))
+                    cand_mark[0] = len(cand_h)
+            fault_point("mid-capture")
+            ck_writer.commit(parts, meta, kind=kind)
 
     def pinned_batch() -> np.ndarray:
         # The numpy view keeps the pinned tensor alive.
@@ -578,8 +783,16 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
         hist_d, cand_d, scal, emitted, uploaded = step_call(
             buf, lens_np, bases, state["l_cap"])
         stats["steps"] += 1
+        rec_offset = 0
+        if offsets is not None:
+            # This step's cursor: the absolute stream offset just past its
+            # batch (appended before the batch was queued).
+            rec_offset = start_offset + offsets[dispatch_idx[0]]
+            dispatch_idx[0] += 1
+        fault_point("post-dispatch")
         return (buf, uploaded, lens_np, row_lines, bases, state["l_cap"],
-                hist_d, cand_d, scal, HostCopy(scal), emitted)
+                hist_d, cand_d, scal, HostCopy(scal), emitted, rec_offset,
+                next_line[0])
 
     def replay_step(buf, lens_np, bases_np, used_l_cap):
         """Late-detected line-capacity overflow: replay just this step at
@@ -603,7 +816,7 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
 
     def finish_one(record) -> None:
         buf, uploaded, lens_np, row_lines, bases_np, l_cap_used, hist_d, \
-            cand_d, scal, scal_host, emitted = record
+            cand_d, scal, scal_host, emitted, rec_offset, rec_lines = record
         with timed(stats, "kernel_s"):
             scal_np = scal_host.wait()  # blocks until the step lands
         if scal_np[:, 2].any():  # l_cap overflow: replay wider, sticky
@@ -623,6 +836,7 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
                 topk_svc.fold(cand_d, scal, scal_np)
             policy.note_fold()
             if policy.due():
+                fault_point("pre-sync")
                 topk_svc.sync()
                 hist_svc.pull()
                 stats["sync_pulls"] += 1
@@ -646,6 +860,17 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
             # (HostRelay); the kept counts are the only host metadata.
             comp_d, kept_host = emitted
             line_sink.append(comp_d, kept_host.wait().astype(np.int64))
+        # The step is confirmed: merged or folded, and nothing after it.
+        # The fault point sits before the cursor moves, the torn-update
+        # instant.
+        fault_point("mid-fold")
+        if ck_store is not None:
+            ck_cursor["offset"] = rec_offset
+            ck_cursor["lines"] = rec_lines
+            ck_policy.note_step()
+            if ck_policy.due():
+                save_ckpt()
+                ck_policy.reset()
         give_back(buf, uploaded)
 
     pipe = StepPipeline(depth=depth, dispatch=dispatch, finish=finish_one,
@@ -654,17 +879,29 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
                         inflight_key="max_inflight_chunks",
                         thread_name="dsi-grep-batcher")
     step._pipe = pipe
-    pipe.begin(lambda: batch_lines(blocks, n_dev, chunk_bytes, pool=pool))
+    step._cursor_ref = ck_cursor
+    feed = skip_stream(blocks, start_offset) if start_offset else blocks
+    pipe.begin(lambda: batch_lines(feed, n_dev, chunk_bytes, pool=pool,
+                                   offsets=offsets))
     step._host_excs = (_LineTooLong,)
+    step._save = save_ckpt if ck_store is not None else None
+    step._writer = ck_writer
+    if resume:
+        step._restore_info = {
+            "resume_cursor": stats.get("resume_cursor", 0),
+            "resume_gap_s": stats.get("resume_gap_s", 0.0)}
 
     def on_complete():
         h, t, cands = hist_h, totals, cand_h
         if device_accumulate:
+            fault_point("pre-sync")
             topk_svc.close()  # the exact final drain into the KeyCounts
             final = hist_svc.close()
             h = final[:bins]
             t = final[bins:]
             cands = list(acc.finalize().items())
+        if ck_writer is not None:
+            ck_writer.drain()  # commit errors surface; counters settle
         top = tuple(sorted(cands, key=lambda r: (-r[1], r[0]))[:topk])
         step.result = GrepStreamResult(int(t[0]), int(t[1]), int(t[2]),
                                        tuple(int(x) for x in h), top)
@@ -675,6 +912,8 @@ def _grep_setup(step, blocks, pattern, n_dev, chunk_bytes, depth,
         if released:  # idempotent: close() after a failure re-runs it
             return
         released.append(True)
+        if ck_writer is not None:
+            ck_writer.shutdown()
         fold_source_stats(stats, blocks)
         if pipeline_stats is not None:
             stats["batch_allocs"] = pool.allocs
@@ -744,15 +983,14 @@ class IndexerStep(WaveWalkStep):
                  input_range: Optional[Tuple[int, int]] = None,
                  device=None):
         super().__init__()
-        if (checkpoint_dir or checkpoint_every or checkpoint_async
-                or checkpoint_delta or resume):
-            raise _not_ported("checkpointing", "#4b, checkpoints")
         if input_range is not None:
             raise _not_ported("input_range", "the plan and serving layers")
         self.exported: Optional[dict] = None
         _indexer_setup(self, docs, n_dev, n_reduce, max_word_len, u_cap,
                        depth, device_accumulate, sync_every, mesh_shards,
-                       topk, stats, resolve_device(device), keep_services)
+                       topk, stats, checkpoint_dir, checkpoint_every,
+                       checkpoint_async, checkpoint_delta, resume,
+                       resolve_device(device), keep_services)
 
 
 def indexer_streaming(
@@ -796,9 +1034,18 @@ def indexer_streaming(
 
     ``stats`` receives ``tfidf_sharded``'s wave counters and seconds,
     ``finalize_s`` (building the result on the host) and the services'
-    counters (``folds``, ``widens``, ``topk_snapshots``, ...).  The
-    checkpoint arguments keep the reference's signature and raise
-    ``NotImplementedError``.
+    counters (``folds``, ``widens``, ``topk_snapshots``, ...).
+
+    ``checkpoint_dir``/``checkpoint_every``/``checkpoint_async``/
+    ``checkpoint_delta``/``resume`` follow ``grep_streaming``'s
+    crash-resume contract with a wave cursor: the cursor is the
+    confirmed-wave ordinal (``plan_waves`` is a function of the document
+    lengths, whose CRC is part of the chain's identity), and a snapshot
+    holds the postings table, the postings buffer's and the df top-k's
+    images, the df accumulator and the sticky rung, tagged with its
+    word-window rung.  Resumed postings (per-word order included) and
+    the top-k equal an uninterrupted run's; ``stats`` then also receives
+    ``resume_gap_s`` and ``resume_wave``.
     """
     return IndexerStep(
         docs, n_dev=n_dev, n_reduce=n_reduce, max_word_len=max_word_len,
@@ -812,10 +1059,12 @@ def indexer_streaming(
 
 def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
                    depth, device_accumulate, sync_every, mesh_shards, topk,
-                   stats, dev: torch.device, keep_services: bool = False):
-    """The engine body behind :class:`IndexerStep`: corpus-wide setup,
-    then ``begin_rung`` arms the pipeline and attaches the lifecycle
-    hooks."""
+                   stats, checkpoint_dir, checkpoint_every, checkpoint_async,
+                   checkpoint_delta, resume, dev: torch.device,
+                   keep_services: bool = False):
+    """The engine body behind :class:`IndexerStep`: corpus-wide setup
+    (the chain to resume loaded), then ``begin_rung`` arms the pipeline
+    and attaches the lifecycle hooks."""
     depth = pipeline_depth(depth)
     # ``mesh_shards`` re-routes the postings buffer AND the df top-k by
     # ``ihash(word) % n_shards``: word state shards by key.
@@ -835,6 +1084,12 @@ def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
           "pull_s": 0.0, "merge_s": 0.0, "replay_s": 0.0,
           "finalize_s": 0.0, "sync_pulls": 0}
     groupers = grouper_ladder(dev)
+    chain = _WaveCkpt(
+        checkpoint_dir, checkpoint_every, checkpoint_async, checkpoint_delta,
+        resume, "indexer",
+        {"n_dev": n_dev, "n_reduce": n_reduce, "u_cap": u_cap,
+         "n_docs": n_real, "doc_lens_crc32": _lens_crc(doc_lens),
+         "topk": topk, "device_accumulate": bool(device_accumulate)})
 
     def begin_rung(mwl: int):
         kk = mwl // 4
@@ -851,14 +1106,24 @@ def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
             if len(r):
                 table.add(r, kk)
 
-        # The df table is made at the first confirmed wave, sized by it.
-        topk_svc: Optional[DeviceTopK] = None
         df_acc = PackedCounts()
         buf_dev = policy = None
         if device_accumulate:
             buf_dev, policy = _postings_buffer(
                 n_dev, kk, n_dev * state["cap"], buffer_rows, dev, depth, st,
                 mesh_shards, sync_every)
+
+        def make_topk(kk_: int, cap: int) -> DeviceTopK:
+            return DeviceTopK(n_dev, kk=kk_, cap=cap, k=topk, acc=df_acc,
+                              device=dev, lag=max(0, depth - 1), stats=st,
+                              mesh_shards=mesh_shards)
+
+        # Checkpoints: a fresh writer per rung, and the loaded chain
+        # applied only at its own rung.  The df table (``ck.topk``) is
+        # made at the first confirmed wave, sized by it, unless a
+        # same-degree full image restores it.
+        ck = chain.rung(mwl, st, state, table, buf_dev, policy, buffer_rows,
+                        mesh_shards, df_acc=df_acc, make_topk=make_topk)
 
         def wave_call(chunk_np, ids_np, cap, frac, g):
             """Upload and launch one wave at one rung; no waiting."""
@@ -875,8 +1140,10 @@ def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
             chunk_np, ids_np = item
             rows, df, scal = wave_call(chunk_np, ids_np, state["cap"],
                                        state["frac"], state["grouper"])
-            return (chunk_np, ids_np, rows, df, scal, HostCopy(scal),
-                    state["cap"])
+            out = (chunk_np, ids_np, rows, df, scal, HostCopy(scal),
+                   state["cap"])
+            fault_point("post-dispatch")
+            return out
 
         def replay_wave(chunk_np, ids_np):
             """The exactness ladder for ONE wave; the rung that cleared
@@ -891,30 +1158,25 @@ def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
             return rows, df, scal, scal_np
 
         def commit(rows, df, scal, scal_np):
-            nonlocal topk_svc
             m = int(scal_np[:, 0].max())
             if m == 0:
                 return
             if buf_dev is not None:
                 # The df fold rides the SAME confirmation: only waves the
                 # postings path accepted fold their frequency rows.
-                if topk_svc is None:
-                    # Rung-0 capacity: the wave's row count (one fold
-                    # never overflows it) unless DSI_DEVICE_TOPK_CAP asks
-                    # for less.
-                    topk_svc = DeviceTopK(
-                        n_dev, kk=kk, cap=_topk_cap_env() or int(df.shape[1]),
-                        k=topk, acc=df_acc, device=dev,
-                        lag=max(0, depth - 1), stats=st,
-                        mesh_shards=mesh_shards)
+                # Rung-0 capacity: the wave's row count (one fold never
+                # overflows it) unless DSI_DEVICE_TOPK_CAP asks for less.
+                topk_svc = ck.df_topk(kk, _topk_cap_env() or int(df.shape[1]))
                 pulls_before = st["sync_pulls"]
-                buf_dev.append(rows, scal)
+                buf_dev.append(rows, scal,
+                               nvalid=scal_np[:, 0].astype(np.int64))
                 topk_svc.fold(df, scal, scal_np)
                 policy.note_fold()
                 if st["sync_pulls"] != pulls_before:
                     policy.reset()  # an overflow recovery just drained:
                     # that was this window's pull
                 elif policy.due():
+                    fault_point("pre-sync")
                     buf_dev.sync()
                     topk_svc.sync()
                     policy.reset()
@@ -930,6 +1192,7 @@ def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
                     nr = int(scal_np[d, 0])
                     if nr:
                         buffer_rows(rows_np[d, :nr])
+                ck.note_pulled(rows_np, scal_np[:, 0])
 
         def finish(rec):
             """Retire the oldest in-flight wave: deferred scalar check,
@@ -942,6 +1205,7 @@ def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
                 # Late-found overflow: replay just this wave, exactly once.
                 rows, df, scal, scal_np = replay_wave(chunk_np, ids_np)
             commit(rows, df, scal, scal_np)
+            ck.after_wave()
 
         pipe = StepPipeline(depth=depth, dispatch=dispatch, finish=finish,
                             stats=st, produce_key="materialize_s",
@@ -951,29 +1215,29 @@ def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
         step._pipe = pipe
         step._mwl = mwl
         step._outcome = outcome
-        pipe.begin(lambda: _wave_items(docs, waves, n_dev))
+        step._save = ck.save if ck.policy is not None else None
+        step._writer = ck.writer
+        pipe.begin(lambda: _wave_items(docs, waves[ck.start_wave:], n_dev))
 
         def end_ok():
             if keep_services:
                 # The plan handoff: the walk is done, the device services
                 # stay resident; the downstream stages take a k-row df
                 # snapshot and close the postings buffer themselves.
+                ck.end(close_services=False)
                 step.exported = {
                     "kk": kk, "n_real": n_real, "topk": topk,
                     "device_accumulate": device_accumulate,
-                    "topk_svc": topk_svc, "postings_svc": buf_dev,
+                    "topk_svc": ck.topk, "postings_svc": buf_dev,
                     "df_acc": df_acc, "table": table,
                     "buffer_rows": buffer_rows}
                 step.result = ("plan-handoff",)
                 return
-            if buf_dev is not None:
-                buf_dev.close()  # end-of-walk drain
-                if topk_svc is not None:
-                    topk_svc.close()
+            ck.end()  # the end-of-walk drain, then the writer's
             with timed(st, "finalize_s"):
                 postings = {w: (part, [d for d, _ in pairs])
                             for w, (part, pairs) in table.finalize().items()}
-                if topk_svc is not None:
+                if ck.topk is not None:
                     df_map = {w: c for w, (c, _) in df_acc.finalize().items()}
                 else:
                     df_map = {w: len(ds) for w, (_, ds) in postings.items()}
@@ -985,8 +1249,8 @@ def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
 
     # The word-window ladder: a word wider than the packed window re-keys
     # every row, so that overflow class restarts the walk at 64.
-    step._rungs = ((max_word_len, 64) if max_word_len < 64
-                   else (max_word_len,))
+    step._rungs = chain.rungs((max_word_len, 64) if max_word_len < 64
+                              else (max_word_len,))
     step._begin_rung = begin_rung
 
     released = []
@@ -995,6 +1259,8 @@ def _indexer_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
         if released:
             return
         released.append(True)
+        if step._writer is not None:  # the current rung's writer
+            step._writer.shutdown()
         fold_source_stats(st, docs)  # a doc source may pool-read too
         if stats is not None:
             stats.update(st)

@@ -1,9 +1,8 @@
 """Vectorized host-side merge table for the SPMD paths' per-step outputs.
 
-Copy of ``dsi_tpu/parallel/merge.py`` (``PackedCounts`` with its
-checkpoint ``snapshot``/``restore`` and its helpers, ``PostingsTable``
-and ``PackedPostings``, without ``PostingsTable``'s ``snapshot`` and
-``restore``, which the streaming indexer's checkpoints will need).
+Copy of ``dsi_tpu/parallel/merge.py`` (``PackedCounts`` and
+``PostingsTable`` with their checkpoint ``snapshot``/``restore``, their
+helpers, and ``PackedPostings``).
 Per-step tables of packed word keys (big-endian u32 lanes) plus length /
 count / partition columns accumulate as raw numpy arrays; merging is one ``np.lexsort``
 over the key lanes, run-boundary detection and ``np.add.reduceat`` per
@@ -172,6 +171,25 @@ class PostingsTable:
         elif kk != self._kk:  # one word-window rung per table
             raise ValueError(f"mixed key widths: {self._kk} vs {kk}")
         self._bufs.append(np.array(rows, dtype=np.uint32))
+
+    # ── checkpoint image (ckpt/) ──
+
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        """Every buffered row, concatenated in insertion order: per-word
+        doc order is part of the postings, and the stable ``finalize``
+        lexsort keeps it, so a restored table groups the same."""
+        if not self._bufs:
+            return {}
+        rows = (np.concatenate(self._bufs) if len(self._bufs) > 1
+                else self._bufs[0])
+        return {"rows": rows, "kk": np.array(self._kk, dtype=np.int64)}
+
+    def restore(self, arrays: Dict[str, np.ndarray]) -> None:
+        if not arrays or "rows" not in arrays or len(arrays["rows"]) == 0:
+            self._bufs, self._kk = [], None
+            return
+        self._kk = int(arrays["kk"])
+        self._bufs = [np.array(arrays["rows"], dtype=np.uint32)]
 
     def finalize(self) -> Dict[str, Tuple[int, List[Tuple[int, int]]]]:
         return self.finalize_packed().to_dict()

@@ -29,20 +29,42 @@ appended row to shard ``ihash(word) % n_shards`` first (kernels D, E, L,
 then M).  Scores are formatted at output time by the app's
 ``format_value``, so ``mr-out-*`` equal the sequential oracle's bytes.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): checkpoints and ``input_range``.
+With ``checkpoint_dir`` the walk is crash-resumable (``ckpt/``): the
+cursor is the confirmed-wave ordinal, and a snapshot holds the postings
+table, the postings buffer's image and the sticky rung, tagged with its
+word-window rung (:class:`_WaveCkpt`); the resumed result equals an
+uninterrupted walk's, and the chains are the reference's.
+
+Not ported yet (raising ``NotImplementedError`` naming its ROADMAP
+item): ``input_range``.
 """
 
 from __future__ import annotations
 
 import os
+import time
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from dsi_tpu_torch.ckpt import (
+    CheckpointPolicy,
+    CheckpointStore,
+    CheckpointWriter,
+    DeltaSteps,
+    HostDeltaLog,
+    checkpoint_async_default,
+    checkpoint_delta_default,
+    drain_packed_steps,
+    drain_posting_steps,
+    fault_point,
+)
 from dsi_tpu_torch.device.policy import SyncPolicy, mesh_shards_default
 from dsi_tpu_torch.device.postings import DevicePostings
+from dsi_tpu_torch.device.table import DeviceTable
+from dsi_tpu_torch.obs import span as _span
 from dsi_tpu_torch.ops.meshroute import compact_rows
 from dsi_tpu_torch.ops.wordcount import (
     HostCopy,
@@ -209,6 +231,270 @@ def _wave_items(docs, waves, n_dev: int):
         yield _wave_chunk(docs, idxs, n_dev, size), ids
 
 
+def _lens_crc(doc_lens) -> int:
+    """CRC-32 of the per-document length vector: the wave plan, and with
+    it the cursor's meaning, is a function of it, so it is part of a
+    chain's identity (the same count and total in another order must
+    refuse, not misalign the waves)."""
+    return zlib.crc32(np.asarray(doc_lens, np.int64).tobytes())
+
+
+class _WaveCkpt:
+    """The wave walks' checkpoint chain (``ckpt/``, the reference's
+    wave-cursor variant, shared by TF-IDF and the indexer): the store
+    under ``ident``, the chain a resume loaded (``meta``, ``arrays``,
+    ``deltas``; None when there was none), and the per-rung writer.
+
+    A checkpoint belongs to one word-window rung: a rung restart discards
+    the rung's state, so each rung gets a fresh writer (its first save is
+    full) and the chain applies only at the rung it was saved at."""
+
+    def __init__(self, checkpoint_dir, checkpoint_every, checkpoint_async,
+                 checkpoint_delta, resume: bool, engine: str, ident: dict):
+        self.every = checkpoint_every
+        self.async_ = checkpoint_async_default(checkpoint_async)
+        self.delta = checkpoint_delta_default(checkpoint_delta)
+        self.store: Optional[CheckpointStore] = None
+        self.meta = self.arrays = None
+        self.deltas: list = []
+        if checkpoint_dir:
+            self.store = CheckpointStore(checkpoint_dir, engine, ident)
+            if resume:
+                loaded = self.store.load_latest_chain()
+                if loaded is not None:
+                    self.meta, self.arrays, self.deltas = loaded
+            else:
+                self.store.reset()  # a fresh lineage: no stale chain
+
+    def rungs(self, rungs: tuple) -> tuple:
+        """The word-window rungs to walk: a resume starts at the chain's
+        own rung (an earlier one had aborted before it began)."""
+        if self.meta is None:
+            return rungs
+        return tuple(m for m in rungs if m >= int(self.meta["mwl"])) or rungs
+
+    def rung(self, mwl: int, stats: dict, state: dict, table, buf_dev,
+             sync_policy, sink, mesh_shards: int, df_acc=None,
+             make_topk=None) -> "_RungCkpt":
+        """Rung ``mwl``'s checkpoints over its host table, postings buffer
+        (None on the host path) and, for the indexer, its df accumulator
+        and top-k factory."""
+        return _RungCkpt(self, mwl, stats, state, table, buf_dev,
+                         sync_policy, sink, mesh_shards, df_acc, make_topk)
+
+    def restore_point(self, mwl: int):
+        """The restore point's meta (the last delta's, newest wins) when
+        the chain was saved at rung ``mwl``, else None."""
+        eff = self.deltas[-1][0] if self.deltas else self.meta
+        return eff if eff is not None and int(eff["mwl"]) == mwl else None
+
+    def prefixed(self, prefix: str) -> dict:
+        """The base image's arrays under ``prefix``, the prefix cut."""
+        return {k[len(prefix):]: v for k, v in self.arrays.items()
+                if k.startswith(prefix)}
+
+
+class _RungCkpt:
+    """One word-window rung's checkpoints, shared by TF-IDF and the
+    indexer: the confirmed-wave cursor, the policy and writer (None
+    without a store), the host path's delta log, and the restore and save
+    over the rung's host table (``pt_``), postings buffer (``pb_``) and,
+    for the indexer (``df_acc`` given), its df accumulator (``df_``) and
+    df top-k (``table_``, deltas ``tk_``).  The indexer makes its df
+    top-k at the first confirmed wave (:meth:`df_topk`) unless a
+    same-degree full image restores it; ``topk`` is None until then."""
+
+    def __init__(self, chain: _WaveCkpt, mwl, stats, state, table, buf_dev,
+                 sync_policy, sink, mesh_shards, df_acc, make_topk):
+        self.chain, self.mwl, self.stats, self.state = chain, mwl, stats, state
+        self.table, self.buf, self.sync, self.sink = (table, buf_dev,
+                                                      sync_policy, sink)
+        self.mesh_shards = mesh_shards
+        self.df_acc, self._make_topk = df_acc, make_topk
+        self.topk = None
+        self.wave = self.start_wave = 0  # absolute confirmed-wave ordinals
+        self.host_delta = HostDeltaLog()
+        self.policy = self.writer = None
+        if chain.store is not None:
+            self.policy = CheckpointPolicy(chain.every)
+            stats.setdefault("ckpt_saves", 0)
+            stats.setdefault("ckpt_s", 0.0)
+            stats.setdefault("ckpt_capture_s", 0.0)
+            stats.update({"ckpt_every": self.policy.every,
+                          "ckpt_async": chain.async_,
+                          "ckpt_delta": chain.delta})
+            self.writer = CheckpointWriter(chain.store, stats,
+                                           async_=chain.async_,
+                                           delta=chain.delta)
+        self.logging = self.writer is not None and chain.delta
+        if self.logging and buf_dev is not None:
+            buf_dev.enable_delta()
+        self._restore()
+
+    def df_topk(self, kk: int, cap: int):
+        """The indexer's df top-k, made at its first use at ``cap``
+        rows."""
+        if self.topk is None:
+            self.topk = self._make_topk(kk, cap)
+            if self.logging:
+                self.topk.enable_delta()
+        return self.topk
+
+    def _restore(self) -> None:
+        """The loaded chain, when it was saved at this rung: the cursor
+        and sticky rung, the host table, the services' images (uploaded
+        at the same sharding degree from a full image, else drained into
+        the host side), then each delta's waves, oldest first, through
+        the sink (per-word posting order kept) and the df accumulator."""
+        chain, st = self.chain, self.stats
+        eff = (chain.restore_point(self.mwl) if self.writer is not None
+               else None)
+        if eff is None:
+            return
+        t_res = time.perf_counter()
+        self.start_wave = self.wave = int(eff["wave"])
+        self.state.update({"cap": int(eff["cap"]), "grouper": eff["grouper"],
+                           "frac": int(eff["frac"])})
+        self.table.restore(chain.prefixed("pt_"))
+        if self.buf is not None:
+            meta = chain.meta
+            full = not chain.deltas
+            saved = int(meta.get("mesh_shards", 0))
+            if meta.get("pb_cap"):
+                img = {"buf": chain.arrays["pb_buf"],
+                       "nrows": chain.arrays["pb_nrows"],
+                       "cap": meta["pb_cap"]}
+                if full and saved == self.mesh_shards:
+                    self.buf.restore_state(img)
+                    if chain.delta:
+                        self.buf.enable_delta()
+                else:
+                    DevicePostings.drain_image(self.sink, img)
+                    if saved != self.mesh_shards:
+                        st["resharded_resume"] = saved
+            if self.df_acc is not None:
+                self.df_acc.restore(chain.prefixed("df_"))
+                if meta.get("table_cap"):
+                    img = chain.prefixed("table_")
+                    if full and saved == self.mesh_shards:
+                        # The df table re-enters at the image's capacity
+                        # and width.
+                        self.topk = self._make_topk(int(meta["table_kk"]),
+                                                    int(meta["table_cap"]))
+                        self.topk.restore_state(img)
+                        if chain.delta:
+                            self.topk.enable_delta()
+                    else:
+                        DeviceTable.drain_image(self.df_acc, img)
+                        if saved != self.mesh_shards:
+                            st["resharded_resume"] = saved
+            self.sync.restore(eff.get("sync_since", 0))
+        for _, darr in chain.deltas:
+            drain_posting_steps(self.sink, darr, "pb_")
+            if self.df_acc is not None:
+                drain_packed_steps(self.df_acc, darr, "tk_")
+        st["resume_gap_s"] = time.perf_counter() - t_res
+        st["resume_wave"] = self.start_wave
+
+    def note_pulled(self, rows_np: np.ndarray, nvalid: np.ndarray) -> None:
+        """The host path's pulled wave, kept for the next delta save."""
+        if self.logging:
+            self.host_delta.append(rows_np, nvalid)
+
+    def after_wave(self) -> None:
+        """A confirmed wave (empty waves too: the cursor passes them): the
+        ``mid-fold`` fault point before the cursor moves, then a save when
+        one is due."""
+        fault_point("mid-fold")
+        if self.policy is not None:
+            self.wave += 1
+            self.policy.note_step()
+            if self.policy.due():
+                self.save()
+                self.policy.reset()
+
+    def _delta_parts(self, meta: dict):
+        """The payloads kept since the previous save (the services' logs
+        with the buffer on, the pulled rows otherwise), or None when a log
+        overflowed its window."""
+        if self.buf is not None:
+            pb = self.buf.take_delta()
+            tk = self.topk.take_delta() if self.topk is not None else []
+        else:
+            pb, tk = self.host_delta.take(), []
+        if pb is None or tk is None:
+            return None
+        parts = [("pb_", DeltaSteps(pb))]
+        if self.df_acc is not None:
+            parts.append(("tk_", DeltaSteps(tk)))
+        if self.buf is not None:
+            meta["sync_since"] = self.sync.snapshot()
+        return parts
+
+    def _full_parts(self, meta: dict) -> list:
+        """A full image, and a fresh delta window: payloads recorded
+        before this base are inside it."""
+        parts = []
+        if self.buf is not None:
+            parts.append(("pb_", self.buf.checkpoint_capture()))
+            meta["pb_cap"] = self.buf.cap
+            meta["mesh_shards"] = self.buf.mesh_shards
+            if self.topk is not None:
+                parts.append(("table_", self.topk.checkpoint_capture()))
+                meta["table_cap"] = self.topk.cap
+                meta["table_kk"] = self.topk.kk
+            if self.df_acc is not None:
+                parts.append(("df_", self.df_acc.snapshot()))
+            meta["sync_since"] = self.sync.snapshot()
+            if self.chain.delta:
+                self.buf.take_delta()
+                if self.topk is not None:
+                    self.topk.take_delta()
+        self.host_delta.reset()
+        parts.append(("pt_", self.table.snapshot()))
+        return parts
+
+    def save(self) -> None:
+        """One consistent snapshot at a confirmed-wave boundary: capture
+        here, commit inline or in the background writer.  Device captures
+        first (flushing the postings buffer's lag drains into the host
+        table on an overflow's recovery, and flushing the df top-k's can
+        widen into ``df_acc``), the host residue second, so both sides of
+        such a move land in the same image.  Every
+        ``DSI_STREAM_CKPT_REBASE``-th save, and any save after a window
+        that overflowed its log, is full; the others are deltas."""
+        st, state = self.stats, self.state
+        with _span("ckpt", stats=st, key="ckpt_s", wave=self.wave):
+            meta = {"mwl": self.mwl, "wave": self.wave, "cap": state["cap"],
+                    "grouper": state["grouper"], "frac": state["frac"]}
+            with _span("ckpt_capture", lane="ckpt", stats=st,
+                       key="ckpt_capture_s"):
+                parts = (self._delta_parts(meta)
+                         if self.writer.want_delta() else None)
+                kind = "full" if parts is None else "delta"
+                if parts is None:
+                    parts = self._full_parts(meta)
+            fault_point("mid-capture")
+            self.writer.commit(parts, meta, kind=kind)
+
+    def end(self, close_services: bool = True) -> None:
+        """The walk's end: with ``close_services`` the final ``pre-sync``
+        and the services' last drain; then the writer drained (commit
+        errors surface before the result and the save counters are read)
+        and shut down whatever happened."""
+        try:
+            if close_services and self.buf is not None:
+                fault_point("pre-sync")
+                self.buf.close()
+                if self.topk is not None:
+                    self.topk.close()
+            if self.writer is not None:
+                self.writer.drain()
+        finally:
+            if self.writer is not None:
+                self.writer.shutdown()
+
+
 def _postings_buffer(n_dev: int, kk: int, cap: int, sink, dev, depth: int,
                      stats: dict, mesh_shards: int, sync_every):
     """A rung's postings buffer on the card and its sync policy.  The
@@ -240,6 +526,8 @@ class WaveWalkStep(EngineStep):
 
     def _next_rung(self) -> bool:
         self._pipe.end()
+        if self._writer is not None:
+            self._writer.shutdown()  # a rung restart discards rung state
         if not self._outcome["high"]:
             nxt = [m for m in self._rungs if m > self._mwl]
             if nxt:
@@ -272,14 +560,13 @@ class TfidfStep(WaveWalkStep):
                  input_range: Optional[tuple] = None,
                  device=None):
         super().__init__()
-        if (checkpoint_dir or checkpoint_every or checkpoint_async
-                or checkpoint_delta or resume):
-            raise _not_ported("checkpointing", "#4b, checkpoints")
         if input_range is not None:
             raise _not_ported("input_range", "the plan and serving layers")
         _tfidf_setup(self, docs, n_dev, n_reduce, max_word_len, u_cap,
                      partitions, packed, device_accumulate, sync_every,
-                     mesh_shards, wave_stats, depth, resolve_device(device))
+                     mesh_shards, wave_stats, depth, checkpoint_dir,
+                     checkpoint_every, checkpoint_async, checkpoint_delta,
+                     resume, resolve_device(device))
 
 
 def tfidf_sharded(
@@ -332,9 +619,20 @@ def tfidf_sharded(
     most ``n_dev``; implies ``device_accumulate``) re-routes the buffered
     rows by ``ihash(word) % mesh_shards`` inside the append
     (``device/postings.py mesh_postings_append``); the result, posting
-    order included, is the same.  The checkpoint arguments and
-    ``input_range`` keep the reference's signature and raise
-    ``NotImplementedError``.
+    order included, is the same.
+
+    ``checkpoint_dir`` enables crash-resume (``ckpt/``): every
+    ``checkpoint_every`` confirmed waves (default
+    ``DSI_STREAM_CKPT_EVERY``, 32) a snapshot of the postings table, the
+    buffer's image and the sticky rung, cursor the confirmed-wave ordinal;
+    ``resume=True`` restores the newest chain and skips the waves before
+    its cursor, the result equal to an uninterrupted walk's.
+    ``checkpoint_async``/``checkpoint_delta`` (``DSI_STREAM_CKPT_ASYNC``/
+    ``DSI_STREAM_CKPT_DELTA``) commit in the background writer and save
+    only the waves since the previous save.  ``wave_stats`` then also
+    receives the ``ckpt_*`` counters and, on resume, ``resume_gap_s`` and
+    ``resume_wave``.  ``input_range`` keeps the reference's signature and
+    raises ``NotImplementedError``.
     """
     return TfidfStep(
         docs, n_dev=n_dev, n_reduce=n_reduce, max_word_len=max_word_len,
@@ -349,9 +647,12 @@ def tfidf_sharded(
 
 def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
                  partitions, packed, device_accumulate, sync_every,
-                 mesh_shards, wave_stats, depth, dev: torch.device):
-    """The engine body behind :class:`TfidfStep`: corpus-wide setup, then
-    ``begin_rung`` arms the pipeline and attaches the lifecycle hooks."""
+                 mesh_shards, wave_stats, depth, checkpoint_dir,
+                 checkpoint_every, checkpoint_async, checkpoint_delta,
+                 resume, dev: torch.device):
+    """The engine body behind :class:`TfidfStep`: corpus-wide setup (the
+    chain to resume loaded), then ``begin_rung`` arms the pipeline and
+    attaches the lifecycle hooks."""
     depth = pipeline_depth(depth)
     # ``mesh_shards`` re-routes the postings buffer by ``ihash(word) %
     # n_shards`` inside its append; it needs the buffer.
@@ -370,6 +671,14 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
              "upload_s": 0.0, "dispatch_s": 0.0, "kernel_s": 0.0,
              "pull_s": 0.0, "merge_s": 0.0, "replay_s": 0.0}
     groupers = grouper_ladder(dev)
+    chain = _WaveCkpt(
+        checkpoint_dir, checkpoint_every, checkpoint_async, checkpoint_delta,
+        resume, "tfidf",
+        {"n_dev": n_dev, "n_reduce": n_reduce, "u_cap": u_cap,
+         "n_docs": n_real, "doc_lens_crc32": _lens_crc(doc_lens),
+         "partitions": (sorted(int(p) for p in partitions)
+                        if partitions is not None else None),
+         "device_accumulate": bool(device_accumulate)})
 
     def begin_rung(mwl: int):
         """One word-window rung: arm the pipelined wave walk at packed
@@ -403,6 +712,11 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
                 n_dev, kk, n_dev * state["cap"], buffer_rows, dev, depth,
                 stats, mesh_shards, sync_every)
 
+        # Checkpoints: a fresh writer per rung, and the loaded chain
+        # applied only at its own rung.
+        ck = chain.rung(mwl, stats, state, table, buf_dev, policy,
+                        buffer_rows, mesh_shards)
+
         def wave_call(chunk_np, ids_np, cap, frac, g):
             """Upload and launch one wave at one rung; no waiting."""
             with timed(stats, "upload_s"):
@@ -417,8 +731,10 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
             chunk_np, ids_np = item
             rows, scal = wave_call(chunk_np, ids_np, state["cap"],
                                    state["frac"], state["grouper"])
-            return (chunk_np, ids_np, rows, scal, HostCopy(scal),
-                    state["cap"])
+            out = (chunk_np, ids_np, rows, scal, HostCopy(scal),
+                   state["cap"])
+            fault_point("post-dispatch")
+            return out
 
         def replay_wave(chunk_np, ids_np):
             """The exactness ladder for ONE wave; the rung that cleared
@@ -438,12 +754,14 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
                 return
             if buf_dev is not None:
                 pulls_before = stats["sync_pulls"]
-                buf_dev.append(rows, scal)
+                buf_dev.append(rows, scal,
+                               nvalid=scal_np[:, 0].astype(np.int64))
                 policy.note_fold()
                 if stats["sync_pulls"] != pulls_before:
                     policy.reset()  # an overflow recovery just drained:
                     # that was this window's pull
                 elif policy.due():
+                    fault_point("pre-sync")
                     buf_dev.sync()
                     policy.reset()
                 return
@@ -458,6 +776,7 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
                     nr = int(scal_np[d, 0])
                     if nr:
                         buffer_rows(rows_np[d, :nr])
+                ck.note_pulled(rows_np, scal_np[:, 0])
 
         def finish(rec):
             """Retire the oldest in-flight wave: deferred scalar check,
@@ -472,6 +791,7 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
                 # uncommitted, the replay's commit here and nowhere else.
                 rows, scal, scal_np = replay_wave(chunk_np, ids_np)
             commit(rows, scal, scal_np)
+            ck.after_wave()
 
         pipe = StepPipeline(depth=depth, dispatch=dispatch, finish=finish,
                             stats=stats, produce_key="materialize_s",
@@ -481,11 +801,12 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
         step._pipe = pipe
         step._mwl = mwl
         step._outcome = outcome
-        pipe.begin(lambda: _wave_items(docs, waves, n_dev))
+        step._save = ck.save if ck.policy is not None else None
+        step._writer = ck.writer
+        pipe.begin(lambda: _wave_items(docs, waves[ck.start_wave:], n_dev))
 
         def end_ok():
-            if buf_dev is not None:
-                buf_dev.close()  # end-of-walk sync
+            ck.end()  # the end-of-walk sync, then the writer's drain
             step.result = (table.finalize_packed() if packed
                            else table.finalize())
 
@@ -493,8 +814,8 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
 
     # The word-window ladder: a word wider than the packed window re-keys
     # every row, so that overflow class restarts the walk at 64.
-    step._rungs = ((max_word_len, 64) if max_word_len < 64
-                   else (max_word_len,))
+    step._rungs = chain.rungs((max_word_len, 64) if max_word_len < 64
+                              else (max_word_len,))
     step._begin_rung = begin_rung
 
     released = []
@@ -503,6 +824,8 @@ def _tfidf_setup(step, docs, n_dev, n_reduce, max_word_len, u_cap,
         if released:
             return
         released.append(True)
+        if step._writer is not None:  # the current rung's writer
+            step._writer.shutdown()
         fold_source_stats(stats, docs)  # a doc source may pool-read too
         if wave_stats is not None:
             wave_stats.update(stats)

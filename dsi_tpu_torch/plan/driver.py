@@ -181,7 +181,7 @@ def run_plan(plan: Plan, *, n_dev: int = 1, device=None,
         raise PlanError("resume=True requires checkpoint_dir")
     if checkpoint_dir:
         raise _not_ported("checkpoint_dir/resume (stage commits)",
-                          "#4b, checkpoints")
+                          "#4c, checkpoints")
     dev = resolve_device(device)
     pipelined = bool(pipelined) and not staged
     stage_shards = max(0, int(stage_shards or 0))

@@ -276,10 +276,17 @@ def test_grep_streaming_host_path_and_empty():
     assert res.lines == 0 and res.topk == ()
 
 
-def test_grep_streaming_not_ported_options_raise():
-    for kw in ({"aot": True}, {"checkpoint_dir": "x"}, {"resume": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tgs.grep_streaming([b"a\n"], "a", device="cpu", **kw)
+def test_grep_streaming_not_ported_options_raise(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tgs.grep_streaming([b"a\n"], "a", device="cpu", aot=True)
+    # Checkpoints are ported: a checkpointed run, and a resume of its
+    # finished chain, give the run without checkpoints.
+    want = tgs.grep_streaming([b"a\nba\n"], "a", device="cpu")
+    ck = str(tmp_path / "ck")
+    for kw in ({"checkpoint_dir": ck, "checkpoint_every": 1},
+               {"checkpoint_dir": ck, "resume": True}):
+        assert tgs.grep_streaming([b"a\nba\n"], "a", device="cpu",
+                                  **kw) == want
 
 
 @pytest.mark.parametrize("extra", ([], ["--device-accumulate",
