@@ -175,7 +175,15 @@ Phases (any failure exits non-zero before the last line is printed):
    staged twin and to ``grep_host_oracle``, the sequential word count of
    the matching lines (``mr-out-*`` byte-equal for ``planrun``) or the
    sequential indexer's df top-k and postings, with
-   ``plan_intermediate_bytes`` 0 in every chained run without a spill.
+   ``plan_intermediate_bytes`` 0 in every chained run without a spill;
+   then the stage commits: the plan row with ``checkpoint_dir``, killed
+   at ``post-stage-commit`` #1 (after the grep stage's commit) and
+   resumed, chained (``plan_ckpt``: 1 stage resumed, no J or P launch,
+   equal to ``plan_chained``) and pipelined (``plan_ckpt_pipelined``: the
+   spent grep manifest dropped, 0 resumed, equal to ``plan_pipelined``),
+   and ``planrun --checkpoint-dir`` killed with a real exit 87 in a
+   subprocess, then ``--resume --check`` in process (``plan_ckpt_cli``:
+   ``mr-out-*`` byte-equal to the uncrashed ``planrun``'s).
 Launch counts are zeroed just before each path and read just after; each
 path fails if a kernel of its own set never launched.
 
@@ -305,6 +313,13 @@ PATH_KERNELS = {
     "plan_indexer": WC + ("compact",),
     "plan_indexer_acc": WC + ("compact", "postings_append"),
     "plan_cli": WC + GREP_PLAN,
+    # Stage commits: the chained pair's resume after the grep stage's
+    # commit runs only the word count (its J and P launches must be 0);
+    # the pipelined pair's spent grep manifest is dropped, so its resume
+    # runs both stages again; planrun --resume --check runs A-E (and its
+    # staged twin J).
+    "plan_ckpt": WC, "plan_ckpt_pipelined": WC + GREP_PLAN,
+    "plan_ckpt_cli": WC,
 }
 MESH_SHARDS = 8
 # A table capacity far below a mesh shard's share of the corpus's
@@ -3933,7 +3948,8 @@ PLAN_RELAY_APPENDS = 64
 PLAN_STATS = ("plan_s", "plan_stage_walls", "plan_relay_buffers",
               "plan_spilled_bytes", "plan_intermediate_bytes",
               "plan_handoff_bytes", "plan_overlap_s", "plan_handoff",
-              "plan_pipelined", "plan_stage_shards")
+              "plan_pipelined", "plan_stage_shards", "stage_commit_s",
+              "plan_commit_bytes", "plan_resumed_stages")
 
 
 def _line_batch(raw: bytes, n_dev: int, n: int):
@@ -4469,8 +4485,145 @@ def plan_paths(files, corpus, want_counts, work, gpu, failures):
                         "stderr": text.splitlines()[-4:]}
     log({"plan_cli": runs["plan_cli"], "gpu": gpu})
     runs.pop("plan_warm")
+
+    # Stage commits (the plan row, post-stage-commit #1).
+    for tag, twin, kw in (("plan_ckpt", "plan_chained", {}),
+                          ("plan_ckpt_pipelined", "plan_pipelined",
+                           {"pipelined": True})):
+        res, entry, fails = plan_ckpt_path(tag, spec, nbytes, work, **kw)
+        entry["plain_seconds"] = runs[twin]["seconds"]
+        runs[tag] = entry
+        failures += fails
+        log({tag: {k: v for k, v in entry.items() if k != "engines"},
+             "gpu": gpu})
+        if res.results != results[twin].results:
+            failures.append(f"{tag}: the resume differs from {twin}")
+    if runs["plan_ckpt"]["plan_resumed_stages"] != 1 or any(
+            runs["plan_ckpt"]["launches"][k] for k in GREP_PLAN):
+        failures.append("plan_ckpt: the resume did not take the grep stage "
+                        "from its commit")
+    if runs["plan_ckpt_pipelined"]["plan_resumed_stages"] != 0:
+        failures.append("plan_ckpt_pipelined: the spent grep manifest was "
+                        "resumed without its consumer's")
+    entry, fails = plan_ckpt_cli_path(corpus, outdir, work)
+    entry["plain_seconds"] = cli_s
+    runs["plan_ckpt_cli"] = entry
+    failures += fails
+    log({"plan_ckpt_cli": entry, "gpu": gpu})
     return ({**{k: v["launches"] for k, v in runs.items()}, **launches},
             runs)
+
+
+def plan_ckpt_path(tag, spec, nbytes, work, **kw):
+    """``tag``: the plan row with ``checkpoint_dir``, killed (raised in
+    process) at ``post-stage-commit`` #1, right after the grep stage's
+    commit, then resumed.  The launch counts are zeroed before the crashed
+    run and again before the resume, so ``launches`` are the resume's own
+    and ``crashed_launches`` the crashed run's; ``grep_commit_bytes`` is the
+    grep stage's payload on disk.  Returns (result, entry, failures)."""
+    import glob
+
+    from dsi_tpu_torch.ckpt import FaultInjected
+    from dsi_tpu_torch.ops import wordcount as w
+    from dsi_tpu_torch.plan import run_plan
+    from dsi_tpu_torch.plan.stagehost import build_plan
+
+    ckdir = os.path.join(work, f"ck-{tag}")
+    fails = []
+    w.reset_launches()
+    t0 = time.perf_counter()
+    with armed_fault("post-stage-commit", 1):
+        try:
+            run_plan(build_plan(spec), device=DEVICE, checkpoint_dir=ckdir,
+                     **kw)
+            fails.append(f"{tag}: the fault at post-stage-commit #1 never "
+                         "fired")
+        except FaultInjected:
+            pass
+    sync()
+    crash_s = time.perf_counter() - t0
+    crashed_launches = w.launch_counts()
+    grep_bytes = sum(os.path.getsize(p) for p in glob.glob(
+        os.path.join(ckdir, "stage00-*", "state-*.npz")))
+    res, entry = plan_run(tag, lambda: build_plan(spec), nbytes,
+                          checkpoint_dir=ckdir, resume=True, **kw)
+    entry.update({"fault": "post-stage-commit#1", "crash_seconds": crash_s,
+                  "crashed_launches": crashed_launches,
+                  "grep_commit_bytes": grep_bytes})
+    return res, entry, fails
+
+
+def plan_ckpt_cli_path(corpus, plain_dir, work):
+    """``plan_ckpt_cli``: ``python -m dsi_tpu_torch.cli.planrun --chain
+    grep-wc --checkpoint-dir`` on the plan row, killed for real at
+    ``post-stage-commit`` (``os._exit(87)`` after the grep stage's commit)
+    in a subprocess, then ``--resume --check`` through ``planrun.main`` in
+    this process; its ``mr-out-*`` bytes are held against those of the
+    uncrashed run in ``plain_dir``.  Returns (entry, failures)."""
+    import glob
+    import io
+
+    from dsi_tpu_torch.cli import planrun
+    from dsi_tpu_torch.ckpt import FAULT_EXIT
+    from dsi_tpu_torch.ops import wordcount as w
+
+    outdir = os.path.join(work, "planrun-ckpt")
+    args = ["--chain", "grep-wc", "--pattern", PLAN_PATTERN, "--chunk-bytes",
+            str(PLAN_CHUNK), "--workdir", outdir, "--device", DEVICE,
+            "--checkpoint-dir", os.path.join(work, "ck-planrun")]
+    env = {k: v for k, v in os.environ.items() if k not in FAULT_ENV}
+    env.update({"PYTHONPATH": REPO, "DSI_FAULT_POINT": "post-stage-commit",
+                "DSI_FAULT_STEP": "1"})
+    fails = []
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "dsi_tpu_torch.cli.planrun",
+                        *args, corpus], env=env, capture_output=True,
+                       text=True, timeout=600)
+    crash_s = time.perf_counter() - t0
+    if p.returncode != FAULT_EXIT or glob.glob(os.path.join(outdir,
+                                                            "mr-out-*")):
+        fails.append(f"plan_ckpt_cli: the crashed run exited {p.returncode}"
+                     f", not {FAULT_EXIT}, or wrote mr-out-*: "
+                     f"{p.stderr[-1500:]}")
+    out, err = io.StringIO(), io.StringIO()
+    w.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = planrun.main(args + ["--resume", "--check", "--stats-json",
+                                  os.path.join(work, "plan-ckpt.json"),
+                                  corpus])
+    sync()
+    secs = time.perf_counter() - t0
+    launches = w.launch_counts()
+    text = err.getvalue()
+
+    def outputs(d):
+        got = {}
+        for path in sorted(glob.glob(os.path.join(d, "mr-out-*"))):
+            with open(path, "rb") as f:
+                got[os.path.basename(path)] = f.read()
+        return got
+
+    want = outputs(plain_dir)
+    parity = bool(want) and outputs(outdir) == want
+    if rc != 0 or "parity OK" not in text or \
+            "resumed past 1 committed stage(s)" not in text:
+        fails.append(f"plan_ckpt_cli: --resume rc={rc}: {text[-1000:]}")
+    if not parity:
+        fails.append("plan_ckpt_cli: the resumed mr-out-* differ from the "
+                     "uncrashed planrun's")
+    with open(os.path.join(work, "plan-ckpt.json")) as f:
+        st = json.load(f)
+    return ({"parity": parity, "seconds": secs,
+             "mb_per_s": os.path.getsize(corpus) / secs / 1e6,
+             "crash_seconds": crash_s,
+             "crash_rc": p.returncode, "rc": rc, "launches": launches,
+             # The crashed run is another process: its launches are not
+             # counted here.
+             "crashed_launches": None,
+             **{k: st.get(k) for k in ("stage_commit_s", "plan_commit_bytes",
+                                       "plan_resumed_stages")},
+             "stderr": text.splitlines()[:3]}, fails)
 
 
 def main() -> int:

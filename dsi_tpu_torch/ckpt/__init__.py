@@ -3,7 +3,8 @@
 Copy of ``dsi_tpu/ckpt/``: the same environment names, on-disk layout,
 ``CKPT_VERSION`` and manifest format, so the two packages read each
 other's chains.  The streaming word count, grep, the indexer and TF-IDF
-checkpoint; the plan layer's stage commits refuse ``checkpoint_dir``.
+checkpoint, and the plan layer commits each completed stage
+(``plan/driver.py``).
 
 The reference system's whole fault-tolerance story is re-execution: a
 task that dies is re-run from its input files (10 s presumed-dead

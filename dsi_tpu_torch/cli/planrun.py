@@ -18,15 +18,18 @@ Chains:
 
 ``--pipeline`` overlaps a grep→wordcount pair (the word count consumes
 relay buffers as they seal); ``--stage-shards K`` runs a file-backed
-source stage as K newline-aligned shard attempts.  ``--device cpu`` runs
-the plain PyTorch versions; the default is the card.  ``--hosts``,
-``--checkpoint-dir``/``--resume``, ``--trace-dir`` and ``--aot`` are not
-ported yet and exit with an error naming their ROADMAP item.
+source stage as K newline-aligned shard attempts.  ``--checkpoint-dir``
+commits each completed stage durably; ``--resume`` skips every stage whose
+manifest verifies and goes on from the last one (the stores are the
+reference's, so either package resumes the other's).  ``--device cpu``
+runs the plain PyTorch versions; the default is the card.  ``--hosts``,
+``--trace-dir`` and ``--aot`` are not ported yet and exit with an error
+naming their ROADMAP item.
 
 Usage:
     python -m dsi_tpu_torch.cli.planrun --chain grep-wc --pattern PAT
         [--pattern2 PAT] [--pipeline] [--stage-shards K]
-        [--staged] [--chunk-bytes B] [--devices D] [--pipeline-depth K]
+        [--checkpoint-dir DIR [--resume]] [--staged] [--chunk-bytes B] [--devices D] [--pipeline-depth K]
         [--device-accumulate] [--sync-every K] [--mesh-shards N]
         [--nreduce N] [--u-cap U] [--topk K] [--workdir DIR] [--check]
         [--stats] [--stats-json FILE] [--device cuda|cpu] inputfiles...
@@ -44,8 +47,6 @@ import sys
 _NOT_PORTED = {
     "hosts": "--hosts (net-served relays) is not ported yet (ROADMAP "
              "Queue 1, #5, the control plane)",
-    "checkpoint_dir": "--checkpoint-dir/--resume (stage commits) are not "
-                      "ported yet (ROADMAP Queue 1, #4c, checkpoints)",
     "trace_dir": "--trace-dir is not ported yet (ROADMAP Queue 1, #5, "
                  "obs/)",
     "aot": "--aot is not ported yet (ROADMAP Queue 1, #7, the kernel "
@@ -120,21 +121,30 @@ def main(argv=None) -> int:
                         "plain PyTorch versions)")
     p.add_argument("--hosts", action="store_true", help=_NOT_PORTED["hosts"])
     p.add_argument("--checkpoint-dir", default=None,
-                   help=_NOT_PORTED["checkpoint_dir"])
+                   help="stage commits land here: each completed stage "
+                        "writes a durable manifest (ckpt/store.py) — see "
+                        "--resume")
     p.add_argument("--resume", action="store_true",
-                   help=_NOT_PORTED["checkpoint_dir"])
+                   help="skip every stage whose manifest verifies and go "
+                        "on from the last completed stage's commit")
     p.add_argument("--trace-dir", default=None, help=_NOT_PORTED["trace_dir"])
     p.add_argument("--aot", action="store_true", help=_NOT_PORTED["aot"])
     args = p.parse_args(argv)
 
     if args.hosts:
         p.error(_NOT_PORTED["hosts"])
-    if args.checkpoint_dir or args.resume:
-        p.error(_NOT_PORTED["checkpoint_dir"])
     if args.trace_dir:
         p.error(_NOT_PORTED["trace_dir"])
     if args.aot:
         p.error(_NOT_PORTED["aot"])
+    if args.resume and not args.checkpoint_dir:
+        p.error("--resume requires --checkpoint-dir")
+    if args.hosts and (args.checkpoint_dir or args.resume):
+        # Unreachable while --hosts is refused above; kept with the
+        # reference's wording for when ROADMAP Queue 1 #5 brings --hosts.
+        p.error("--hosts has its own commit surface (sealed stage "
+                "payloads); --checkpoint-dir/--resume are the in-process "
+                "stage-manifest path")
     if args.chain in ("grep-wc", "grep-grep") and not args.pattern:
         p.error(f"--chain {args.chain} requires --pattern")
     if args.chain == "grep-grep" and not args.pattern2:
@@ -143,6 +153,7 @@ def main(argv=None) -> int:
         p.error("--pipeline is chained-mode only (staged execution stays "
                 "strictly sequential: it is the parity oracle)")
 
+    from dsi_tpu_torch.ckpt import CheckpointMismatch
     from dsi_tpu_torch.plan import PlanHostPath, run_plan
     from dsi_tpu_torch.plan.stagehost import build_plan
 
@@ -151,14 +162,21 @@ def main(argv=None) -> int:
     try:
         res = run_plan(build_plan(spec), n_dev=args.devices,
                        device=args.device, staged=args.staged,
-                       pipelined=args.pipeline,
+                       checkpoint_dir=args.checkpoint_dir,
+                       resume=args.resume, pipelined=args.pipeline,
                        stage_shards=args.stage_shards, stats=stats)
+    except CheckpointMismatch as e:
+        print(f"planrun: {e}", file=sys.stderr)
+        return 1
     except PlanHostPath as e:
         # The chain's contract is device-resident intermediates; run the
         # standalone engines (wcstream, grepstream) for such inputs.
         print(f"planrun: {e}", file=sys.stderr)
         return 1
 
+    if args.resume:
+        print(f"planrun: resumed past {stats.get('plan_resumed_stages', 0)}"
+              f" committed stage(s)", file=sys.stderr)
     for name, wall in stats.get("plan_stage_walls", {}).items():
         print(f"planrun: stage {name}: {wall}s", file=sys.stderr)
     print(f"planrun: handoff={stats.get('plan_handoff')} "

@@ -10,7 +10,7 @@ stage N's device-resident output.
   join);
 * :mod:`~dsi_tpu_torch.plan.driver` — :func:`run_plan`, driving each stage
   as a step object with relay handoffs (``device/relay.py``), staged,
-  pipelined or stage-sharded.
+  pipelined or stage-sharded, with durable stage commits and resume.
 
 Entry point: ``python -m dsi_tpu_torch.cli.planrun``.
 """

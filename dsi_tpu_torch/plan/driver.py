@@ -13,9 +13,29 @@ construction.
 ``run_plan`` runs on ``device`` (None = the card, which raises without
 CUDA) over ``n_dev`` virtual shards, the reference's mesh size.  Every
 stage launches from the calling thread on its current CUDA stream, so a
-relay pack is ordered before the step that reads its buffer.  Stage
-commits (``checkpoint_dir``, ``resume``, the fault points) are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP item.
+relay pack is ordered before the step that reads its buffer.
+
+## Stage commits (crash-resume at stage granularity)
+
+With ``checkpoint_dir``, each completed stage writes a durable stage
+manifest through ``ckpt/store.py`` (CRC'd payload and manifest,
+newest-valid-wins): the stage's result plus what its downstream edge needs
+(the relay's image, the indexer's service images).  A ``resume=True`` run
+walks the stage stores in plan order and skips every stage whose manifest
+verifies, rebuilding its outputs on the host, so a crash anywhere in the
+chain (a real ``os._exit`` included) resumes from the last completed
+stage's commit.  A torn stage manifest fails verification and that stage
+runs again from its upstream's commit.  The stores are the reference's
+(directory ``stage{i:02d}-{name}``, engine ``plan-{kind}``, the same job
+identity, array names and meta keys), so either package resumes the
+other's.
+
+Fault points (``ckpt/fault.py``): ``plan-stage<i>-advance`` fires before
+each ``advance()`` of stage *i* (and once at the entry of a host stage),
+``post-stage-commit`` right after a stage manifest lands.  A chained
+stage's engine takes no checkpoints of its own (a byte cursor means
+nothing over a device relay), so a crash inside a stage runs that stage
+again from its upstream's commit.
 
 ``stats`` receives the reference's ``plan_*`` keys and, until the
 metrics registry is ported, each stage's engine stats under
@@ -34,9 +54,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from dsi_tpu_torch.ckpt import CheckpointStore, fault_point
 from dsi_tpu_torch.ops.wordcount import resolve_device
 from dsi_tpu_torch.parallel.pipeline import timed
-from dsi_tpu_torch.parallel.streaming import _not_ported
 from dsi_tpu_torch.plan.graph import Plan, PlanError, Stage
 
 
@@ -49,14 +69,20 @@ class PlanHostPath(RuntimeError):
 class StageOut:
     """One stage's outputs in the driver context: ``result`` (the stage's
     value), ``relay`` (the outgoing byte relay, grep) and ``handoff``
-    (exported live services, indexer)."""
+    (exported live services, indexer).  ``relay_spent`` marks a relay
+    consumed inside the producing run (the pipelined handoff): its stage
+    manifest carries no relay image, so a resume may trust it only while
+    the consumer's manifest verifies too."""
 
-    __slots__ = ("result", "relay", "handoff")
+    __slots__ = ("result", "relay", "handoff", "resumed", "relay_spent")
 
-    def __init__(self, result=None, relay=None, handoff=None):
+    def __init__(self, result=None, relay=None, handoff=None,
+                 resumed: bool = False, relay_spent: bool = False):
         self.result = result
         self.relay = relay
         self.handoff = handoff
+        self.resumed = resumed
+        self.relay_spent = relay_spent
 
 
 class PlanResult:
@@ -79,21 +105,28 @@ def _spill_bytes(plan: Plan) -> int:
     return int(float(mb) * 1e6)
 
 
-def _drive(step):
-    """Advance one step to completion (rung restarts included), then
-    close it."""
-    while step.advance():
-        pass
+def _drive(step, i: int):
+    """Advance stage *i*'s step to completion (rung restarts included)
+    with the per-advance fault point, then close it."""
+    while True:
+        fault_point(f"plan-stage{i}-advance")
+        if not step.advance():
+            break
     return step.close()
 
 
-def _drive_many(steps):
-    """Round-robin the K shard attempts of a stage to completion — one
-    ``advance()`` per live step per pass, so their device work
-    interleaves."""
+def _drive_many(steps, i: int):
+    """Round-robin the K shard attempts of stage *i* to completion — one
+    ``advance()`` per live step per pass, so their device work interleaves
+    — with the same per-advance fault point as :func:`_drive`."""
     live = list(steps)
     while live:
-        live = [st for st in live if st.advance()]
+        nxt = []
+        for st in live:
+            fault_point(f"plan-stage{i}-advance")
+            if st.advance():
+                nxt.append(st)
+        live = nxt
     return [st.close() for st in steps]
 
 
@@ -158,6 +191,86 @@ def _engine_stats(sc: dict, stage: Stage, k: int) -> List[dict]:
     return dicts
 
 
+def _stage_store(checkpoint_dir: str, i: int, stage: Stage,
+                 plan_sig: Dict, staged: bool) -> CheckpointStore:
+    """One checkpoint store a stage, keyed by the plan signature and the
+    handoff mode: resuming a chained run from a staged run's manifests (or
+    either from another plan) refuses instead of misreading."""
+    d = os.path.join(checkpoint_dir, f"stage{i:02d}-{stage.name}")
+    return CheckpointStore(d, f"plan-{stage.kind}",
+                           {"plan": plan_sig, "stage": stage.name,
+                            "staged": bool(staged)})
+
+
+# ── result codecs (stage-commit payloads) ─────────────────────────────
+
+
+def _encode_counts(d: Dict) -> Dict[str, np.ndarray]:
+    words = sorted(d)
+    joined = "\n".join(words).encode("ascii")
+    return {"wc_words": np.frombuffer(joined, np.uint8).copy(),
+            "wc_cnt": np.array([d[w][0] for w in words], np.int64),
+            "wc_part": np.array([d[w][1] for w in words], np.int64)}
+
+
+def _decode_counts(arrays: Dict[str, np.ndarray]) -> Dict:
+    raw = np.asarray(arrays.get("wc_words", np.zeros(0, np.uint8)),
+                     np.uint8).tobytes().decode("ascii")
+    words = raw.split("\n") if raw else []
+    cnt = np.asarray(arrays.get("wc_cnt", np.zeros(0)), np.int64)
+    part = np.asarray(arrays.get("wc_part", np.zeros(0)), np.int64)
+    return {w: (int(c), int(p)) for w, c, p in zip(words, cnt, part)}
+
+
+def _encode_words(words: List[str], prefix: str) -> Dict[str, np.ndarray]:
+    joined = "\n".join(words).encode("ascii")
+    return {f"{prefix}words": np.frombuffer(joined, np.uint8).copy()}
+
+
+def _decode_words(arrays: Dict[str, np.ndarray], prefix: str) -> List[str]:
+    raw = np.asarray(arrays.get(f"{prefix}words", np.zeros(0, np.uint8)),
+                     np.uint8).tobytes().decode("ascii")
+    return raw.split("\n") if raw else []
+
+
+def _encode_top(top) -> Dict[str, np.ndarray]:
+    """A ``((count, word), ...)`` ranking as ``t_words`` and ``t_df``."""
+    arrays = _encode_words([w for _, w in top], "t_")
+    arrays["t_df"] = np.array([c for c, _ in top], np.int64)
+    return arrays
+
+
+def _decode_top(arrays: Dict[str, np.ndarray]) -> Tuple:
+    return tuple(zip((int(c) for c in arrays.get("t_df", ())),
+                     _decode_words(arrays, "t_")))
+
+
+def _encode_join(join: Dict) -> Dict[str, np.ndarray]:
+    words = sorted(join, key=lambda w: (-join[w][0], w))
+    docs_flat: List[int] = []
+    offs = [0]
+    for w in words:
+        docs_flat.extend(join[w][2])
+        offs.append(len(docs_flat))
+    out = _encode_words(words, "j_")
+    out["j_df"] = np.array([join[w][0] for w in words], np.int64)
+    out["j_part"] = np.array([join[w][1] for w in words], np.int64)
+    out["j_docs"] = np.array(docs_flat, np.int64)
+    out["j_offs"] = np.array(offs, np.int64)
+    return out
+
+
+def _decode_join(arrays: Dict[str, np.ndarray]) -> Dict:
+    words = _decode_words(arrays, "j_")
+    df = np.asarray(arrays.get("j_df", np.zeros(0)), np.int64)
+    part = np.asarray(arrays.get("j_part", np.zeros(0)), np.int64)
+    docs = np.asarray(arrays.get("j_docs", np.zeros(0)), np.int64)
+    offs = np.asarray(arrays.get("j_offs", np.zeros(1)), np.int64)
+    return {w: (int(df[i]), int(part[i]),
+                tuple(int(x) for x in docs[offs[i]:offs[i + 1]]))
+            for i, w in enumerate(words)}
+
+
 # ── the driver ────────────────────────────────────────────────────────
 
 
@@ -169,19 +282,17 @@ def run_plan(plan: Plan, *, n_dev: int = 1, device=None,
     """Run ``plan`` end to end over ``n_dev`` virtual shards on ``device``
     (None = the card; module docstring).  ``staged=True`` is the host
     materialisation baseline; results are identical to the chained mode.
+    ``checkpoint_dir`` turns stage boundaries into durable commit points;
+    ``resume=True`` skips every stage whose manifest verifies.
 
     ``pipelined=True`` overlaps a grep→wordcount pair: the word count
     consumes relay buffers as they seal while the grep is still producing
     (``plan_overlap_s`` is the wall of consumer advances before the
     producer finished).  Chained mode only.  ``stage_shards=K`` runs a
     file-backed source stage as K newline-aligned shard attempts,
-    interleaved and merged.  ``checkpoint_dir`` and ``resume`` are not
-    ported yet."""
+    interleaved and merged."""
     if resume and not checkpoint_dir:
         raise PlanError("resume=True requires checkpoint_dir")
-    if checkpoint_dir:
-        raise _not_ported("checkpoint_dir/resume (stage commits)",
-                          "#4c, checkpoints")
     dev = resolve_device(device)
     pipelined = bool(pipelined) and not staged
     stage_shards = max(0, int(stage_shards or 0))
@@ -193,30 +304,72 @@ def run_plan(plan: Plan, *, n_dev: int = 1, device=None,
                 "plan_overlap_s": 0.0, "plan_s": 0.0, "stage_commit_s": 0.0,
                 "plan_stage_walls": {}, "plan_engine_stats": {}}
     order = plan.ordered()
+    sig = plan.signature()
     ctx: Dict[str, StageOut] = {}
-    i = 0
+    completed = 0
+    if checkpoint_dir:
+        stores = [_stage_store(checkpoint_dir, i, stage, sig, staged)
+                  for i, stage in enumerate(order)]
+        if resume:
+            for stage, store in zip(order, stores):
+                loaded = store.load_latest()
+                if loaded is None:
+                    break  # this stage (and every later one) runs again
+                meta, arrays = loaded
+                ctx[stage.name] = _load_commit(plan, stage, meta, arrays,
+                                               n_dev, dev, staged, sc)
+                completed += 1
+            # A spent-relay manifest (the pipelined producer) holds no
+            # relay image: it is trustworthy only while its consumer's
+            # manifest verifies too.  The consumer sits later in the
+            # order, so a spent producer as the last loaded stage means
+            # its consumer is missing, and the producer runs again as well
+            # (resuming it would hand the consumer an empty relay).
+            while completed and ctx[order[completed - 1].name].relay_spent:
+                del ctx[order[completed - 1].name]
+                completed -= 1
+            sc["plan_resumed_stages"] = completed
+        else:
+            for store in stores:
+                store.reset()
+
+    def commit(i: int, stage: Stage, out: StageOut) -> None:
+        with timed(sc, "stage_commit_s"):
+            arrays, meta = _commit_payload(plan, stage, out, staged)
+            stores[i].save(arrays, meta)
+            sc["plan_commit_bytes"] += stores[i].last_payload_bytes
+        fault_point("post-stage-commit")
+
+    i = completed
     while i < len(order):
         stage = order[i]
         nxt = order[i + 1] if i + 1 < len(order) else None
         if (pipelined and stage.kind == "grep" and not stage.deps
                 and nxt is not None and nxt.kind == "wordcount"
                 and list(nxt.deps) == [stage.name]):
-            # The fused pair: both stages run interleaved.
+            # The fused pair: both stages run interleaved; the commits
+            # land afterwards, in plan order, the grep manifest marked
+            # relay-spent (its buffers were consumed in flight).
             t0 = time.perf_counter()
             g_out, w_out, g_wall = _run_pipelined_pair(
-                plan, stage, nxt, n_dev, dev, sc, stage_shards)
+                plan, i, stage, nxt, n_dev, dev, sc, stage_shards)
             ctx[stage.name] = g_out
             ctx[nxt.name] = w_out
             sc["plan_stage_walls"][stage.name] = g_wall
             sc["plan_stage_walls"][nxt.name] = time.perf_counter() - t0
+            if checkpoint_dir:
+                commit(i, stage, g_out)
+                commit(i + 1, nxt, w_out)
             i += 2
             continue
         t0 = time.perf_counter()
         with timed(sc, "plan_s"):
-            out = _run_stage(plan, stage, ctx, n_dev, dev, staged, sc,
+            out = _run_stage(plan, i, stage, ctx, n_dev, dev, staged, sc,
                              stage_shards)
         ctx[stage.name] = out
         sc["plan_stage_walls"][stage.name] = time.perf_counter() - t0
+        if checkpoint_dir:
+            commit(i, stage, out)
         i += 1
     if stats is not None:
         stats.update(sc)
@@ -310,12 +463,14 @@ def _wc_kw(plan: Plan, stage: Stage) -> Dict:
                 u_cap=int(plan.param(stage, "u_cap", 1 << 12)))
 
 
-def _run_pipelined_pair(plan: Plan, g_stage: Stage, wc_stage: Stage,
-                        n_dev: int, dev, sc: dict, stage_shards: int):
+def _run_pipelined_pair(plan: Plan, i: int, g_stage: Stage,
+                        wc_stage: Stage, n_dev: int, dev, sc: dict,
+                        stage_shards: int):
     """The fused grep→wordcount pair: the word count consumes relay
     buffers as they seal while the grep(s) keep producing.  The consumer
     is advanced only while fed-but-unconsumed buffers exist, so the
-    interleave never blocks on an empty feed."""
+    interleave never blocks on an empty feed.  The grep is stage *i*, the
+    word count stage *i + 1*."""
     from dsi_tpu_torch.device.relay import DeviceRelay
     from dsi_tpu_torch.parallel.streaming import WordcountStep
 
@@ -334,13 +489,19 @@ def _run_pipelined_pair(plan: Plan, g_stage: Stage, wc_stage: Stage,
     with timed(sc, "plan_s"):
         live = list(gsteps)
         while live:
-            live = [st for st in live if st.advance()]
+            nxt = []
+            for st in live:
+                fault_point(f"plan-stage{i}-advance")
+                if st.advance():
+                    nxt.append(st)
+            live = nxt
             for buf in relay.take_sealed():
                 feed.put(buf)
                 fed += 1
             if wc_live and consumed < fed:
                 with timed(sc, "plan_overlap_s"):
                     while wc_live and consumed < fed:
+                        fault_point(f"plan-stage{i + 1}-advance")
                         wc_live = wc.advance()
                         consumed += 1
         g_results = [st.close() for st in gsteps]
@@ -358,16 +519,19 @@ def _run_pipelined_pair(plan: Plan, g_stage: Stage, wc_stage: Stage,
     feed.close()
     with timed(sc, "plan_s"):
         while wc_live:
+            fault_point(f"plan-stage{i + 1}-advance")
             wc_live = wc.advance()
         w_res = wc.close()
     if w_res is None:
         raise PlanHostPath(f"stage {wc_stage.name!r}: wordcount needs the "
                            f"host path (non-ASCII or >64-byte word)")
-    return StageOut(result=g_res, relay=relay), StageOut(result=w_res), g_wall
+    return (StageOut(result=g_res, relay=relay, relay_spent=True),
+            StageOut(result=w_res), g_wall)
 
 
-def _run_stage(plan: Plan, stage: Stage, ctx: Dict, n_dev: int, dev,
-               staged: bool, sc: dict, stage_shards: int = 0) -> StageOut:
+def _run_stage(plan: Plan, i: int, stage: Stage, ctx: Dict, n_dev: int,
+               dev, staged: bool, sc: dict,
+               stage_shards: int = 0) -> StageOut:
     kw = _engine_kw(plan, stage)
     if stage.kind == "grep":
         from dsi_tpu_torch.device.relay import DeviceRelay, HostRelay
@@ -377,7 +541,8 @@ def _run_stage(plan: Plan, stage: Stage, ctx: Dict, n_dev: int, dev,
                                   stats=sc, spill_bytes=_spill_bytes(plan)))
         steps, sharded = _grep_steps(plan, stage, relay, n_dev, dev, kw, sc,
                                      stage_shards, ctx)
-        results = _drive_many(steps) if sharded else [_drive(steps[0])]
+        results = (_drive_many(steps, i) if sharded
+                   else [_drive(steps[0], i)])
         if any(r is None for r in results):
             raise PlanHostPath(f"stage {stage.name!r}: grep needs the host "
                                f"path (non-literal pattern or over-wide "
@@ -406,7 +571,7 @@ def _run_stage(plan: Plan, stage: Stage, ctx: Dict, n_dev: int, dev,
             else:
                 step = WordcountStep([], device_batches=up.relay.batches(),
                                      pipeline_stats=st, **wc_kw)
-            res = _drive(step)
+            res = _drive(step, i)
             if res is None:
                 raise PlanHostPath(f"stage {stage.name!r}: wordcount needs "
                                    f"the host path (non-ASCII or >64-byte "
@@ -423,8 +588,8 @@ def _run_stage(plan: Plan, stage: Stage, ctx: Dict, n_dev: int, dev,
                                    pipeline_stats=st, **wc_kw)
                      for spec, st in zip(specs, _engine_stats(
                          sc, stage, len(specs)))]
-        results = _drive_many(steps) if len(steps) > 1 \
-            else [_drive(steps[0])]
+        results = _drive_many(steps, i) if len(steps) > 1 \
+            else [_drive(steps[0], i)]
         if any(r is None for r in results):
             raise PlanHostPath(f"stage {stage.name!r}: wordcount needs the "
                                f"host path (non-ASCII or >64-byte word)")
@@ -432,6 +597,7 @@ def _run_stage(plan: Plan, stage: Stage, ctx: Dict, n_dev: int, dev,
                         else _merge_counts(results))
 
     if stage.kind == "top_k":
+        fault_point(f"plan-stage{i}-advance")
         k = int(plan.param(stage, "topk", 16))
         counts = ctx[stage.deps[0]].result
         return StageOut(result=tuple(sorted(
@@ -451,7 +617,7 @@ def _run_stage(plan: Plan, stage: Stage, ctx: Dict, n_dev: int, dev,
                            sync_every=kw["sync_every"],
                            mesh_shards=kw["mesh_shards"],
                            stats=_engine_stats(sc, stage, 1)[0], device=dev)
-        res = _drive(step)
+        res = _drive(step, i)
         if res is None:
             raise PlanHostPath(f"stage {stage.name!r}: indexer needs the "
                                f"host path (non-ASCII or >64-byte word)")
@@ -460,14 +626,16 @@ def _run_stage(plan: Plan, stage: Stage, ctx: Dict, n_dev: int, dev,
         return StageOut(result=None, handoff=step.exported)
 
     if stage.kind == "df_topk":
+        fault_point(f"plan-stage{i}-advance")
         k = int(plan.param(stage, "topk", 16))
         up = ctx[stage.deps[0]]
-        if up.handoff is None:  # the staged indexer's result
+        if up.handoff is None:  # a staged indexer's result, run or loaded
             _, top = up.result
             return StageOut(result=tuple(top[:k]))
         return StageOut(result=_df_topk_from_handoff(up.handoff, k))
 
     if stage.kind == "postings_join":
+        fault_point(f"plan-stage{i}-advance")
         up_idx = ctx[stage.deps[0]]
         top = ctx[stage.deps[1]].result
         words = [w for _, w in top]
@@ -531,3 +699,130 @@ def _word_spans(table):
     words = decode_packed(packed.skeys, packed.lens, len(packed.skeys))
     for i, w in enumerate(words):
         yield w, int(packed.starts[i]), int(packed.ends[i])
+
+
+# ── stage-commit payloads ─────────────────────────────────────────────
+
+
+def _commit_payload(plan: Plan, stage: Stage, out: StageOut,
+                    staged: bool) -> Tuple[Dict, Dict]:
+    meta = {"stage": stage.name, "kind": stage.kind}
+    if stage.kind == "grep":
+        res = out.result
+        if out.relay_spent:
+            # The pipelined producer: its relay was consumed in flight, so
+            # the manifest carries the scalar result only; run_plan's
+            # resume drops it whenever its consumer's commit is missing.
+            arrays = {}
+            meta["relay_spent"] = True
+        else:
+            arrays = out.relay.capture()
+            meta["relay_cap"] = int(plan.param(stage, "chunk_bytes",
+                                               1 << 20))
+        arrays["g_hist"] = np.array(res.hist, np.int64)
+        arrays["g_tot"] = np.array(
+            [res.lines, res.matched, res.occurrences], np.int64)
+        arrays["g_topk"] = np.array(res.topk, np.int64).reshape(-1, 2)
+        return arrays, meta
+    if stage.kind == "wordcount":
+        return _encode_counts(out.result), meta
+    if stage.kind in ("top_k", "df_topk"):
+        return _encode_top(out.result), meta
+    if stage.kind == "indexer":
+        if staged:
+            postings, top = out.result
+            arrays = _encode_join({w: (len(ds), part, tuple(ds))
+                                   for w, (part, ds) in postings.items()})
+            arrays.update(_encode_top(top))
+            return arrays, meta
+        h = out.handoff
+        arrays = {}
+        tk = h.get("topk_svc")
+        if tk is not None:
+            for key, v in tk.checkpoint_state().items():
+                arrays[f"tk_{key}"] = np.asarray(v)
+            meta["table_kk"] = tk.kk
+        pb = h.get("postings_svc")
+        if pb is not None:
+            img = pb.checkpoint_state()
+            arrays["pb_buf"] = np.asarray(img["buf"])
+            arrays["pb_nrows"] = np.asarray(img["nrows"])
+        for key, v in h["df_acc"].snapshot().items():
+            arrays[f"df_{key}"] = np.asarray(v)
+        for key, v in h["table"].snapshot().items():
+            arrays[f"pt_{key}"] = np.asarray(v)
+        meta["kk"] = h["kk"]
+        meta["n_real"] = h["n_real"]
+        return arrays, meta
+    if stage.kind == "postings_join":
+        return _encode_join(out.result), meta
+    raise PlanError(f"uncommittable stage kind {stage.kind!r}")
+
+
+def _load_commit(plan: Plan, stage: Stage, meta: Dict, arrays: Dict,
+                 n_dev: int, dev, staged: bool, sc: dict) -> StageOut:
+    """Rebuild a completed stage's outputs from its manifest on the host
+    (the device state died with the crashed process): a relay's buffers
+    come back host-resident and the consumer uploads them to ``dev``; the
+    indexer's service images drain into its host accumulators."""
+    if stage.kind == "grep":
+        from dsi_tpu_torch.device.relay import DeviceRelay, HostRelay
+        from dsi_tpu_torch.parallel.grepstream import GrepStreamResult
+
+        tot = arrays["g_tot"]
+        res = GrepStreamResult(
+            int(tot[0]), int(tot[1]), int(tot[2]),
+            tuple(int(x) for x in arrays["g_hist"]),
+            tuple((int(a), int(b)) for a, b in arrays["g_topk"]))
+        if meta.get("relay_spent"):
+            return StageOut(result=res, resumed=True, relay_spent=True)
+        if "hbytes" in arrays:
+            relay = HostRelay.restore(arrays, stats=sc)
+        else:
+            relay = DeviceRelay.restore(n_dev, arrays,
+                                        cap=int(meta["relay_cap"]),
+                                        device=dev, stats=sc)
+        return StageOut(result=res, relay=relay, resumed=True)
+    if stage.kind == "wordcount":
+        return StageOut(result=_decode_counts(arrays), resumed=True)
+    if stage.kind in ("top_k", "df_topk"):
+        return StageOut(result=_decode_top(arrays), resumed=True)
+    if stage.kind == "indexer":
+        if staged:
+            postings = {w: (part, list(ds))
+                        for w, (_df, part, ds) in _decode_join(arrays).items()}
+            return StageOut(result=(postings, _decode_top(arrays)),
+                            resumed=True)
+        from dsi_tpu_torch.device.postings import DevicePostings
+        from dsi_tpu_torch.device.table import DeviceTable
+        from dsi_tpu_torch.parallel.merge import PackedCounts, PostingsTable
+
+        kk = int(meta["kk"])
+        n_real = int(meta["n_real"])
+
+        def image(prefix: str) -> Dict[str, np.ndarray]:
+            return {k[len(prefix):]: v for k, v in arrays.items()
+                    if k.startswith(prefix)}
+
+        df_acc = PackedCounts()
+        df_acc.restore(image("df_"))
+        table = PostingsTable()
+        table.restore(image("pt_"))
+        tk_img = image("tk_")
+        if tk_img:
+            DeviceTable.drain_image(df_acc, tk_img)
+        if "pb_buf" in arrays:
+            def sink(r):
+                r = r[r[:, kk + 2] < n_real]  # drop the padding documents
+                if len(r):
+                    table.add(r, kk)
+
+            DevicePostings.drain_image(
+                sink, {"buf": arrays["pb_buf"], "nrows": arrays["pb_nrows"]})
+        handoff = {"kk": kk, "n_real": n_real, "topk_svc": None,
+                   "postings_svc": None, "df_acc": df_acc, "table": table,
+                   "device_accumulate": True}
+        return StageOut(handoff=handoff, resumed=True)
+    if stage.kind == "postings_join":
+        return StageOut(result=_decode_join(arrays), resumed=True)
+    raise PlanError(f"unloadable stage kind {stage.kind!r}")

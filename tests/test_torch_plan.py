@@ -388,9 +388,14 @@ def test_short_lines_replay_and_spill_match_reference(monkeypatch):
 
 
 def test_run_plan_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    from dsi_tpu_torch.ckpt import CheckpointMismatch
+
     plan = tp.grep_wordcount_plan("the", data=corpus(n=9))
-    with pytest.raises(NotImplementedError, match="#4"):
-        tp.run_plan(plan, device="cpu", checkpoint_dir=str(tmp_path))
+    # Stage commits are ported: another plan's store is refused.
+    tp.run_plan(plan, device="cpu", checkpoint_dir=str(tmp_path))
+    with pytest.raises(CheckpointMismatch):
+        tp.run_plan(tp.grep_wordcount_plan("the", data=corpus(n=12)),
+                    device="cpu", checkpoint_dir=str(tmp_path), resume=True)
     with pytest.raises(tp.PlanError):
         tp.run_plan(plan, device="cpu", resume=True)
     with pytest.raises(tp.PlanHostPath):
@@ -455,8 +460,14 @@ def test_planrun_matches_reference_cli(chain, cli_files, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--hosts"], "#5"), (["--checkpoint-dir", "ck"], "#4"),
-    (["--resume"], "#4"), (["--trace-dir", "t"], "#5"), (["--aot"], "#7")])
+    (["--hosts"], "#5"),
+    # Stage commits are ported: these two cases are the reference's own
+    # refusals now.
+    pytest.param(["--checkpoint-dir", "ck", "--hosts"], "#5",
+                 id="flags1-#4"),
+    pytest.param(["--resume"], "--resume requires --checkpoint-dir",
+                 id="flags2-#4"),
+    (["--trace-dir", "t"], "#5"), (["--aot"], "#7")])
 def test_planrun_refuses_what_is_not_ported(flags, item, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(["--chain", "wc-topk", "--device", "cpu", *flags, "f"])
